@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (diffusion_models_moe_tpu_torch) on
+one NVIDIA GPU: the quickest proof that the port builds, is right and runs
+its main path on the card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout. Phases:
+  1. the card (nvidia-smi name and power limit), torch and CUDA versions,
+     and the build of the hand-written kernels from ops/csrc/;
+  2. each kernel against its plain PyTorch version (f32 math on the same
+     bf16 inputs) at the SD1.5 shapes of the main path, with errors and
+     CUDA-event times of both;
+  3. the main path: moefied SD1.5 text-to-image in bf16 (seeded random
+     weights, MoE routing on all 16 FFs with topk 0.3), 2 requests at
+     512x512 through `generate`, PNDM at the config's 50 steps with CFG 7.5,
+     VAE decode; wall time, img/s, peak memory, and the kernels' launch
+     counts during that run;
+  4. `denoise` for 3 and for 50 steps from the same latents with the
+     kernels and with their plain versions: latent relative error, held
+     against the bf16-vs-f32 floor of the card (the plain versions in an f32
+     copy of the model) and, at 50 steps, below 0.05.
+It needs CUDA and exits non-zero on any failure, printing no result. Its
+second-to-last line is a JSON object describing each kernel, its last line
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FF_REL_TOL = 2e-2        # max |kernel - plain| / max |plain| on agreeing rows
+# Least shares of FF routing decisions, and of rows whose whole expert set,
+# agree between kernel and plain version: about 5x and 4x the worst
+# disagreement measured on an H100 (1 - 0.999996 and 1 - 0.999756).
+FF_DECISION_AGREEMENT = 0.99998
+FF_ROW_AGREEMENT = 0.999
+ATTN_REL_TOL = 2e-2      # max |kernel - plain| / max |plain|
+# ||z_kernels - z_plain|| / ||z_plain||: below FLOOR_FACTOR x the bf16-vs-f32
+# floor measured on the card in the same run, and below LATENT_REL_TOL after
+# the config's 50 steps (the step count of the TPU's 0.0484 floor). After 3
+# steps with CFG 7.5 the MoE routing amplifies any rounding difference: bf16
+# against f32 alone differs by ~0.1 there.
+FLOOR_FACTOR = 1.5
+LATENT_REL_TOL = 0.05
+BATCH = 2                # requests, one prompt each; CFG doubles the UNet batch
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over `iters` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    diff = (got.float() - ref.float()).abs()
+    return diff.max().item(), (diff.max() / ref.float().abs().max()).item()
+
+
+def labels_for(ff_dims, seed: int = 0) -> dict:
+    """Random balanced 20-neuron expert labels per FF layer."""
+    from diffusion_models_moe_tpu_torch.taps import layer_name
+    rng = np.random.RandomState(seed)
+    return {layer_name(i): rng.permutation(np.arange(4 * d) % ((4 * d) // 20))
+            for i, d in enumerate(ff_dims)}
+
+
+# ---------------------------------------------------------------- phase 2
+def check_ff(gen: torch.Generator) -> dict:
+    from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
+    from diffusion_models_moe_tpu_torch.taps import patterns_from_labels
+    dev, bf16 = "cuda", torch.bfloat16
+    shapes = []
+
+    def rn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # (C, N): N = CFG batch (2 x BATCH) x tokens of the UNet level
+    for c, tokens in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
+        n, hdim = 2 * BATCH * tokens, 4 * c
+        e = hdim // 20
+        k = int(e * 0.3)
+        x = rn(n, c)
+        w1, b1 = rn(2 * hdim, c, scale=c ** -0.5), rn(2 * hdim, scale=0.1)
+        w2, b2 = rn(c, hdim, scale=hdim ** -0.5), rn(c, scale=0.1)
+        g = rn(c, scale=0.1, dtype=torch.float32) + 1.0
+        bb = rn(c, scale=0.1, dtype=torch.float32)
+        lab = np.random.RandomState(c).permutation(np.arange(hdim) % e)
+        pat = patterns_from_labels(lab, e).to(dev, bf16)
+        args = (x, w1, b1, w2, b2, pat, k)
+        ln = dict(ln_scale=g, ln_bias=bb)
+        y = ffm.geglu_ff_fused(*args, **ln)
+        y_plain = ffm.geglu_ff_fused(*args, **ln, use_kernels=False)
+        torch.cuda.synchronize()
+        sel_k = ffm.kernel_selection(x, w1, b1, pat, k, **ln)
+        _, ga = ffm.reference_gate(x, w1, b1, False, g, bb, 1e-5)
+        sel_p = ffm.reference_selection(ga, pat, k, bf16)
+        decision_agree = (sel_k == sel_p).float().mean().item()
+        rows = (sel_k == sel_p).all(dim=1)
+        row_agree = rows.float().mean().item()
+        abs_e, rel = rel_err(y[rows], y_plain[rows])
+        ms = cuda_ms(lambda: ffm.geglu_ff_fused(*args, **ln), 20)
+        plain_ms = cuda_ms(
+            lambda: ffm.geglu_ff_fused(*args, **ln, use_kernels=False), 5)
+        print(f"ff    C={c:4d} N={n:5d} E={e:3d} k={k:2d}: routing decisions "
+              f"agree {decision_agree:.6f}, rows agree {row_agree:.6f}; on "
+              f"agreeing rows max_abs_err {abs_e:.6g} rel {rel:.3e} "
+              f"(tol {FF_REL_TOL:g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms", flush=True)
+        check(decision_agree >= FF_DECISION_AGREEMENT,
+              f"ff C={c}: routing decisions agree {decision_agree} < "
+              f"{FF_DECISION_AGREEMENT}")
+        check(row_agree >= FF_ROW_AGREEMENT,
+              f"ff C={c}: rows agree {row_agree} < {FF_ROW_AGREEMENT}")
+        check(rel <= FF_REL_TOL, f"ff C={c}: rel err {rel} > {FF_REL_TOL}")
+        shapes.append(dict(shape=f"N={n},C={c},E={e},k={k}", max_abs_err=abs_e,
+                           rel_err=rel, ms=ms, plain_ms=plain_ms,
+                           decision_agreement=decision_agree,
+                           row_agreement=row_agree))
+    return shapes
+
+
+def check_attention(gen: torch.Generator) -> tuple[dict, dict]:
+    from diffusion_models_moe_tpu_torch.ops import sd_flash
+    dev = "cuda"
+    b, heads = 2 * BATCH, 8
+    out = {}
+    for kind in ("self", "cross"):
+        shapes = out[kind] = []
+        for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
+            s_kv = s if kind == "self" else 77
+            # (B, S, C) projection outputs viewed as (B, S, H, D), as the
+            # model hands them to the kernels
+            q, k, v = (torch.randn((b, n, heads * d), generator=gen,
+                                   device=dev).bfloat16().view(b, n, heads, d)
+                       for n in (s, s_kv, s_kv))
+            scale = d ** -0.5
+            if kind == "self":
+                fn = lambda uk: sd_flash.sd_self_attention(  # noqa: E731
+                    q, k, v, scale, use_kernels=uk)
+            else:
+                fn = lambda uk: sd_flash.sd_cross_attention(  # noqa: E731
+                    q, k, v, scale, 77, use_kernels=uk)
+            o, o_plain = fn(True), fn(False)
+            torch.cuda.synchronize()
+            abs_e, rel = rel_err(o, o_plain)
+            ms = cuda_ms(lambda: fn(True), 20)
+            plain_ms = cuda_ms(lambda: fn(False), 5)
+            print(f"{kind:5s} S={s:4d} S_kv={s_kv:4d} D={d:3d}: max_abs_err "
+                  f"{abs_e:.6g} rel {rel:.3e} (tol {ATTN_REL_TOL:g}); kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+            check(rel <= ATTN_REL_TOL, f"{kind} S={s} D={d}: rel err {rel}")
+            shapes.append(dict(shape=f"B={b},S={s},S_kv={s_kv},H={heads},D={d}",
+                               max_abs_err=abs_e, rel_err=rel, ms=ms,
+                               plain_ms=plain_ms))
+    return out["self"], out["cross"]
+
+
+# ---------------------------------------------------------------- phase 3/4
+def run_slice(card: str) -> tuple:
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                build_moe_interventions,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.ops import _build
+    dev = "cuda"
+    cfg = sd15_config(torch.bfloat16)
+    steps = cfg.num_inference_steps
+    calls = steps + 1        # PNDM's warm-up takes one extra UNet call
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline(cfg, device=dev)
+    pipe.init_params(torch.Generator(device=dev).manual_seed(0))
+    ivs = build_moe_interventions(labels_for(cfg.unet.ff_dims()), 0.3,
+                                  device=dev, dtype=cfg.unet.dtype)
+    tcfg = cfg.text_encoder
+    cond = torch.randint(0, tcfg.vocab_size, (BATCH, tcfg.max_length),
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    uncond = torch.zeros_like(cond)
+    torch.cuda.synchronize()
+    print(f"slice: SD1.5 bf16 pipeline built with seeded random weights in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # warm-up: one 1-step request (cuDNN/cuBLAS set-up), not timed or counted
+    pipe.generate(cond, uncond, torch.Generator(device=dev).manual_seed(2),
+                  num_steps=1, ivs=ivs)
+    torch.cuda.synchronize()
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images = pipe.generate(cond, uncond,
+                           torch.Generator(device=dev).manual_seed(3),
+                           ivs=ivs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    side = 8 * cfg.sample_size
+    check(tuple(images.shape) == (BATCH, 3, side, side),
+          f"image shape {tuple(images.shape)}")
+    check(bool(torch.isfinite(images).all()), "non-finite image values")
+    check(images.min().item() >= 0.0 and images.max().item() <= 1.0,
+          "image values outside [0, 1]")
+    print(f"slice on {card}: generate {BATCH} requests 512x512, PNDM "
+          f"{steps} steps ({calls} UNet calls at batch {2 * BATCH}), CFG "
+          f"{cfg.guidance_scale}, MoE topk 0.3 on "
+          f"{sum(iv is not None for iv in ivs)} FFs: wall {wall:.3f} s, "
+          f"{BATCH / wall:.4f} img/s, peak memory {peak_gib:.2f} GiB; images "
+          f"finite in [{images.min().item():.4f}, "
+          f"{images.max().item():.4f}]; launches {launches} (expected "
+          f"{16 * calls} each)", flush=True)
+    # every one of the 16 transformer blocks, at every UNet call
+    for name, count in launches.items():
+        check(count == 16 * calls,
+              f"kernel {name}: {count} launches on the main path, expected "
+              f"{16 * calls}")
+
+    return pipe, ivs, cond, uncond, launches
+
+
+def check_latents(pipe, ivs, cond, uncond) -> None:
+    """Phase 4: `denoise` from the same latents with the kernels and with
+    their plain versions, against the bf16-vs-f32 floor of this card: the
+    same denoise with the plain versions in an f32 copy of the model."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    dev, cfg = "cuda", pipe.config
+    pipe32 = StableDiffusionPipeline(sd15_config(torch.float32), device=dev)
+    pipe32.init_params(torch.Generator(device=dev).manual_seed(0))
+    ctx = torch.cat([pipe.encode_text(uncond), pipe.encode_text(cond)])
+    ctx32 = torch.cat([pipe32.encode_text(uncond), pipe32.encode_text(cond)])
+    lat = torch.randn((BATCH, 4, cfg.sample_size, cfg.sample_size),
+                      generator=torch.Generator(device=dev).manual_seed(4),
+                      device=dev)
+    g = cfg.guidance_scale
+    for steps in (3, cfg.num_inference_steps):
+        z_k = pipe.denoise(ctx, lat, steps, g, ivs)
+        z_p = pipe.denoise(ctx, lat, steps, g, ivs, use_kernels=False)
+        z_32 = pipe32.denoise(ctx32, lat, steps, g, ivs, use_kernels=False)
+        check(bool(torch.isfinite(z_k).all()), "non-finite latents")
+        rel = ((z_k - z_p).norm() / z_p.norm()).item()
+        floor = ((z_p - z_32).norm() / z_32.norm()).item()
+        print(f"denoise {steps} steps, CFG {g}, MoE on 16 FFs: latent rel err "
+              f"kernels vs plain {rel:.6f}; floor (plain bf16 vs plain f32 on "
+              f"this card) {floor:.6f}", flush=True)
+        check(rel <= FLOOR_FACTOR * floor,
+              f"{steps} steps: kernels-vs-plain {rel} > {FLOOR_FACTOR} x "
+              f"floor {floor}")
+    # `rel` of the last pass: the config's full step count
+    check(rel < LATENT_REL_TOL,
+          f"{steps} steps: latent rel err {rel} >= {LATENT_REL_TOL}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
+                         "the GPU")
+    if torch.cuda.device_count() != 1:
+        raise SystemExit(f"chip_smoke: runs on one card, {torch.cuda.device_count()}"
+                         " are visible (set CUDA_VISIBLE_DEVICES)")
+    sys.path.insert(0, ROOT)
+    from diffusion_models_moe_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    print(f"kernels built from ops/csrc in {lib.build_seconds:.1f} s (load "
+          f"{time.perf_counter() - t0:.1f} s): {lib.path.name}")
+    for line in lib.compiler_log.splitlines():
+        if "registers" in line or ("spill" in line
+                                   and " 0 bytes spill stores" not in line):
+            print("  ptxas:", line.strip())
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ff = check_ff(gen)
+    self_attn, cross_attn = check_attention(gen)
+    pipe, ivs, cond, uncond, launches = run_slice(smi.splitlines()[0])
+    check_latents(pipe, ivs, cond, uncond)
+
+    csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
+    rows = [
+        ("geglu_ff_fused", f"{csrc}/geglu_ff.cu",
+         "diffusion_models_moe_tpu/ops/geglu_ff_fused.py:85", ff),
+        ("sd_self_attention", f"{csrc}/sd_attention.cu",
+         "diffusion_models_moe_tpu/ops/sd_flash.py:46", self_attn),
+        ("sd_cross_attention", f"{csrc}/sd_attention.cu",
+         "diffusion_models_moe_tpu/ops/sd_flash.py:142", cross_attn),
+    ]
+    # the top-level numbers are those of the first (largest-N) shape; every
+    # shape's own numbers are under "shapes"
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches[name],
+                    max_abs_err=m[0]["max_abs_err"], ms=m[0]["ms"],
+                    plain_ms=m[0]["plain_ms"], shape=m[0]["shape"], shapes=m)
+               for name, src, rep, m in rows]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

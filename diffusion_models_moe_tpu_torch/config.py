@@ -1,0 +1,132 @@
+"""Typed model/pipeline configuration (PyTorch port).
+
+Counterpart of `diffusion_models_moe_tpu/config.py`: the same frozen
+dataclasses and presets, with the compute dtype held as a `torch.dtype`.
+Only the fields the SD1.x serving slice reads are kept; options of the JAX
+package that steer TPU layouts (flash switch, fused routing, quant, Winograd,
+DeepCache, SDXL add-embeds, LCM conditioning) have no counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """SD-style UNet2DCondition configuration ("cross" blocks carry
+    transformer blocks, "plain" blocks only resnets)."""
+    sample_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Sequence[int] = (320, 640, 1280, 1280)
+    down_block_types: Sequence[str] = ("cross", "cross", "cross", "plain")
+    up_block_types: Sequence[str] = ("plain", "cross", "cross", "cross")
+    layers_per_block: int = 2
+    transformer_layers_per_block: Any = 1
+    cross_attention_dim: int = 768
+    # number of attention heads (SD1.x: 8), one int or one per block
+    attention_head_dim: Any = 8
+    norm_num_groups: int = 32
+    ff_mult: int = 4
+    ff_activation: str = "geglu"         # "geglu" | "geglu-relu"
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+    dtype: torch.dtype = torch.float32
+
+    def depth_for_block(self, block_idx: int) -> int:
+        d = self.transformer_layers_per_block
+        return d if isinstance(d, int) else d[block_idx]
+
+    def heads_for_block(self, block_idx: int) -> int:
+        h = self.attention_head_dim
+        return h if isinstance(h, int) else h[block_idx]
+
+    @property
+    def n_ff_layers(self) -> int:
+        return len(self.ff_dims())
+
+    def ff_dims(self) -> list[int]:
+        """Model dim of each GEGLU FF layer in canonical (execution) order:
+        down blocks outer to inner, mid, up blocks inner to outer."""
+        dims = []
+        for i, kind in enumerate(self.down_block_types):
+            if kind == "cross":
+                dims += ([self.block_out_channels[i]]
+                         * self.layers_per_block * self.depth_for_block(i))
+        n_blocks = len(self.block_out_channels)
+        dims += [self.block_out_channels[-1]] * self.depth_for_block(n_blocks - 1)
+        rev_ch = list(reversed(self.block_out_channels))
+        rev_idx = list(range(n_blocks))[::-1]
+        for i, kind in enumerate(self.up_block_types):
+            if kind == "cross":
+                dims += ([rev_ch[i]] * (self.layers_per_block + 1)
+                         * self.depth_for_block(rev_idx[i]))
+        return dims
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_length: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    dtype: torch.dtype = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    in_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Sequence[int] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+    dtype: torch.dtype = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    unet: UNetConfig = UNetConfig()
+    text_encoder: CLIPTextConfig = CLIPTextConfig()
+    vae: VAEConfig = VAEConfig()
+    sample_size: int = 64                # latent spatial size (64 -> 512 px)
+    guidance_scale: float = 7.5
+    num_inference_steps: int = 50
+    scheduler: str = "pndm"
+    prediction_type: str = "epsilon"
+
+
+def sd15_config(dtype: torch.dtype = torch.bfloat16) -> PipelineConfig:
+    """Stable Diffusion v1.4/1.5 geometry."""
+    return PipelineConfig(
+        unet=UNetConfig(dtype=dtype),
+        text_encoder=CLIPTextConfig(dtype=dtype),
+        vae=VAEConfig(dtype=dtype),
+    )
+
+
+def tiny_config(dtype: torch.dtype = torch.float32) -> PipelineConfig:
+    """Tiny model for unit tests: same topology (16 FF layers), small dims."""
+    return PipelineConfig(
+        unet=UNetConfig(
+            block_out_channels=(32, 64, 128, 128),
+            cross_attention_dim=32,
+            attention_head_dim=4,
+            norm_num_groups=8,
+            dtype=dtype,
+        ),
+        text_encoder=CLIPTextConfig(
+            vocab_size=1000, hidden_size=32, intermediate_size=64,
+            num_layers=2, num_heads=4, max_length=16, dtype=dtype,
+        ),
+        vae=VAEConfig(block_out_channels=(32, 32, 64, 64), norm_num_groups=8,
+                      layers_per_block=1, dtype=dtype),
+        sample_size=8,
+        num_inference_steps=4,
+    )

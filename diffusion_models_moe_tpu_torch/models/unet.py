@@ -1,0 +1,140 @@
+"""UNet2DCondition for SD1.x (PyTorch port, NCHW), with MoE-routed FFs.
+
+Counterpart of `diffusion_models_moe_tpu/models/unet.py` without its
+DeepCache, SDXL add-embedding and LCM guidance-embedding options. The GEGLU
+FF layers are numbered in execution order, down (0-5), mid (6), up (7-15)
+for SD1.x, and `ivs[i]` routes FF layer i. Parameter names are diffusers'
+(`down_blocks.0.attentions.1.transformer_blocks.0.ff.net.2.weight`, ...).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffusion_models_moe_tpu_torch.config import UNetConfig
+from diffusion_models_moe_tpu_torch.models.attention import Transformer2D
+from diffusion_models_moe_tpu_torch.models.layers import (Downsample2D,
+                                                          ResnetBlock2D,
+                                                          TimestepEmbedding,
+                                                          Upsample2D,
+                                                          group_norm_f32,
+                                                          timestep_embedding)
+from diffusion_models_moe_tpu_torch.taps import Interventions
+
+
+class _Block(nn.Module):
+    """Holder matching diffusers' down/mid/up block naming."""
+
+    def __init__(self):
+        super().__init__()
+        self.resnets = nn.ModuleList()
+        self.attentions = nn.ModuleList()
+        self.downsamplers = nn.ModuleList()
+        self.upsamplers = nn.ModuleList()
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        ch = list(cfg.block_out_channels)
+        n = len(ch)
+        tdim = ch[0] * 4
+        groups = cfg.norm_num_groups
+
+        def transformer(dim, block_idx):
+            return Transformer2D(dim, cfg.heads_for_block(block_idx),
+                                 cfg.cross_attention_dim,
+                                 cfg.depth_for_block(block_idx), groups,
+                                 cfg.ff_mult, cfg.ff_activation)
+
+        self.conv_in = nn.Conv2d(cfg.sample_channels, ch[0], 3, 1, 1)
+        self.time_embedding = TimestepEmbedding(ch[0], tdim)
+        self.down_blocks = nn.ModuleList()
+        skips = [ch[0]]
+        cur = ch[0]
+        for i, kind in enumerate(cfg.down_block_types):
+            blk = _Block()
+            for _ in range(cfg.layers_per_block):
+                blk.resnets.append(ResnetBlock2D(cur, ch[i], groups, 1e-5, tdim))
+                cur = ch[i]
+                if kind == "cross":
+                    blk.attentions.append(transformer(ch[i], i))
+                skips.append(cur)
+            if i < n - 1:
+                blk.downsamplers.append(Downsample2D(cur))
+                skips.append(cur)
+            self.down_blocks.append(blk)
+        self.mid_block = _Block()
+        self.mid_block.resnets.append(ResnetBlock2D(cur, cur, groups, 1e-5, tdim))
+        self.mid_block.attentions.append(transformer(cur, n - 1))
+        self.mid_block.resnets.append(ResnetBlock2D(cur, cur, groups, 1e-5, tdim))
+        self.up_blocks = nn.ModuleList()
+        rev = list(reversed(ch))
+        for i, kind in enumerate(cfg.up_block_types):
+            blk = _Block()
+            for _ in range(cfg.layers_per_block + 1):
+                blk.resnets.append(ResnetBlock2D(cur + skips.pop(), rev[i],
+                                                 groups, 1e-5, tdim))
+                cur = rev[i]
+                if kind == "cross":
+                    blk.attentions.append(transformer(cur, n - 1 - i))
+            if i < n - 1:
+                blk.upsamplers.append(Upsample2D(cur))
+            self.up_blocks.append(blk)
+        self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=1e-5)
+        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, 1, 1)
+
+    def forward(self, sample: torch.Tensor, timestep,
+                encoder_hidden_states: torch.Tensor, *,
+                ivs: Optional[Interventions] = None, step_idx: int = 0,
+                use_kernels: bool = True) -> torch.Tensor:
+        """sample: (B, C, H, W) latents; timestep: scalar or (B,);
+        encoder_hidden_states: (B, S, D_text). Returns the predicted noise
+        (B, C, H, W) in f32."""
+        cfg = self.cfg
+        dt = self.conv_in.weight.dtype
+        b = sample.shape[0]
+        t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
+        temb = timestep_embedding(t.expand(b), cfg.block_out_channels[0],
+                                  cfg.flip_sin_to_cos, cfg.freq_shift).to(dt)
+        temb = self.time_embedding(temb)
+        context = encoder_hidden_states.to(dt)
+        ivs = tuple(ivs) if ivs is not None else ()
+        kw = dict(step_idx=step_idx, use_kernels=use_kernels)
+        ff_index = 0
+
+        def attend(attn, h, block_idx):
+            nonlocal ff_index
+            depth = cfg.depth_for_block(block_idx)
+            out = attn(h, context, ivs=ivs[ff_index:ff_index + depth], **kw)
+            ff_index += depth
+            return out
+
+        h = self.conv_in(sample.to(dt))
+        stack = [h]
+        for i, blk in enumerate(self.down_blocks):
+            for j, res in enumerate(blk.resnets):
+                h = res(h, temb)
+                if blk.attentions:
+                    h = attend(blk.attentions[j], h, i)
+                stack.append(h)
+            if blk.downsamplers:
+                h = blk.downsamplers[0](h)
+                stack.append(h)
+        n = len(cfg.block_out_channels)
+        h = self.mid_block.resnets[0](h, temb)
+        h = attend(self.mid_block.attentions[0], h, n - 1)
+        h = self.mid_block.resnets[1](h, temb)
+        for i, blk in enumerate(self.up_blocks):
+            for j, res in enumerate(blk.resnets):
+                h = res(torch.cat([h, stack.pop()], dim=1), temb)
+                if blk.attentions:
+                    h = attend(blk.attentions[j], h, n - 1 - i)
+            if blk.upsamplers:
+                h = blk.upsamplers[0](h)
+        h = F.silu(group_norm_f32(self.conv_norm_out, h)).to(dt)
+        return self.conv_out(h).float()

@@ -1,0 +1,131 @@
+"""Builds and loads the hand-written CUDA kernels in `ops/csrc/`.
+
+The sources are compiled with `nvcc` for `sm_90a` into one shared library
+with a plain C interface, at first use, into `ops/_build/` (git-ignored), and
+loaded with ctypes. The library's name carries a hash of the sources and
+flags, so an edited source is rebuilt. Nothing here runs at import time: the
+package imports and runs on a machine without `nvcc` or a GPU, where every
+op takes its plain PyTorch version.
+
+A failed build or a refused launch raises; no caller falls back to the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
+
+# Kernel launches made by the wrappers, by kernel name: each wrapper adds one
+# where it launches its kernel. A run resets the counts with
+# `reset_launch_counts()` and reads them after, to show which kernels ran.
+LAUNCHES = {"geglu_ff_fused": 0, "sd_self_attention": 0,
+            "sd_cross_attention": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURES = {
+    "dmoe_ff_up": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "dmoe_ff_route": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dmoe_ff_down": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "dmoe_sd_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _LL, _P],
+    "dmoe_sd_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _LL,
+                                _P],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    """The loaded kernel library and how it was built."""
+    lib: ctypes.CDLL
+    path: pathlib.Path
+    build_seconds: float     # 0.0 when an earlier build was reused
+    compiler_log: str        # nvcc's output (register and spill report)
+
+    def call(self, name: str, *args) -> None:
+        """Calls launcher `name` and raises if CUDA refused the launch."""
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            msg = self.lib.dmoe_error_string(err).decode()
+            raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> KernelLibrary:
+    """Builds the kernels if needed (once per process) and loads them."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so_path = BUILD_DIR / f"libdmoe_kernels_{digest.hexdigest()[:16]}.so"
+    build_seconds, log = 0.0, ""
+    if not so_path.exists():
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(str(so_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dmoe_error_string.argtypes = [ctypes.c_int]
+    lib.dmoe_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib, so_path, build_seconds, log)
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on `device`, as a pointer value."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                      device: torch.device, contiguous: bool = True) -> None:
+    """Raises on what the kernels do not take."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

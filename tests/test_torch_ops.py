@@ -1,0 +1,205 @@
+"""Parity of the torch port's kernel modules with the JAX package, on the CPU.
+
+The same inputs, made with numpy from a seed, go through the JAX function
+(its Pallas kernel in interpret mode) and the port's plain PyTorch version,
+which is what the port's wrappers run on CPU tensors. f32 throughout, so
+the tolerances bound the algorithm, not the dtype.
+"""
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusion_models_moe_tpu.ops.geglu_ff_fused import \
+    geglu_ff_fused as jax_geglu_ff_fused
+from diffusion_models_moe_tpu.ops.sd_flash import (_sd_cross_fwd_impl,
+                                                   _sd_self_fwd_impl)
+from diffusion_models_moe_tpu.taps import routing_mask as jax_routing_mask
+from diffusion_models_moe_tpu_torch.ops import _build
+from diffusion_models_moe_tpu_torch.ops.geglu_ff_fused import (
+    geglu_ff_fused, geglu_ff_reference)
+from diffusion_models_moe_tpu_torch.ops.sd_flash import (sd_cross_attention,
+                                                         sd_self_attention)
+from diffusion_models_moe_tpu_torch.taps import (LayerIntervention,
+                                                 patterns_from_labels,
+                                                 routing_mask)
+
+FF_RTOL = 1e-5      # max |diff| / max |ref|, as the JAX kernel's own tests
+ATTN_TOL = 2e-5
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / (np.max(np.abs(ref)) + 1e-12))
+
+
+def _ff_inputs(seed, n=256, c=64, e=16, tie=False):
+    rng = np.random.RandomState(seed)
+    hdim = 4 * c
+    f = np.float32
+    x = rng.randn(n, c).astype(f)
+    w1 = (rng.randn(c, 2 * hdim) * 0.05).astype(f)       # flax (in, out)
+    b1 = (rng.randn(2 * hdim) * 0.1).astype(f)
+    w2 = (rng.randn(hdim, c) * 0.05).astype(f)
+    b2 = (rng.randn(c) * 0.1).astype(f)
+    g = (1.0 + 0.1 * rng.randn(c)).astype(f)
+    bb = (0.1 * rng.randn(c)).astype(f)
+    labels = rng.permutation(np.arange(hdim) % e)
+    if tie:
+        # experts 0 and 1 get identical gate columns, so their scores tie
+        # exactly and both survive the threshold
+        labels = np.arange(hdim) % e
+        gate = w1[:, hdim:]
+        gate[:, labels == 1] = gate[:, labels == 0]
+        b1[:] = 0.0
+    patterns = (labels[None, :] == np.arange(e)[:, None]).astype(f)
+    return x, w1, b1, w2, b2, g, bb, patterns
+
+
+def _port_ff(x, w1, b1, w2, b2, pat, k, relu, g, bb, fn=geglu_ff_fused):
+    t = torch.from_numpy
+    return fn(t(x), t(np.ascontiguousarray(w1.T)), t(b1),
+              t(np.ascontiguousarray(w2.T)), t(b2),
+              None if pat is None else t(pat), k, relu,
+              None if g is None else t(g), None if bb is None else t(bb)).numpy()
+
+
+@pytest.mark.parametrize("routed", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("absorb", [False, True])
+def test_ff_plain_matches_jax_kernel(routed, relu, absorb):
+    x, w1, b1, w2, b2, g, bb, patterns = _ff_inputs(0)
+    pat, k = (patterns, 5) if routed else (None, 0)
+    ln = dict(ln_scale=jnp.asarray(g), ln_bias=jnp.asarray(bb)) if absorb else {}
+    ref = jax_geglu_ff_fused(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1),
+                             jnp.asarray(w2), jnp.asarray(b2),
+                             None if pat is None else jnp.asarray(pat), k,
+                             relu, interpret=True, **ln)
+    got = _port_ff(x, w1, b1, w2, b2, pat, k, relu,
+                   g if absorb else None, bb if absorb else None)
+    assert _rel_err(got, ref) < FF_RTOL
+
+
+def test_ff_ties_keep_more_than_k_experts():
+    """Exact score ties at the kth place keep every tied expert, as the JAX
+    kernel's threshold does (mirrors test_fused_ff_routing_threshold_semantics)."""
+    x, w1, b1, w2, b2, _, _, patterns = _ff_inputs(1, e=8, tie=True)
+    k = 3
+    ref = jax_geglu_ff_fused(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1),
+                             jnp.asarray(w2), jnp.asarray(b2),
+                             jnp.asarray(patterns), k, interpret=True)
+    got = _port_ff(x, w1, b1, w2, b2, patterns, k, False, None, None)
+    assert _rel_err(got, ref) < FF_RTOL
+    # the tie really happens: some rows keep more than k experts
+    hdim = w1.shape[1] // 2
+    h = x @ w1[:, hdim:] + b1[hdim:]
+    ga = torch.nn.functional.gelu(torch.from_numpy(h)).numpy()
+    s = ga @ patterns.T
+    kth = np.sort(s, axis=1)[:, -k][:, None]
+    assert ((s >= kth).sum(1) > k).any()
+
+
+def test_ff_cpu_wrapper_is_the_plain_version():
+    """On CPU tensors the wrapper runs the plain version and launches nothing."""
+    x, w1, b1, w2, b2, g, bb, patterns = _ff_inputs(2)
+    _build.reset_launch_counts()
+    a = _port_ff(x, w1, b1, w2, b2, patterns, 4, False, g, bb)
+    b = _port_ff(x, w1, b1, w2, b2, patterns, 4, False, g, bb,
+                 fn=geglu_ff_reference)
+    np.testing.assert_array_equal(a, b)
+    assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("op", ["ff", "self", "cross"])
+def test_wrappers_take_the_plain_version_only_on_cpu(op):
+    """Off the CPU a wrapper launches its kernel or raises; it never falls
+    back to the plain version (a meta tensor has no kernel)."""
+    def t(*shape):
+        return torch.empty(shape, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        if op == "ff":
+            geglu_ff_fused(t(8, 32), t(256, 32), t(256), t(32, 128), t(32))
+        elif op == "self":
+            sd_self_attention(t(1, 8, 2, 40), t(1, 8, 2, 40), t(1, 8, 2, 40), 0.1)
+        else:
+            sd_cross_attention(t(1, 8, 2, 40), t(1, 77, 2, 40),
+                               t(1, 77, 2, 40), 0.1, 77)
+
+
+def _qkv(seed, b, s, h, d, s_kv=None):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, s, h, d).astype(np.float32)
+    k = rng.randn(b, s_kv or s, h, d).astype(np.float32)
+    v = rng.randn(b, s_kv or s, h, d).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_self_attention_plain_matches_jax_kernel(d):
+    q, k, v = _qkv(d, 2, 128, 2, d)
+    scale = d ** -0.5
+    ref = _sd_self_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            scale, block_q=64, block_k=64, interpret=True)
+    got = sd_self_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_cross_attention_plain_matches_jax_kernel(d):
+    q, k, v = _qkv(d + 1, 2, 128, 2, d, s_kv=77)
+    scale = d ** -0.5
+    ref = _sd_cross_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             scale, 77, block_q=64, interpret=True)
+    got = sd_cross_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), scale, 77)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("exact_k", [False, True])
+def test_routing_mask_matches_jax(exact_k):
+    rng = np.random.RandomState(5)
+    n, hdim, e, k = 64, 160, 8, 3
+    # quarter-integers: every score is exact in any summation order, and
+    # exact ties at the kth place are common
+    gate = (rng.randint(-4, 5, size=(n, hdim)) / 4.0).astype(np.float32)
+    labels = rng.permutation(np.arange(hdim) % e)
+    pat_np = (labels[None, :] == np.arange(e)[:, None]).astype(np.float32)
+    mask_j, sel_j = jax_routing_mask(jnp.asarray(gate), jnp.asarray(pat_np), k,
+                                     exact_k=exact_k)
+    mask_t, sel_t = routing_mask(torch.from_numpy(gate),
+                                 patterns_from_labels(labels, e), k,
+                                 exact_k=exact_k)
+    np.testing.assert_array_equal(sel_t.numpy(), np.asarray(sel_j))
+    np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
+    kept = sel_t.sum(1)
+    assert (kept == k).all() if exact_k else (kept > k).any()
+
+
+@pytest.mark.parametrize("field", ["expert_boost", "neuron_mask",
+                                   "out_weight_mask", "token_mask"])
+def test_unported_interventions_raise(field):
+    with pytest.raises(NotImplementedError):
+        LayerIntervention(**{field: torch.zeros(4)})
+
+
+def test_package_imports_without_jax():
+    """The port imports neither JAX nor the JAX package (checked in a fresh
+    interpreter: this process has JAX loaded already)."""
+    code = ("import sys, diffusion_models_moe_tpu_torch as p\n"
+            "import diffusion_models_moe_tpu_torch.weights.bridge\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m.startswith('diffusion_models_moe_tpu.')"
+            " or m == 'diffusion_models_moe_tpu']\n"
+            "assert not bad, bad\n"
+            "from diffusion_models_moe_tpu_torch.ops import _build\n"
+            "assert _build.load_library.cache_info().currsize == 0\n")
+    root = __file__.rsplit("/tests/", 1)[0]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
