@@ -11,6 +11,8 @@ Run from the root of a checkout. Phases:
   2. each kernel against its plain PyTorch version (f32 math on the same
      bf16 inputs) at the SD1.5 shapes of the main path, with errors and
      CUDA-event times of both;
+  2b. the fused MoE routing kernel of the unfused FF path against its plain
+     version at the four SD1.5 FF shapes, with errors and times;
   3. the main path: moefied SD1.5 text-to-image in bf16 (seeded random
      weights, MoE routing on all 16 FFs with topk 0.3), 2 requests at
      512x512 through `generate`, PNDM at the config's 50 steps with CFG 7.5,
@@ -19,10 +21,20 @@ Run from the root of a checkout. Phases:
   4. `denoise` for 3 and for 50 steps from the same latents with the
      kernels and with their plain versions: latent relative error, held
      against the bf16-vs-f32 floor of the card (the plain versions in an f32
-     copy of the model) and, at 50 steps, below 0.05.
-It needs CUDA and exits non-zero on any failure, printing no result. Its
-second-to-last line is a JSON object describing each kernel, its last line
-{"ok": true, "device": {...}}.
+     copy of the model) and, at 50 steps, below 0.05;
+  5. skill attribution and neuron erasure: `collect_predictivity` under MoE
+     routing over 2 (base, concept) prompt pairs through the hash tokenizer
+     (max-gate taps: every FF call takes the routing kernel, none the fused
+     FF), the paired t-test's neuron masks, a 2-request 512x512 `generate`
+     with those neurons removed under MoE routing, and that erased
+     `denoise` with kernels against plain versions and the card's floor;
+  6. Wanda erasure: `wanda_pipeline` on the same pairs at WANDA_STEPS PNDM
+     steps, a `generate` with the output-weight masks under MoE routing
+     (routing kernel), and the masks' union over timesteps baked into the
+     UNet weights, then a `generate` on the fused FF kernel.
+Each phase prints its wall time. It needs CUDA and exits non-zero on any
+failure, printing no result. Its second-to-last line is a JSON object
+describing each kernel, its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -51,6 +63,15 @@ ATTN_REL_TOL = 2e-2      # max |kernel - plain| / max |plain|
 FLOOR_FACTOR = 1.5
 LATENT_REL_TOL = 0.05
 BATCH = 2                # requests, one prompt each; CFG doubles the UNet batch
+# (base, concept) prompt pairs of the attribution and erasure phases
+BASE = ["a photo of a dog", "a photo of a house"]
+ADJ = ["a dog in the style of Van Gogh", "a house in the style of Van Gogh"]
+# Wanda ranks each (D, H) slice of every layer at every step on the host;
+# 10 PNDM steps keep phase 6 near a minute at full width
+WANDA_STEPS = 10
+WANDA_SKILL_RATIO = 0.02   # the JAX CLI's bake ratio for "Van Gogh"
+UNION_RATIO = 0.0          # its union-over-timesteps ratio for "Van Gogh"
+DEV = "cuda"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -89,7 +110,7 @@ def labels_for(ff_dims, seed: int = 0) -> dict:
 def check_ff(gen: torch.Generator) -> dict:
     from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
     from diffusion_models_moe_tpu_torch.taps import patterns_from_labels
-    dev, bf16 = "cuda", torch.bfloat16
+    dev, bf16 = DEV, torch.bfloat16
     shapes = []
 
     def rn(*shape, scale=1.0, dtype=bf16):
@@ -140,9 +161,61 @@ def check_ff(gen: torch.Generator) -> dict:
     return shapes
 
 
+def check_routing(gen: torch.Generator) -> list:
+    """Phase 2b: the routing kernel against its plain version on the gate
+    and hidden the FF's projection makes at each SD1.5 FF shape."""
+    from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
+    from diffusion_models_moe_tpu_torch.ops import routing_kernel as rk
+    from diffusion_models_moe_tpu_torch.taps import (patterns_from_labels,
+                                                     routing_mask)
+    dev, bf16 = DEV, torch.bfloat16
+    shapes = []
+    for c, tokens in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
+        n, hdim = 2 * BATCH * tokens, 4 * c
+        e = hdim // 20
+        k = int(e * 0.3)
+        x = torch.randn((n, c), generator=gen, device=dev).to(bf16)
+        w1 = (torch.randn((2 * hdim, c), generator=gen, device=dev)
+              * c ** -0.5).to(bf16)
+        b1 = (torch.randn((2 * hdim,), generator=gen, device=dev) * 0.1).to(bf16)
+        h, ga = ffm.reference_gate(x, w1, b1, False, None, None, 1e-5)
+        hidden, gate = h.to(bf16), ga.to(bf16)
+        lab = np.random.RandomState(c).permutation(np.arange(hdim) % e)
+        pat = patterns_from_labels(lab, e).to(dev, bf16)
+        out = rk.fused_route_multiply(hidden, gate, pat, k)
+        plain = rk.fused_route_multiply(hidden, gate, pat, k, use_kernels=False)
+        torch.cuda.synchronize()
+        sel_k = ((out != 0).float() @ pat.float().t() > 0).float()
+        _, sel_p = routing_mask(gate, pat, k)
+        decision_agree = (sel_k == sel_p).float().mean().item()
+        rows = (sel_k == sel_p).all(dim=1)
+        row_agree = rows.float().mean().item()
+        abs_e, rel = rel_err(out[rows], plain[rows])
+        ms = cuda_ms(lambda: rk.fused_route_multiply(hidden, gate, pat, k), 20)
+        plain_ms = cuda_ms(lambda: rk.fused_route_multiply(
+            hidden, gate, pat, k, use_kernels=False), 5)
+        print(f"route C={c:4d} N={n:5d} E={e:3d} k={k:2d}: routing decisions "
+              f"agree {decision_agree:.6f}, rows agree {row_agree:.6f}; on "
+              f"agreeing rows max_abs_err {abs_e:.6g} rel {rel:.3e} "
+              f"(tol {FF_REL_TOL:g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms", flush=True)
+        check(decision_agree >= FF_DECISION_AGREEMENT,
+              f"route C={c}: routing decisions agree {decision_agree} < "
+              f"{FF_DECISION_AGREEMENT}")
+        check(row_agree >= FF_ROW_AGREEMENT,
+              f"route C={c}: rows agree {row_agree} < {FF_ROW_AGREEMENT}")
+        check(rel <= FF_REL_TOL, f"route C={c}: rel err {rel} > {FF_REL_TOL}")
+        shapes.append(dict(shape=f"N={n},H={hdim},E={e},k={k}",
+                           max_abs_err=abs_e, rel_err=rel, ms=ms,
+                           plain_ms=plain_ms,
+                           decision_agreement=decision_agree,
+                           row_agreement=row_agree))
+    return shapes
+
+
 def check_attention(gen: torch.Generator) -> tuple[dict, dict]:
     from diffusion_models_moe_tpu_torch.ops import sd_flash
-    dev = "cuda"
+    dev = DEV
     b, heads = 2 * BATCH, 8
     out = {}
     for kind in ("self", "cross"):
@@ -182,7 +255,7 @@ def run_slice(card: str) -> tuple:
                                                 build_moe_interventions,
                                                 sd15_config)
     from diffusion_models_moe_tpu_torch.ops import _build
-    dev = "cuda"
+    dev = DEV
     cfg = sd15_config(torch.bfloat16)
     steps = cfg.num_inference_steps
     calls = steps + 1        # PNDM's warm-up takes one extra UNet call
@@ -203,70 +276,202 @@ def run_slice(card: str) -> tuple:
                   num_steps=1, ivs=ivs)
     torch.cuda.synchronize()
 
+    images, launches = timed_generate(
+        pipe, f"slice on {card}", cond, uncond, seed=3, ivs=ivs,
+        expect={"geglu_ff_fused": 16 * calls, "sd_self_attention": 16 * calls,
+                "sd_cross_attention": 16 * calls, "fused_route_multiply": 0})
+    return pipe, ivs, cond, uncond, launches, images
+
+
+def timed_generate(pipe, what: str, cond, uncond, seed: int, ivs,
+                   expect: dict, num_steps=None):
+    """One `generate` of len(cond) requests, timed, with the kernels' launch
+    counts over it held to `expect`; checks the images."""
+    from diffusion_models_moe_tpu_torch.ops import _build
+    cfg = pipe.config
+    steps = num_steps or cfg.num_inference_steps
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    images = pipe.generate(cond, uncond,
-                           torch.Generator(device=dev).manual_seed(3),
-                           ivs=ivs)
+    images, _ = pipe.generate(cond, uncond,
+                              torch.Generator(device=DEV).manual_seed(seed),
+                              num_steps=num_steps, ivs=ivs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    side = 8 * cfg.sample_size
-    check(tuple(images.shape) == (BATCH, 3, side, side),
-          f"image shape {tuple(images.shape)}")
-    check(bool(torch.isfinite(images).all()), "non-finite image values")
+    side, b = 8 * cfg.sample_size, cond.shape[0]
+    check(tuple(images.shape) == (b, 3, side, side),
+          f"{what}: image shape {tuple(images.shape)}")
+    check(bool(torch.isfinite(images).all()), f"{what}: non-finite images")
     check(images.min().item() >= 0.0 and images.max().item() <= 1.0,
-          "image values outside [0, 1]")
-    print(f"slice on {card}: generate {BATCH} requests 512x512, PNDM "
-          f"{steps} steps ({calls} UNet calls at batch {2 * BATCH}), CFG "
+          f"{what}: image values outside [0, 1]")
+    print(f"{what}: generate {b} requests {side}x{side}, PNDM {steps} steps "
+          f"({steps + 1} UNet calls at batch {2 * b}), CFG "
           f"{cfg.guidance_scale}, MoE topk 0.3 on "
           f"{sum(iv is not None for iv in ivs)} FFs: wall {wall:.3f} s, "
-          f"{BATCH / wall:.4f} img/s, peak memory {peak_gib:.2f} GiB; images "
+          f"{b / wall:.4f} img/s, peak memory {peak_gib:.2f} GiB; images "
           f"finite in [{images.min().item():.4f}, "
           f"{images.max().item():.4f}]; launches {launches} (expected "
-          f"{16 * calls} each)", flush=True)
-    # every one of the 16 transformer blocks, at every UNet call
-    for name, count in launches.items():
-        check(count == 16 * calls,
-              f"kernel {name}: {count} launches on the main path, expected "
-              f"{16 * calls}")
-
-    return pipe, ivs, cond, uncond, launches
+          f"{expect})", flush=True)
+    for name, count in expect.items():
+        check(launches[name] == count,
+              f"{what}: kernel {name} launched {launches[name]} times, "
+              f"expected {count}")
+    return images, launches
 
 
-def check_latents(pipe, ivs, cond, uncond) -> None:
+def check_latents(pipe, ivs, cond, uncond):
     """Phase 4: `denoise` from the same latents with the kernels and with
     their plain versions, against the bf16-vs-f32 floor of this card: the
-    same denoise with the plain versions in an f32 copy of the model."""
+    same denoise with the plain versions in an f32 copy of the model.
+    Returns the f32 pipeline and a `compare(ivs, steps, what)` that runs
+    this comparison and returns (rel, floor)."""
     from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
                                                 sd15_config)
-    dev, cfg = "cuda", pipe.config
+    dev, cfg = DEV, pipe.config
     pipe32 = StableDiffusionPipeline(sd15_config(torch.float32), device=dev)
     pipe32.init_params(torch.Generator(device=dev).manual_seed(0))
-    ctx = torch.cat([pipe.encode_text(uncond), pipe.encode_text(cond)])
-    ctx32 = torch.cat([pipe32.encode_text(uncond), pipe32.encode_text(cond)])
+    ctx = torch.cat([pipe.encode_text(uncond)[0], pipe.encode_text(cond)[0]])
+    ctx32 = torch.cat([pipe32.encode_text(uncond)[0],
+                       pipe32.encode_text(cond)[0]])
     lat = torch.randn((BATCH, 4, cfg.sample_size, cfg.sample_size),
                       generator=torch.Generator(device=dev).manual_seed(4),
                       device=dev)
     g = cfg.guidance_scale
-    for steps in (3, cfg.num_inference_steps):
-        z_k = pipe.denoise(ctx, lat, steps, g, ivs)
-        z_p = pipe.denoise(ctx, lat, steps, g, ivs, use_kernels=False)
-        z_32 = pipe32.denoise(ctx32, lat, steps, g, ivs, use_kernels=False)
-        check(bool(torch.isfinite(z_k).all()), "non-finite latents")
+
+    def compare(ivs, steps: int, what: str) -> tuple[float, float]:
+        z_k, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs)
+        z_p, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs, use_kernels=False)
+        z_32, _ = pipe32.denoise(ctx32, lat, steps, g, ivs=ivs,
+                                 use_kernels=False)
+        check(bool(torch.isfinite(z_k).all()), f"{what}: non-finite latents")
         rel = ((z_k - z_p).norm() / z_p.norm()).item()
         floor = ((z_p - z_32).norm() / z_32.norm()).item()
-        print(f"denoise {steps} steps, CFG {g}, MoE on 16 FFs: latent rel err "
+        print(f"denoise {steps} steps, CFG {g}, {what}: latent rel err "
               f"kernels vs plain {rel:.6f}; floor (plain bf16 vs plain f32 on "
               f"this card) {floor:.6f}", flush=True)
         check(rel <= FLOOR_FACTOR * floor,
-              f"{steps} steps: kernels-vs-plain {rel} > {FLOOR_FACTOR} x "
-              f"floor {floor}")
+              f"{what}, {steps} steps: kernels-vs-plain {rel} > "
+              f"{FLOOR_FACTOR} x floor {floor}")
+        return rel, floor
+
+    for steps in (3, cfg.num_inference_steps):
+        rel, _ = compare(ivs, steps, "MoE on 16 FFs")
     # `rel` of the last pass: the config's full step count
     check(rel < LATENT_REL_TOL,
           f"{steps} steps: latent rel err {rel} >= {LATENT_REL_TOL}")
+    return pipe32, compare
+
+
+def merge(moe, removal, fields):
+    """Removal interventions' `fields` merged into the MoE interventions."""
+    import dataclasses
+    return tuple(m if r is None else dataclasses.replace(
+        m, **{f: getattr(r, f) for f in fields}) for m, r in zip(moe, removal))
+
+
+# ---------------------------------------------------------------- phase 5
+def run_attribution(pipe, ivs, compare, card: str) -> dict:
+    """Phase 5: predictivity under MoE routing over the prompt pairs, the
+    t-test's neuron masks, and a neuron-erased generate of 2 requests."""
+    from diffusion_models_moe_tpu_torch.analysis.collect import (
+        collect_predictivity, t_test_pipeline)
+    from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
+    from diffusion_models_moe_tpu_torch.erasure.masks import \
+        neuron_removal_interventions
+    from diffusion_models_moe_tpu_torch.ops import _build
+    cfg = pipe.config
+    calls = cfg.num_inference_steps + 1
+    tok = hash_tokenize(cfg.text_encoder.vocab_size, cfg.text_encoder.max_length)
+    n_gen = 2 * len(BASE)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = collect_predictivity(pipe, tok, BASE, ADJ, seed=0, ivs=ivs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    print(f"attribution: collect_predictivity over {len(BASE)} prompt pairs "
+          f"({n_gen} tapped generates of 1 request, {calls} UNet calls at "
+          f"batch 2 each), MoE on 16 FFs: wall {wall:.3f} s; launches "
+          f"{launches}", flush=True)
+    expect = {"fused_route_multiply": n_gen * 16 * calls, "geglu_ff_fused": 0,
+              "sd_self_attention": n_gen * 16 * calls,
+              "sd_cross_attention": n_gen * 16 * calls}
+    for name, count in expect.items():
+        check(launches[name] == count,
+              f"attribution: kernel {name} launched {launches[name]} times, "
+              f"expected {count} ({16 * calls} per tapped generate)")
+    for acc in (pred.base, pred.adj):
+        for l, d in enumerate(cfg.unet.ff_dims()):
+            m = acc.mean()[l]
+            check(m.shape == (calls, 4 * d) and bool(np.isfinite(m).all()),
+                  f"max-gate stats of layer {l}: shape {m.shape}, finite "
+                  f"{bool(np.isfinite(m).all())}")
+    masks = t_test_pipeline(pred)
+    n_skilled = sum(int(m.sum()) for m in masks.values())
+    print(f"attribution: paired t-test (conf 0.05, {pred.n_prompts} pairs): "
+          f"{n_skilled} skilled (step, neuron) entries over {len(masks)} "
+          f"layers", flush=True)
+    erased = merge(ivs, neuron_removal_interventions(masks, device=DEV),
+                   ("neuron_mask", "neuron_fill"))
+    cond = tok(ADJ).to(DEV)
+    _, gen_launches = timed_generate(
+        pipe, f"neuron erasure on {card}", cond, torch.zeros_like(cond),
+        seed=5, ivs=erased,
+        expect={"fused_route_multiply": 16 * calls, "geglu_ff_fused": 0})
+    compare(erased, cfg.num_inference_steps, "skilled neurons removed, MoE")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+def run_wanda(pipe, ivs, images_before, card: str) -> dict:
+    """Phase 6: Wanda masks on the prompt pairs, a generate erasing with
+    them under MoE routing, and their union baked into the weights."""
+    from diffusion_models_moe_tpu_torch.analysis.collect import wanda_pipeline
+    from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
+    from diffusion_models_moe_tpu_torch.erasure.masks import (
+        bake_wanda_masks, union_over_timesteps, wanda_removal_interventions)
+    cfg = pipe.config
+    tok = hash_tokenize(cfg.text_encoder.vocab_size, cfg.text_encoder.max_length)
+    t0 = time.perf_counter()
+    masks = wanda_pipeline(pipe, tok, BASE, ADJ, WANDA_SKILL_RATIO,
+                           num_steps=WANDA_STEPS)
+    wall = time.perf_counter() - t0
+    n_masked = sum(int(m.sum()) for m in masks.values())
+    print(f"wanda: wanda_pipeline over {len(BASE)} prompt pairs at "
+          f"{WANDA_STEPS} PNDM steps, skill ratio {WANDA_SKILL_RATIO}: wall "
+          f"{wall:.3f} s; {n_masked} masked (step, row, column) entries",
+          flush=True)
+    for l, d in enumerate(cfg.unet.ff_dims()):
+        check(masks[l].shape == (WANDA_STEPS + 1, d, 4 * d),
+              f"wanda mask of layer {l}: shape {masks[l].shape}")
+    calls = WANDA_STEPS + 1
+    erased = merge(ivs, wanda_removal_interventions(masks, device=DEV),
+                   ("out_weight_mask",))
+    cond = tok(ADJ).to(DEV)
+    _, launches = timed_generate(
+        pipe, f"wanda erasure on {card}", cond, torch.zeros_like(cond), seed=6,
+        ivs=erased, num_steps=WANDA_STEPS,
+        expect={"fused_route_multiply": 16 * calls, "geglu_ff_fused": 0})
+    static = union_over_timesteps(masks, UNION_RATIO)
+    pruned = sum(int(m.sum()) for m in static.values())
+    baked = bake_wanda_masks(pipe.unet.state_dict(), cfg.unet, static)
+    pipe.unet.load_state_dict(baked)
+    calls = cfg.num_inference_steps + 1
+    tcfg = cfg.text_encoder
+    cond = torch.randint(0, tcfg.vocab_size, (BATCH, tcfg.max_length),
+                         generator=torch.Generator().manual_seed(1)).to(DEV)
+    images, _ = timed_generate(
+        pipe, f"baked wanda union on {card}", cond, torch.zeros_like(cond),
+        seed=3, ivs=ivs,
+        expect={"geglu_ff_fused": 16 * calls, "fused_route_multiply": 0})
+    moved = (images - images_before).abs().mean().item()
+    print(f"wanda: union over timesteps (ratio {UNION_RATIO}) pruned {pruned} "
+          f"W2 entries; mean |image change| against the unbaked phase-3 "
+          f"images (same prompts and noise) {moved:.6f}", flush=True)
+    check(pruned > 0 and moved > 0, "the baked masks changed nothing")
+    return launches
 
 
 def main() -> None:
@@ -294,28 +499,56 @@ def main() -> None:
                                    and " 0 bytes spill stores" not in line):
             print("  ptxas:", line.strip())
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(f"phase 1 (build) wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    card = smi.splitlines()[0]
+    phase_t0 = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal phase_t0
+        print(f"phase {name} wall {time.perf_counter() - phase_t0:.1f} s",
+              flush=True)
+        phase_t0 = time.perf_counter()
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
     ff = check_ff(gen)
+    phase_done("2 (fused FF)")
+    route = check_routing(gen)
+    phase_done("2b (routing kernel)")
     self_attn, cross_attn = check_attention(gen)
-    pipe, ivs, cond, uncond, launches = run_slice(smi.splitlines()[0])
-    check_latents(pipe, ivs, cond, uncond)
+    phase_done("2 (attention)")
+    pipe, ivs, cond, uncond, launches, images = run_slice(card)
+    phase_done("3 (serving slice)")
+    _, compare = check_latents(pipe, ivs, cond, uncond)
+    phase_done("4 (latents)")
+    attribution_launches = run_attribution(pipe, ivs, compare, card)
+    phase_done("5 (attribution and neuron erasure)")
+    wanda_launches = run_wanda(pipe, ivs, images, card)
+    phase_done("6 (wanda erasure and bake)")
+    print("launches by path: " + json.dumps({
+        "serving": launches, "attribution": attribution_launches,
+        "wanda_erasure": wanda_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
         ("geglu_ff_fused", f"{csrc}/geglu_ff.cu",
-         "diffusion_models_moe_tpu/ops/geglu_ff_fused.py:85", ff),
+         "diffusion_models_moe_tpu/ops/geglu_ff_fused.py:85", ff, launches),
         ("sd_self_attention", f"{csrc}/sd_attention.cu",
-         "diffusion_models_moe_tpu/ops/sd_flash.py:46", self_attn),
+         "diffusion_models_moe_tpu/ops/sd_flash.py:46", self_attn, launches),
         ("sd_cross_attention", f"{csrc}/sd_attention.cu",
-         "diffusion_models_moe_tpu/ops/sd_flash.py:142", cross_attn),
+         "diffusion_models_moe_tpu/ops/sd_flash.py:142", cross_attn, launches),
+        # its path is the attribution run (phase 5): taps force the unfused FF
+        ("fused_route_multiply", f"{csrc}/geglu_ff.cu",
+         "diffusion_models_moe_tpu/ops/routing_kernel.py:45", route,
+         attribution_launches),
     ]
     # the top-level numbers are those of the first (largest-N) shape; every
     # shape's own numbers are under "shapes"
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name],
+                    launches=counts[name],
                     max_abs_err=m[0]["max_abs_err"], ms=m[0]["ms"],
                     plain_ms=m[0]["plain_ms"], shape=m[0]["shape"], shapes=m)
-               for name, src, rep, m in rows]
+               for name, src, rep, m, counts in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

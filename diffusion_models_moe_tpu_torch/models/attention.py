@@ -1,12 +1,19 @@
 """Transformer blocks with MoE-routed GEGLU feed-forwards (PyTorch port).
 
-Counterpart of `diffusion_models_moe_tpu/models/attention.py` on its serving
-path: self-attention goes through the flash kernel (`ops/sd_flash.py`),
+Counterpart of `diffusion_models_moe_tpu/models/attention.py`:
+self-attention goes through the flash kernel (`ops/sd_flash.py`),
 cross-attention through the one-pass text-token kernel, and the whole
 `x + ff(norm3(x))` sub-block through the fused GEGLU-MoE kernel
 (`ops/geglu_ff_fused.py`) with norm3 and the residual absorbed, as the JAX
-package runs it with DMOE_FF_FUSED=1. Parameter names follow diffusers
-(`attn1.to_q`, `attn1.to_out.0`, `ff.net.0.proj`, `ff.net.2`, `norm3`, ...).
+package runs it with DMOE_FF_FUSED=1. An FF call that collects taps or
+carries a neuron mask, an output-weight mask or an expert boost takes the
+unfused path of the JAX module instead, with its routing in the fused
+routing kernel (`ops/routing_kernel.py`) where no expert tap or boost needs
+the selection. Parameter names follow diffusers (`attn1.to_q`,
+`attn1.to_out.0`, `ff.net.0.proj`, `ff.net.2`, `norm3`, ...).
+
+Tap statistics go into the `taps_out` dict a caller passes down, as
+`taps_out[stat][ff_index]`, the layout `denoise` stacks over steps.
 
 `use_kernels=False` runs the plain versions of the kernels on CUDA tensors;
 it exists only for kernel-vs-plain comparisons.
@@ -17,13 +24,19 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.models.layers import (group_norm_f32,
                                                           layer_norm_f32)
 from diffusion_models_moe_tpu_torch.ops.geglu_ff_fused import geglu_ff_fused
+from diffusion_models_moe_tpu_torch.ops.routing_kernel import \
+    fused_route_multiply
 from diffusion_models_moe_tpu_torch.ops.sd_flash import (sd_cross_attention,
                                                          sd_self_attention)
-from diffusion_models_moe_tpu_torch.taps import LayerIntervention
+from diffusion_models_moe_tpu_torch.taps import (LayerIntervention, TapSpec,
+                                                 routing_mask, step_row)
+
+TapsOut = Optional[dict]     # {stat: {ff_index: tensor}}, filled in place
 
 
 class Attention(nn.Module):
@@ -68,32 +81,44 @@ class GEGLU(nn.Module):
 
 
 class GEGLUFeedForward(nn.Module):
-    """GEGLU FF with optional top-k expert routing, run as one fused op.
+    """GEGLU FF with optional top-k expert routing, taps and interventions.
 
     `net.0.proj` is W1 (2H, C), `net.1` the (inference-time identity)
     dropout, `net.2` W2 (C, H). `forward(x, ln=...)` returns
-    `x + ff(layernorm(x))` with the LayerNorm and residual absorbed."""
+    `x + ff(layernorm(x))` with the LayerNorm and residual absorbed.
+    `ff_index` is the layer's place in the canonical FF order."""
 
-    def __init__(self, dim: int, mult: int = 4, activation: str = "geglu"):
+    def __init__(self, dim: int, mult: int = 4, activation: str = "geglu",
+                 ff_index: int = 0):
         super().__init__()
         if activation not in ("geglu", "geglu-relu"):
             raise NotImplementedError(
                 f"ff activation {activation!r} is not ported (geglu, geglu-relu)")
         self.relu = activation == "geglu-relu"
+        self.ff_index = ff_index
         hidden = dim * mult
         self.net = nn.ModuleList([GEGLU(dim, hidden), nn.Identity(),
                                   nn.Linear(hidden, dim)])
 
     def forward(self, x: torch.Tensor, *, step_idx: int = 0,
+                tap: Optional[TapSpec] = None,
                 iv: Optional[LayerIntervention] = None,
-                ln: Optional[nn.LayerNorm] = None,
+                ln: Optional[nn.LayerNorm] = None, taps_out: TapsOut = None,
                 use_kernels: bool = True) -> torch.Tensor:
+        collecting = tap is not None and (tap.any_gate_stat()
+                                          or tap.any_expert_stat())
+        if not collecting and (iv is None or (
+                iv.neuron_mask is None and iv.out_weight_mask is None
+                and iv.expert_boost is None
+                and (iv.patterns is None or iv.k > 0))):
+            return self._fused(x, step_idx, iv, ln, use_kernels)
+        return self._unfused(x, step_idx, tap, iv, ln, taps_out, use_kernels)
+
+    def _fused(self, x, t, iv, ln, use_kernels):
+        """The whole FF in the fused GEGLU-MoE kernel."""
         patterns, k = None, 0
         if iv is not None and iv.patterns is not None:
-            patterns, k = iv.patterns, iv.k
-            if iv.expert_remove is not None:
-                rm = iv.expert_remove[step_idx].to(patterns.dtype)     # (E,)
-                patterns = patterns * (1.0 - rm)[:, None]
+            patterns, k = _step_patterns(iv, t), iv.k
         shape = x.shape
         proj, out = self.net[0].proj, self.net[2]
         y = geglu_ff_fused(
@@ -104,32 +129,138 @@ class GEGLUFeedForward(nn.Module):
             eps=1e-5 if ln is None else ln.eps, use_kernels=use_kernels)
         return y.reshape(shape)
 
+    def _unfused(self, x, t, tap, iv, ln, taps_out, use_kernels):
+        """The JAX module's unfused path: LN, the proj GEMM, the activated
+        gate, gate taps, the neuron fill, routing, the Wanda tap, W2 under
+        its mask, the residual."""
+        dt, resid = x.dtype, x
+        if ln is not None:
+            # flax order: fast variance, rsqrt folded into the scale
+            xr = x.float()
+            mu = xr.mean(-1, keepdim=True)
+            var = ((xr * xr).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+            mul = torch.rsqrt(var + ln.eps) * ln.weight.float()
+            x = ((xr - mu) * mul + ln.bias.float()).to(dt)
+        hidden, gate = self.net[0].proj(x).chunk(2, dim=-1)
+        gate = F.relu(gate) if self.relu else F.gelu(gate)
+        hdim = gate.shape[-1]
+        sink = {} if taps_out is None else taps_out
+        idx = self.ff_index
+        if tap is not None and tap.any_gate_stat():
+            _gate_stats(gate, tap, iv, sink, idx)
+        if iv is not None and iv.neuron_mask is not None:
+            gate = gate.masked_fill(step_row(iv.neuron_mask, t),
+                                    iv.neuron_fill)
+        y = None
+        need_sel = tap is not None and tap.any_expert_stat()
+        if iv is not None and iv.patterns is not None and iv.k > 0:
+            patterns = _step_patterns(iv, t)
+            boost = (None if iv.expert_boost is None
+                     else step_row(iv.expert_boost, t))
+            if boost is None and not need_sel:
+                y = fused_route_multiply(
+                    hidden.reshape(-1, hdim), gate.reshape(-1, hdim),
+                    patterns, iv.k, use_kernels=use_kernels
+                ).reshape(gate.shape)
+            else:
+                g2 = gate.reshape(-1, hdim)
+                mask2d, sel = routing_mask(g2, patterns, iv.k,
+                                           expert_boost=boost)
+                gate = gate * mask2d.reshape(gate.shape)
+                if need_sel:
+                    _expert_stats(g2, sel, gate.shape, tap, iv, sink, idx)
+        elif need_sel and iv is not None and iv.patterns is not None:
+            # observe only: k < 0 selects top-|k|, k == 0 top-1; the gate
+            # stays as it is
+            g2 = gate.reshape(-1, hdim)
+            _, sel = routing_mask(g2, iv.patterns, abs(iv.k) or 1)
+            _expert_stats(g2, sel, gate.shape, tap, iv, sink, idx)
+        if y is None:
+            y = hidden * gate
+        if tap is not None and tap.ff_out_colnorm_sq:
+            y2 = y.reshape(-1, hdim).float()
+            y2 = y2 / y2.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            sink.setdefault("ff_out_colnorm_sq", {})[idx] = (y2 * y2).sum(0)
+        out = self.net[2]
+        w2 = out.weight
+        if iv is not None and iv.out_weight_mask is not None:
+            wm = iv.out_weight_mask
+            wm = step_row(wm, t) if wm.dim() == 3 else wm          # (D, H)
+            w2 = w2 * (1.0 - wm.to(w2.dtype))
+        y = F.linear(y, w2, out.bias)
+        return y if ln is None else resid + y
+
+
+def _step_patterns(iv: LayerIntervention, t: int) -> torch.Tensor:
+    """The routing patterns of step t: expert_remove's rows zeroed."""
+    patterns = iv.patterns
+    if iv.expert_remove is not None:
+        rm = step_row(iv.expert_remove, t).to(patterns.dtype)       # (E,)
+        patterns = patterns * (1.0 - rm)[:, None]
+    return patterns
+
+
+def _gate_stats(gate, tap: TapSpec, iv, sink: dict, idx: int) -> None:
+    g = gate.reshape(-1, gate.shape[-1]).float()
+    tm = None
+    if iv is not None and iv.token_mask is not None:
+        # the token positions of every batch element
+        tm = iv.token_mask.repeat(gate.shape[0]).float()[:, None]
+    if tap.max_gate:
+        gm = g if tm is None else g.masked_fill(tm <= 0, float("-inf"))
+        sink.setdefault("max_gate", {})[idx] = gm.max(0).values
+    if tap.mean_gate:
+        sink.setdefault("mean_gate", {})[idx] = (
+            g.mean(0) if tm is None
+            else (g * tm).sum(0) / tm.sum().clamp_min(1.0))
+    if tap.gate_sparsity:
+        sink.setdefault("gate_sparsity", {})[idx] = (g == 0.0).float().mean()
+    if tap.save_gate:
+        sink.setdefault("save_gate", {})[idx] = gate
+
+
+def _expert_stats(g2, sel, gate_shape, tap: TapSpec, iv, sink: dict,
+                  idx: int) -> None:
+    if tap.expert_scores_max:
+        score = g2.float() @ iv.patterns.float().t()
+        sink.setdefault("expert_scores_max", {})[idx] = score.max(0).values
+    if tap.expert_freq:
+        # batch element 0 only, weight 1/seq_len
+        bsz, seq_len = gate_shape[0], gate_shape[1]
+        sel_b = sel.reshape(bsz, seq_len, -1)
+        sink.setdefault("expert_freq", {})[idx] = sel_b[0].sum(0) / seq_len
+    if tap.expert_sel:
+        sink.setdefault("expert_sel", {})[idx] = sel.sum(0)
+
 
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn, LN -> cross-attn, LN -> GEGLU FF, residual each.
     LayerNorm eps is 1e-5, torch's default that diffusers inherits."""
 
     def __init__(self, dim: int, heads: int, context_dim: int,
-                 ff_mult: int = 4, ff_activation: str = "geglu"):
+                 ff_mult: int = 4, ff_activation: str = "geglu",
+                 ff_index: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, context_dim=context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = GEGLUFeedForward(dim, ff_mult, ff_activation)
+        self.ff = GEGLUFeedForward(dim, ff_mult, ff_activation, ff_index)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
-                step_idx: int = 0, iv: Optional[LayerIntervention] = None,
+                step_idx: int = 0, tap: Optional[TapSpec] = None,
+                iv: Optional[LayerIntervention] = None,
+                taps_out: TapsOut = None,
                 use_kernels: bool = True) -> torch.Tensor:
         dt = x.dtype
         x = x + self.attn1(layer_norm_f32(self.norm1, x).to(dt),
                            use_kernels=use_kernels)
         x = x + self.attn2(layer_norm_f32(self.norm2, x).to(dt), context,
                            use_kernels=use_kernels)
-        # norm3 and the residual are absorbed into the fused FF
-        return self.ff(x, step_idx=step_idx, iv=iv, ln=self.norm3,
-                       use_kernels=use_kernels)
+        # norm3 and the residual are absorbed into the FF
+        return self.ff(x, step_idx=step_idx, tap=tap, iv=iv, ln=self.norm3,
+                       taps_out=taps_out, use_kernels=use_kernels)
 
 
 class Transformer2D(nn.Module):
@@ -138,25 +269,27 @@ class Transformer2D(nn.Module):
 
     def __init__(self, dim: int, heads: int, context_dim: int, depth: int = 1,
                  norm_num_groups: int = 32, ff_mult: int = 4,
-                 ff_activation: str = "geglu"):
+                 ff_activation: str = "geglu", ff_index: int = 0):
         super().__init__()
         self.norm = nn.GroupNorm(norm_num_groups, dim, eps=1e-6)
         self.proj_in = nn.Linear(dim, dim)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(dim, heads, context_dim, ff_mult, ff_activation)
-            for _ in range(depth)])
+            BasicTransformerBlock(dim, heads, context_dim, ff_mult, ff_activation,
+                                  ff_index + d)
+            for d in range(depth)])
         self.proj_out = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
-                step_idx: int = 0,
+                step_idx: int = 0, tap: Optional[TapSpec] = None,
                 ivs: Sequence[Optional[LayerIntervention]] = (),
+                taps_out: TapsOut = None,
                 use_kernels: bool = True) -> torch.Tensor:
         b, c, h, w = x.shape
         y = group_norm_f32(self.norm, x).to(x.dtype)
         y = self.proj_in(y.permute(0, 2, 3, 1).reshape(b, h * w, c))
         for d, block in enumerate(self.transformer_blocks):
             iv = ivs[d] if d < len(ivs) else None
-            y = block(y, context, step_idx=step_idx, iv=iv,
-                      use_kernels=use_kernels)
+            y = block(y, context, step_idx=step_idx, tap=tap, iv=iv,
+                      taps_out=taps_out, use_kernels=use_kernels)
         y = self.proj_out(y)
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2) + x

@@ -3,7 +3,8 @@
 Counterpart of `diffusion_models_moe_tpu/models/unet.py` without its
 DeepCache, SDXL add-embedding and LCM guidance-embedding options. The GEGLU
 FF layers are numbered in execution order, down (0-5), mid (6), up (7-15)
-for SD1.x, and `ivs[i]` routes FF layer i. Parameter names are diffusers'
+for SD1.x: `ivs[i]` acts on FF layer i, and its tap statistics are keyed i.
+Parameter names are diffusers'
 (`down_blocks.0.attentions.1.transformer_blocks.0.ff.net.2.weight`, ...).
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ from diffusion_models_moe_tpu_torch.models.layers import (Downsample2D,
                                                           Upsample2D,
                                                           group_norm_f32,
                                                           timestep_embedding)
-from diffusion_models_moe_tpu_torch.taps import Interventions
+from diffusion_models_moe_tpu_torch.taps import Interventions, TapSpec
 
 
 class _Block(nn.Module):
@@ -44,12 +45,16 @@ class UNet2DCondition(nn.Module):
         n = len(ch)
         tdim = ch[0] * 4
         groups = cfg.norm_num_groups
+        n_ff = 0                 # FF layers built so far, in execution order
 
         def transformer(dim, block_idx):
-            return Transformer2D(dim, cfg.heads_for_block(block_idx),
-                                 cfg.cross_attention_dim,
-                                 cfg.depth_for_block(block_idx), groups,
-                                 cfg.ff_mult, cfg.ff_activation)
+            nonlocal n_ff
+            depth = cfg.depth_for_block(block_idx)
+            t = Transformer2D(dim, cfg.heads_for_block(block_idx),
+                              cfg.cross_attention_dim, depth, groups,
+                              cfg.ff_mult, cfg.ff_activation, ff_index=n_ff)
+            n_ff += depth
+            return t
 
         self.conv_in = nn.Conv2d(cfg.sample_channels, ch[0], 3, 1, 1)
         self.time_embedding = TimestepEmbedding(ch[0], tdim)
@@ -91,10 +96,13 @@ class UNet2DCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timestep,
                 encoder_hidden_states: torch.Tensor, *,
                 ivs: Optional[Interventions] = None, step_idx: int = 0,
+                tap: Optional[TapSpec] = None,
+                taps_out: Optional[dict] = None,
                 use_kernels: bool = True) -> torch.Tensor:
         """sample: (B, C, H, W) latents; timestep: scalar or (B,);
         encoder_hidden_states: (B, S, D_text). Returns the predicted noise
-        (B, C, H, W) in f32."""
+        (B, C, H, W) in f32. With `tap`, each FF layer writes its statistics
+        into `taps_out` as {stat: {ff_index: tensor}}."""
         cfg = self.cfg
         dt = self.conv_in.weight.dtype
         b = sample.shape[0]
@@ -104,7 +112,8 @@ class UNet2DCondition(nn.Module):
         temb = self.time_embedding(temb)
         context = encoder_hidden_states.to(dt)
         ivs = tuple(ivs) if ivs is not None else ()
-        kw = dict(step_idx=step_idx, use_kernels=use_kernels)
+        kw = dict(step_idx=step_idx, tap=tap, taps_out=taps_out,
+                  use_kernels=use_kernels)
         ff_index = 0
 
         def attend(attn, h, block_idx):

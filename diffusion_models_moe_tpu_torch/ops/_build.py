@@ -1,9 +1,10 @@
 """Builds and loads the hand-written CUDA kernels in `ops/csrc/`.
 
-The sources are compiled with `nvcc` for `sm_90a` into one shared library
-with a plain C interface, at first use, into `ops/_build/` (git-ignored), and
-loaded with ctypes. The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt. Nothing here runs at import time: the
+Each source is compiled by its own `nvcc` for `sm_90a`, all at once, and the
+objects are linked into one shared library with a plain C interface, at
+first use, into `ops/_build/` (git-ignored), and loaded with ctypes. The
+library's name carries a hash of the sources and flags, so an edited source
+is rebuilt. Nothing here runs at import time: the
 package imports and runs on a machine without `nvcc` or a GPU, where every
 op takes its plain PyTorch version.
 
@@ -27,13 +28,13 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
 # Kernel launches made by the wrappers, by kernel name: each wrapper adds one
 # where it launches its kernel. A run resets the counts with
 # `reset_launch_counts()` and reads them after, to show which kernels ran.
 LAUNCHES = {"geglu_ff_fused": 0, "sd_self_attention": 0,
-            "sd_cross_attention": 0}
+            "sd_cross_attention": 0, "fused_route_multiply": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,7 @@ _SIGNATURES = {
     "dmoe_ff_up": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "dmoe_ff_route": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "dmoe_ff_down": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "dmoe_route_multiply": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "dmoe_sd_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _LL, _P],
     "dmoe_sd_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _LL,
                                 _P],
@@ -82,6 +84,33 @@ def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _compile_and_link(so_path: pathlib.Path) -> str:
+    """One `nvcc -c` per source, all started together, then one link.
+    Returns the compilers' output; raises if any step fails."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = so_path.with_name(f"{so_path.stem}.{src.stem}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    log = "".join(out for out, _ in outs)
+    if any(rc != 0 for _, rc in outs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    tmp = so_path.with_suffix(f".{tag}")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, so_path)
+    return log
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> KernelLibrary:
     """Builds the kernels if needed (once per process) and loads them."""
@@ -93,16 +122,9 @@ def load_library() -> KernelLibrary:
     so_path = BUILD_DIR / f"libdmoe_kernels_{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""
     if not so_path.exists():
-        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile_and_link(so_path)
         build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so_path)
     lib = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

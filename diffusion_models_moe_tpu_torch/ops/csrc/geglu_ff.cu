@@ -1,8 +1,10 @@
-// Fused GEGLU-MoE feed-forward for Hopper, in three hand-written launches.
+// Fused GEGLU-MoE feed-forward for Hopper, in three hand-written launches,
+// and the fused MoE routing kernel of the unfused FF path.
 //
-// Replaces the Pallas TPU kernel diffusion_models_moe_tpu/ops/geglu_ff_fused.py
-// :_kernel (pallas_call at :194). That kernel keeps W1 (C, 2H) and W2 (H, C)
-// resident in VMEM and runs the whole FF per row block. On the H100 W1 alone
+// Replaces the Pallas TPU kernels diffusion_models_moe_tpu/ops/geglu_ff_fused.py
+// :_kernel (pallas_call at :194) and diffusion_models_moe_tpu/ops/
+// routing_kernel.py:_routing_kernel (pallas_call at :106). The first keeps
+// W1 (C, 2H) and W2 (H, C) resident in VMEM and runs the whole FF per row block. On the H100 W1 alone
 // is 26 MB at C = 1280 against 227 KB of shared memory per SM, so the work is
 // split where a row's data must be complete:
 //
@@ -11,13 +13,20 @@
 //                       the dual GEMM h = xn W1[:H]^T, g = xn W1[H:]^T with a
 //                       GELU epilogue. Routed: writes ga (model dtype, for the
 //                       score) and h*ga (f32). Unrouted: writes bf16(h*ga).
-//   2. ff_route_kernel  per 32-row block: expert scores S = ga P^T (f32
+//   2. route_kernel     per 32-row block: expert scores S = ga P^T (f32
 //                       accumulation), exact threshold selection s >= kth (an
 //                       expert is kept when fewer than k experts score strictly
 //                       higher: ties kept), neuron mask m = sel P, and
 //                       prod = bf16(h*ga*m); both products on the tensor cores.
 //   3. ff_down_kernel   y = prod W2^T + b2, rounded to the model dtype, plus
 //                       the residual x added in the model dtype.
+//
+// The routing kernel (dmoe_route_multiply) is route_kernel of launch 2 on the
+// FF path that keeps hidden and gate apart (taps, neuron masks, out-weight
+// masks): it reads hidden and the activated gate as bf16 (N, H) and writes
+// bf16(hidden*gate) * mask, as the TPU routing kernel rounds it. It is bound
+// like launch 2: by the reads of hidden and gate and the write of the
+// product, and at E = 256 by streaming P twice per 32-row block.
 //
 // The rounding points are the JAX kernel's: ga and prod are cast to the model
 // dtype before their products, the residual is added in the model dtype.
@@ -221,12 +230,27 @@ __device__ __forceinline__ void load_pattern_tile(bf16* Ps, const bf16* pat,
   }
 }
 
+// hidden * gate of one element, in f32. Launch 2 of the fused FF hands in
+// hg = h*ga already formed in f32 from the unrounded gate; the routing
+// kernel hands in hidden as bf16 and multiplies by the bf16 gate (the
+// product of two bf16 values is exact in f32).
+__device__ __forceinline__ float hidden_times_gate(const float* hg,
+                                                   const bf16*) {
+  return *hg;
+}
+__device__ __forceinline__ float hidden_times_gate(const bf16* hidden,
+                                                   const bf16* ga) {
+  return bf2f(*hidden) * bf2f(*ga);
+}
+
 // Routing as two small GEMMs on the tensor cores: scores S = ga P^T (bf16
 // products of 0/1 patterns are exact, sums in f32), the selection per row in
 // shared memory, then the neuron mask m = sel P (small integers, exact) with
-// the product epilogue prod = bf16(h*ga*m).
-__global__ void __launch_bounds__(R_THREADS) ff_route_kernel(
-    const bf16* __restrict__ ga, const float* __restrict__ hg,
+// the product epilogue prod = bf16(hidden*gate*m). Rows of hg lie ldh
+// elements apart (hidden may be the first half of the (N, 2H) projection).
+template <typename HT>
+__global__ void __launch_bounds__(R_THREADS) route_kernel(
+    const bf16* __restrict__ ga, const HT* __restrict__ hg, int ldh,
     const bf16* __restrict__ pat, int n, int hdim, int e, int k,
     bf16* __restrict__ prod) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -318,7 +342,8 @@ __global__ void __launch_bounds__(R_THREADS) ff_route_kernel(
       const int r = i / R_BK, j = i % R_BK, gr = row0 + r;
       if (gr >= n) continue;
       const size_t o = (size_t)gr * hdim + h0 + j;
-      prod[o] = f2bf(hg[o] * Ms[r * R_LDM + j]);
+      const float hgv = hidden_times_gate(hg + (size_t)gr * ldh + h0 + j, ga + o);
+      prod[o] = f2bf(hgv * Ms[r * R_LDM + j]);
     }
     __syncthreads();  // Ps and Ms are rewritten by the next tile
   }
@@ -405,6 +430,21 @@ cudaError_t launch_up(bool relu, dim3 grid, cudaStream_t st, const bf16* x,
   return cudaGetLastError();
 }
 
+template <typename HT>
+int launch_route(const bf16* ga, const HT* hg, int ldh, const void* pat, int n,
+                 int hdim, int e, int k, void* prod, void* stream) {
+  const RouteLayout L = route_layout(e);
+  cudaError_t err = cudaFuncSetAttribute(
+      route_kernel<HT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + R_BM - 1) / R_BM);
+  route_kernel<HT><<<grid, R_THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
+      ga, hg, ldh, static_cast<const bf16*>(pat), n, hdim, e, k,
+      static_cast<bf16*>(prod));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -447,16 +487,21 @@ int dmoe_ff_up(const void* x, const void* w1, const void* b1, const void* ln_g,
 // Launch 2. pat (e, hdim) bf16 0/1 with e <= 256, 1 <= k <= e; hdim % 64 == 0.
 int dmoe_ff_route(const void* ga, const void* hg, const void* pat, int n,
                   int hdim, int e, int k, void* prod, void* stream) {
-  const RouteLayout L = route_layout(e);
-  cudaError_t err = cudaFuncSetAttribute(
-      ff_route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + R_BM - 1) / R_BM);
-  ff_route_kernel<<<grid, R_THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(ga), static_cast<const float*>(hg),
-      static_cast<const bf16*>(pat), n, hdim, e, k, static_cast<bf16*>(prod));
-  return static_cast<int>(cudaGetLastError());
+  return launch_route(static_cast<const bf16*>(ga),
+                      static_cast<const float*>(hg), hdim, pat, n, hdim, e, k,
+                      prod, stream);
+}
+
+// The routing kernel: out = bf16(hidden * gate) * topk_mask. hidden (n, hdim)
+// bf16 with rows ld_hidden elements apart; gate (n, hdim) bf16, activated,
+// contiguous; pat (e, hdim) bf16 0/1 with e <= 256, 1 <= k <= e;
+// hdim % 64 == 0.
+int dmoe_route_multiply(const void* hidden, int ld_hidden, const void* gate,
+                        const void* pat, int n, int hdim, int e, int k,
+                        void* out, void* stream) {
+  return launch_route(static_cast<const bf16*>(gate),
+                      static_cast<const bf16*>(hidden), ld_hidden, pat, n,
+                      hdim, e, k, out, stream);
 }
 
 // Launch 3. prod (n, hdim), w2 (c, hdim), b2 (c), x (n, c) or null; hdim % 32 == 0.

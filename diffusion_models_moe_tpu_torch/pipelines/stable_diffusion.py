@@ -6,6 +6,11 @@ classifier-free guidance (off when guidance <= 1) through the MoE-routed
 UNet, and the VAE decodes. Latents and images are NCHW. The JAX pipeline
 traces the loop into one `lax.scan`; here it is an eager Python loop.
 
+With a `TapSpec`, `denoise` returns the statistics of every step stacked to
+`(T, ...)` by the step index, as {stat: {layer: tensor}}; they stay on the
+device until the loop ends. `generate` returns `(images, taps)`, the CLIP
+MLP taps added over the prompt and the negative-prompt encodes.
+
 `denoise(use_kernels=False)` runs the plain versions of the hand-written
 kernels on CUDA tensors; it exists only for kernel-vs-plain comparisons.
 """
@@ -22,7 +27,7 @@ from diffusion_models_moe_tpu_torch.models.layers import cast_model
 from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
 from diffusion_models_moe_tpu_torch.models.vae import VAEDecoder
 from diffusion_models_moe_tpu_torch.schedulers.pndm import PNDMScheduler
-from diffusion_models_moe_tpu_torch.taps import Interventions
+from diffusion_models_moe_tpu_torch.taps import Interventions, TapSpec
 
 
 class StableDiffusionPipeline:
@@ -80,32 +85,54 @@ class StableDiffusionPipeline:
 
     # ------------------------------------------------------------------ text
     @torch.no_grad()
-    def encode_text(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.text_encoder(input_ids.to(self.device))
+    def encode_text(self, input_ids: torch.Tensor,
+                    tap: Optional[TapSpec] = None,
+                    text_ivs: Optional[Interventions] = None):
+        """ids (B, S) -> (embeddings (B, S, D), text taps or None). Text taps
+        are collected only for `tap.ff_out_colnorm_sq`."""
+        ids = input_ids.to(self.device)
+        if tap is not None and tap.ff_out_colnorm_sq:
+            taps: dict = {}
+            emb = self.text_encoder(ids, tap=tap, ivs=text_ivs, taps_out=taps)
+            return emb, taps
+        return self.text_encoder(ids, ivs=text_ivs), None
 
     # ------------------------------------------------------------------ core
     @torch.no_grad()
     def denoise(self, context: torch.Tensor, latents: torch.Tensor,
                 num_steps: int, guidance_scale: float,
+                tap: Optional[TapSpec] = None,
                 ivs: Optional[Interventions] = None,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True):
         """CFG denoise. context: (2B, S, D) with the unconditional half first
         (B when guidance <= 1); latents: (B, C, h, w) ~ N(0, 1), pre-scaled.
-        Returns the final latents (B, C, h, w) in f32."""
+        Returns (final latents (B, C, h, w) in f32, taps with (T, ...)
+        leaves or None)."""
         timesteps, coeffs = self.scheduler.set_timesteps(num_steps)
         do_cfg = guidance_scale > 1.0
+        collect = tap is not None and tap.any()
         state = self.scheduler.init_state()
         lat = latents.to(self.device, torch.float32)
         context = context.to(self.device)
+        per_step: list[dict] = []
         for i, t in enumerate(timesteps.tolist()):
             lat_in = torch.cat([lat, lat]) if do_cfg else lat
+            step_taps: dict = {}
             eps = self.unet(lat_in, t, context, ivs=ivs, step_idx=i,
-                            use_kernels=use_kernels)
+                            tap=tap if collect else None,
+                            taps_out=step_taps, use_kernels=use_kernels)
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
+            if collect and tap.save_eps:
+                step_taps["eps"] = {0: eps}
+            per_step.append(step_taps)
             state, lat = self.scheduler.step(state, coeffs, eps, i, lat)
-        return lat
+        if not collect:
+            return lat, None
+        return lat, {stat: {l: torch.stack([s[stat][l] for s in per_step])
+                            for l in layers}
+                     for stat, layers in per_step[0].items()}
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
@@ -113,26 +140,41 @@ class StableDiffusionPipeline:
         images = self.vae_decoder(latents)
         return torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
 
+    def initial_noise(self, batch: int, generator: torch.Generator
+                      ) -> torch.Tensor:
+        """The N(0, 1) latents `generate` starts from, (B, C, s, s), drawn
+        from `generator` on its own device."""
+        cfg = self.config
+        s = cfg.sample_size
+        return torch.randn((batch, cfg.unet.sample_channels, s, s),
+                           generator=generator, device=generator.device)
+
     # ------------------------------------------------------------------ full
     @torch.no_grad()
     def generate(self, cond_ids: torch.Tensor, uncond_ids: torch.Tensor,
                  generator: torch.Generator, *,
                  num_steps: Optional[int] = None,
                  guidance_scale: Optional[float] = None,
+                 tap: Optional[TapSpec] = None,
                  ivs: Optional[Interventions] = None,
-                 decode: bool = True) -> torch.Tensor:
-        """Token ids (B, S) -> images (B, 3, 8s, 8s) in [0, 1] (or the final
-        latents with decode=False). The initial noise comes from `generator`."""
+                 text_ivs: Optional[Interventions] = None,
+                 decode: bool = True):
+        """Token ids (B, S) -> (images (B, 3, 8s, 8s) in [0, 1], or the final
+        latents with decode=False; taps or None). The initial noise comes
+        from `generator`. Text taps add over both encodes."""
         cfg = self.config
         num_steps = num_steps or cfg.num_inference_steps
         g = cfg.guidance_scale if guidance_scale is None else guidance_scale
-        cond = self.encode_text(cond_ids)
-        context = cond if g <= 1.0 else torch.cat(
-            [self.encode_text(uncond_ids), cond])
-        s = cfg.sample_size
-        shape = (cond_ids.shape[0], cfg.unet.sample_channels, s, s)
-        latents = torch.randn(shape, generator=generator,
-                              device=generator.device).to(self.device)
-        latents = latents * self.scheduler.init_noise_sigma
-        latents = self.denoise(context, latents, num_steps, g, ivs)
-        return self.decode(latents) if decode else latents
+        cond, cond_taps = self.encode_text(cond_ids, tap, text_ivs)
+        uncond, text_taps = self.encode_text(uncond_ids, tap, text_ivs)
+        if cond_taps and text_taps:
+            text_taps = {stat: {l: v + text_taps[stat][l]
+                                for l, v in layers.items()}
+                         for stat, layers in cond_taps.items()}
+        context = cond if g <= 1.0 else torch.cat([uncond, cond])
+        latents = self.initial_noise(cond_ids.shape[0], generator)
+        latents = latents.to(self.device) * self.scheduler.init_noise_sigma
+        latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs)
+        if text_taps:
+            taps = dict(taps or {}, **text_taps)
+        return (self.decode(latents) if decode else latents), taps

@@ -184,8 +184,15 @@ def test_routing_mask_matches_jax(exact_k):
 @pytest.mark.parametrize("field", ["expert_boost", "neuron_mask",
                                    "out_weight_mask", "token_mask"])
 def test_unported_interventions_raise(field):
-    with pytest.raises(NotImplementedError):
-        LayerIntervention(**{field: torch.zeros(4)})
+    """The four interventions the first slice refused are ported; each
+    still raises on a tensor whose rank the FF layer cannot read per step
+    (a 0-d tensor), and takes a tensor of its rank."""
+    with pytest.raises(ValueError, match=field):
+        LayerIntervention(**{field: torch.zeros(())})
+    rank = {"expert_boost": 2, "neuron_mask": 2, "out_weight_mask": 3,
+            "token_mask": 1}[field]
+    iv = LayerIntervention(**{field: torch.zeros((1,) * rank)})
+    assert getattr(iv, field).dim() == rank
 
 
 def test_package_imports_without_jax():

@@ -2,8 +2,8 @@
 
 One JAX run (tiny_config, f32): encode the prompt and the negative prompt,
 denoise 2 PNDM steps with CFG 7.5 and MoE routing on all 16 FFs from
-JAX-made initial latents, decode. The port runs the same weights (through
-`weights/bridge.py`), ids and initial latents; noise never crosses
+JAX-made initial latents, decode. The port runs the same weights
+(tests/torch_parity.py), ids and initial latents; noise never crosses
 frameworks.
 """
 import jax
@@ -12,53 +12,32 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity
 from diffusion_models_moe_tpu import config as jcfg
 from diffusion_models_moe_tpu.moefication.moefy import \
     build_moe_interventions as jax_build_ivs
 from diffusion_models_moe_tpu.pipelines.stable_diffusion import \
     StableDiffusionPipeline as JaxPipeline
-from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
-                                            build_moe_interventions,
-                                            layer_name, tiny_config)
+from diffusion_models_moe_tpu_torch import build_moe_interventions
 from diffusion_models_moe_tpu_torch.ops import _build
-from diffusion_models_moe_tpu_torch.weights import bridge
 
 REL_TOL = 1e-3
 STEPS, GUIDANCE = 2, 7.5
-
-
-def _rel_err(got, ref) -> float:
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
-    return float(np.max(np.abs(got - ref)) / (np.max(np.abs(ref)) + 1e-12))
-
-
-def _labels(cfg):
-    rng = np.random.RandomState(0)
-    return {layer_name(i): rng.permutation(np.arange(4 * d) % ((4 * d) // 20))
-            for i, d in enumerate(cfg.ff_dims())}
+_rel_err = torch_parity.rel_err
 
 
 @pytest.fixture(scope="module")
 def jax_run():
     cfg = jcfg.tiny_config()
     pipe = JaxPipeline(cfg)
-    k_unet, k_text, k_vae, k_lat = jax.random.split(jax.random.PRNGKey(0), 4)
+    params, port = torch_parity.pipelines(cfg)
     s, t = cfg.sample_size, cfg.text_encoder
-    lat0 = jnp.zeros((1, s, s, 4))
-    ids0 = jnp.zeros((1, t.max_length), jnp.int32)
-    ctx0 = jnp.zeros((1, t.max_length, cfg.unet.cross_attention_dim))
-    params = {
-        "unet": pipe.unet.init(k_unet, lat0, jnp.zeros((1,), jnp.int32),
-                               ctx0)["params"],
-        "text_encoder": pipe.text_encoder.init(k_text, ids0)["params"],
-        "vae": pipe.vae_decoder.init(k_vae, lat0)["params"],
-    }
-    params = jax.tree_util.tree_map(np.asarray, params)
     rng = np.random.RandomState(1)
     cond = rng.randint(0, t.vocab_size, size=(2, t.max_length)).astype(np.int32)
     uncond = np.zeros_like(cond)
-    latents = jax.random.normal(k_lat, (2, s, s, 4), jnp.float32)
-    labels = _labels(cfg.unet)
+    latents = jax.random.normal(jax.random.PRNGKey(3), (2, s, s, 4),
+                                jnp.float32)
+    labels = torch_parity.labels(cfg.unet)
     emb_c, _ = pipe.encode_text(params, jnp.asarray(cond))
     emb_u, _ = pipe.encode_text(params, jnp.asarray(uncond))
     context = jnp.concatenate([emb_u, emb_c])
@@ -66,22 +45,20 @@ def jax_run():
                             ivs=jax_build_ivs(labels, 0.3))
     images = pipe.vae_decoder.apply({"params": params["vae"]}, final)
     images = jnp.clip(images / 2.0 + 0.5, 0.0, 1.0)
-    return dict(params=params, cond=cond, uncond=uncond, labels=labels,
+    return dict(port=port, cond=cond, uncond=uncond, labels=labels,
                 latents=np.array(latents), context=np.array(context),
                 final=np.array(final), images=np.array(images))
 
 
 @pytest.fixture(scope="module")
 def port(jax_run):
-    cfg = tiny_config()
-    pipe = StableDiffusionPipeline(cfg)
-    pipe.load_state_dicts(bridge.pipeline_state_dicts(jax_run["params"], cfg))
-    return pipe
+    return jax_run["port"]
 
 
 def test_encode_text_matches_jax(jax_run, port):
-    emb_c = port.encode_text(torch.from_numpy(jax_run["cond"]).long())
-    emb_u = port.encode_text(torch.from_numpy(jax_run["uncond"]).long())
+    emb_c, taps_c = port.encode_text(torch.from_numpy(jax_run["cond"]).long())
+    emb_u, taps_u = port.encode_text(torch.from_numpy(jax_run["uncond"]).long())
+    assert taps_c is None and taps_u is None
     got = torch.cat([emb_u, emb_c]).numpy()
     assert _rel_err(got, jax_run["context"]) < REL_TOL
 
@@ -89,12 +66,13 @@ def test_encode_text_matches_jax(jax_run, port):
 def test_denoise_and_decode_match_jax(jax_run, port):
     """encode -> 2 PNDM steps with CFG 7.5 and MoE on all 16 FFs -> decode."""
     ids = [torch.from_numpy(jax_run[k]).long() for k in ("uncond", "cond")]
-    context = torch.cat([port.encode_text(i) for i in ids])
+    context = torch.cat([port.encode_text(i)[0] for i in ids])
     ivs = build_moe_interventions(jax_run["labels"], 0.3)
     assert sum(iv is not None for iv in ivs) == 16
     lat = torch.from_numpy(jax_run["latents"]).permute(0, 3, 1, 2)
     _build.reset_launch_counts()
-    final = port.denoise(context, lat, STEPS, GUIDANCE, ivs=ivs)
+    final, taps = port.denoise(context, lat, STEPS, GUIDANCE, ivs=ivs)
+    assert taps is None
     assert all(v == 0 for v in _build.LAUNCHES.values())   # CPU: plain versions
     got = final.permute(0, 2, 3, 1).numpy()
     assert _rel_err(got, jax_run["final"]) < REL_TOL
@@ -109,22 +87,25 @@ def test_generate_guidance_one_turns_cfg_off(port):
     ids = torch.randint(0, cfg.text_encoder.vocab_size,
                         (2, cfg.text_encoder.max_length),
                         generator=torch.Generator().manual_seed(3))
-    out = port.generate(ids, torch.zeros_like(ids),
-                        torch.Generator().manual_seed(4), num_steps=STEPS,
-                        guidance_scale=1.0, decode=False)
+    out, taps = port.generate(ids, torch.zeros_like(ids),
+                              torch.Generator().manual_seed(4),
+                              num_steps=STEPS, guidance_scale=1.0,
+                              decode=False)
+    assert taps is None
     s = cfg.sample_size
     noise = torch.randn((2, cfg.unet.sample_channels, s, s),
                         generator=torch.Generator().manual_seed(4))
-    ref = port.denoise(port.encode_text(ids), noise, STEPS, 1.0)
+    ref, _ = port.denoise(port.encode_text(ids)[0], noise, STEPS, 1.0)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
 def test_generate_images_are_finite_in_unit_range(port, jax_run):
     ivs = build_moe_interventions(jax_run["labels"], 0.3)
     cond = torch.from_numpy(jax_run["cond"]).long()
-    img = port.generate(cond, torch.zeros_like(cond),
-                        torch.Generator().manual_seed(5), num_steps=STEPS,
-                        ivs=ivs)
+    img, taps = port.generate(cond, torch.zeros_like(cond),
+                              torch.Generator().manual_seed(5),
+                              num_steps=STEPS, ivs=ivs)
+    assert taps is None
     s = port.config.sample_size * 8
     assert img.shape == (2, 3, s, s)
     assert torch.isfinite(img).all()
