@@ -13,6 +13,12 @@ Run from the root of a checkout. Phases:
      CUDA-event times of both;
   2b. the fused MoE routing kernel of the unfused FF path against its plain
      version at the four SD1.5 FF shapes, with errors and times;
+  2c. the absorbed-attention kernels (LN + qkv projection, out projection +
+     residual) at the four SD1.5 self-attention shapes and the conv-chain
+     kernel at the 14 SD1.5 resblock conv shapes (with the time embedding,
+     with and without a residual), against their plain versions; for the
+     conv chain also the time of the unfused sequence it replaces
+     (group_norm, silu, conv2d, adds), as a yardstick only;
   3. the main path: moefied SD1.5 text-to-image in bf16 (seeded random
      weights, MoE routing on all 16 FFs with topk 0.3), 2 requests at
      512x512 through `generate`, PNDM at the config's 50 steps with CFG 7.5,
@@ -32,7 +38,17 @@ Run from the root of a checkout. Phases:
      steps, a `generate` with the output-weight masks under MoE routing
      (routing kernel), and the masks' union over timesteps baked into the
      UNet weights, then a `generate` on the fused FF kernel.
-Each phase prints its wall time. It needs CUDA and exits non-zero on any
+  7. the serving engine with the exact-tier modes on: a
+     `ServingEngine(batch_size=2)` over a pipeline with `attn_absorb="1"`
+     and `conv_chain=True` (the same seeded weights) serves 3 seeded requests
+     at 50 steps (one full batch, one padded); images uint8 and finite,
+     request 0 served alone equals request 0 co-batched, the launch counts
+     of all seven kernels, `denoise` latents with the modes on against the
+     modes off within the card's floor, and the same traffic through an
+     engine with the modes off.
+Every kernel's line carries its bound: the larger of its operations over
+989 TFLOP/s (bf16, dense) and the bytes it must move over 3.35 TB/s. Each
+phase prints its wall time. It needs CUDA and exits non-zero on any
 failure, printing no result. Its second-to-last line is a JSON object
 describing each kernel, its last line {"ok": true, "device": {...}}.
 """
@@ -46,6 +62,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FF_REL_TOL = 2e-2        # max |kernel - plain| / max |plain| on agreeing rows
@@ -72,6 +89,20 @@ WANDA_STEPS = 10
 WANDA_SKILL_RATIO = 0.02   # the JAX CLI's bake ratio for "Van Gogh"
 UNION_RATIO = 0.0          # its union-over-timesteps ratio for "Van Gogh"
 DEV = "cuda"
+PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate (data sheet)
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3 rate (data sheet)
+# (tokens, channels) of the UNet levels; the UNet batch is 2 x BATCH with CFG
+LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
+LEVEL_BLOCKS = (5, 5, 5, 1)   # transformer blocks of SD1.5 at each level
+# (side, Cin, Cout) of every 3x3 resblock conv of SD1.5, and how many convs
+# of a UNet call have that shape
+CONV_SHAPES = ((64, 320, 320), (64, 640, 320), (64, 960, 320),
+               (32, 320, 640), (32, 640, 640), (32, 960, 640),
+               (32, 1280, 640), (32, 1920, 640),
+               (16, 640, 1280), (16, 1280, 1280), (16, 1920, 1280),
+               (16, 2560, 1280), (8, 1280, 1280), (8, 2560, 1280))
+CONV_COUNTS = (7, 2, 1, 1, 6, 1, 1, 1, 1, 6, 1, 2, 11, 3)
+RESNETS = 22             # resblocks of the SD1.5 UNet, two 3x3 convs each
 
 
 def check(ok: bool, msg: str) -> None:
@@ -91,6 +122,21 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the bf16 peak or
+    bytes (each input read once, each output written once) over the memory
+    rate, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+
+
+def per_call(shapes: list, counts: tuple, key: str) -> float:
+    """Sum of a per-shape time over the calls one UNet call makes."""
+    return sum(n * row[key] for n, row in zip(counts, shapes))
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -154,8 +200,13 @@ def check_ff(gen: torch.Generator) -> dict:
         check(row_agree >= FF_ROW_AGREEMENT,
               f"ff C={c}: rows agree {row_agree} < {FF_ROW_AGREEMENT}")
         check(rel <= FF_REL_TOL, f"ff C={c}: rel err {rel} > {FF_REL_TOL}")
+        # up GEMM (N, C) x (C, 2H), score and mask GEMMs over E, down GEMM;
+        # x and y, W1, W2, biases, patterns (bf16) and the f32 LN pair
+        flops = 4 * n * c * hdim + 4 * n * hdim * e + 2 * n * hdim * c
+        nbytes = 2 * (2 * n * c + 3 * hdim * c + 2 * hdim + c + e * hdim) + 8 * c
         shapes.append(dict(shape=f"N={n},C={c},E={e},k={k}", max_abs_err=abs_e,
                            rel_err=rel, ms=ms, plain_ms=plain_ms,
+                           library_ms=None, **bound(flops, nbytes),
                            decision_agreement=decision_agree,
                            row_agreement=row_agree))
     return shapes
@@ -205,9 +256,12 @@ def check_routing(gen: torch.Generator) -> list:
         check(row_agree >= FF_ROW_AGREEMENT,
               f"route C={c}: rows agree {row_agree} < {FF_ROW_AGREEMENT}")
         check(rel <= FF_REL_TOL, f"route C={c}: rel err {rel} > {FF_REL_TOL}")
+        # hidden, gate in and the product out (bf16), the patterns once
         shapes.append(dict(shape=f"N={n},H={hdim},E={e},k={k}",
                            max_abs_err=abs_e, rel_err=rel, ms=ms,
-                           plain_ms=plain_ms,
+                           plain_ms=plain_ms, library_ms=None,
+                           **bound(4 * n * hdim * e,
+                                   2 * (3 * n * hdim + e * hdim)),
                            decision_agreement=decision_agree,
                            row_agreement=row_agree))
     return shapes
@@ -239,14 +293,167 @@ def check_attention(gen: torch.Generator) -> tuple[dict, dict]:
             abs_e, rel = rel_err(o, o_plain)
             ms = cuda_ms(lambda: fn(True), 20)
             plain_ms = cuda_ms(lambda: fn(False), 5)
+            # the library's one call for the same function on the same
+            # tensors: a yardstick, used nowhere in the package
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale), 20)
+            bd = bound(4 * b * heads * s * s_kv * d,
+                       2 * 2 * b * heads * d * (s + s_kv))
             print(f"{kind:5s} S={s:4d} S_kv={s_kv:4d} D={d:3d}: max_abs_err "
                   f"{abs_e:.6g} rel {rel:.3e} (tol {ATTN_REL_TOL:g}); kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library SDPA "
+                  f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+                  f"{bd['bound_by']}", flush=True)
             check(rel <= ATTN_REL_TOL, f"{kind} S={s} D={d}: rel err {rel}")
             shapes.append(dict(shape=f"B={b},S={s},S_kv={s_kv},H={heads},D={d}",
                                max_abs_err=abs_e, rel_err=rel, ms=ms,
-                               plain_ms=plain_ms))
+                               plain_ms=plain_ms, library_ms=library_ms, **bd))
     return out["self"], out["cross"]
+
+
+# ---------------------------------------------------------------- phase 2c
+def check_absorb(gen: torch.Generator) -> tuple[list, list]:
+    """Phase 2c: the absorbed-attention kernels (LN + q/k/v projection, out
+    projection + bias + residual) against their plain versions at the four
+    SD1.5 self-attention shapes, on the same bf16 inputs."""
+    from diffusion_models_moe_tpu_torch.ops import attn_absorb_fused as ab
+    dev, bf16 = DEV, torch.bfloat16
+    b, heads = 2 * BATCH, 8
+    qkv_shapes, out_shapes = [], []
+
+    def rn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for s, c in LEVELS:
+        n, d = b * s, c // heads
+        x = rn(b, s, c)
+        wq, wk, wv, wo = (rn(c, c, scale=c ** -0.5) for _ in range(4))
+        bo = rn(c, scale=0.1)
+        g = rn(c, scale=0.1, dtype=torch.float32) + 1.0
+        bb = rn(c, scale=0.1, dtype=torch.float32)
+        o = rn(b, s, heads, d)
+
+        def qkv(uk):
+            return torch.cat([t.reshape(b, s, c) for t in ab.ln_qkv_fused(
+                x, wq, wk, wv, heads, g, bb, use_kernels=uk)], dim=-1)
+
+        def out(uk):
+            return ab.attn_out_residual_fused(o, wo, bo, x, use_kernels=uk)
+
+        # LN + one (N, C) x (C, 3C) product; x in, q, k, v out, the weights
+        # and the f32 LN pair once
+        bd_qkv = bound(2 * n * c * 3 * c,
+                       2 * (n * c + 3 * c * c + 3 * n * c) + 8 * c)
+        # (N, C) x (C, C); o and the residual in, y out, Wo and the bias once
+        bd_out = bound(2 * n * c * c, 2 * (3 * n * c + c * c + c))
+        for name, fn, bd, rows in (("ln_qkv", qkv, bd_qkv, qkv_shapes),
+                                   ("attn_out", out, bd_out, out_shapes)):
+            y, y_plain = fn(True), fn(False)
+            torch.cuda.synchronize()
+            abs_e, rel = rel_err(y, y_plain)
+            ms = cuda_ms(lambda: fn(True), 20)
+            plain_ms = cuda_ms(lambda: fn(False), 5)
+            print(f"{name:8s} S={s:4d} C={c:4d} D={d:3d}: max_abs_err "
+                  f"{abs_e:.6g} rel {rel:.3e} (tol {ATTN_REL_TOL:g}); kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}", flush=True)
+            check(rel <= ATTN_REL_TOL, f"{name} S={s} C={c}: rel err {rel}")
+            rows.append(dict(shape=f"B={b},S={s},C={c},H={heads},D={d}",
+                             max_abs_err=abs_e, rel_err=rel, ms=ms,
+                             plain_ms=plain_ms, library_ms=None, **bd))
+    for name, rows in (("ln_qkv", qkv_shapes), ("attn_out", out_shapes)):
+        print(f"{name}: the 16 launches of a UNet call at batch {b} sum to "
+              f"{per_call(rows, LEVEL_BLOCKS, 'ms'):.3f} ms", flush=True)
+    return qkv_shapes, out_shapes
+
+
+def check_chain(gen: torch.Generator) -> list:
+    """Phase 2c: the conv-chain kernel against its plain version at every
+    SD1.5 resblock conv shape, with the time embedding in `bt`, with and
+    without a residual. Beside it, as yardsticks only: cuDNN's convolution
+    alone on the same tensors, and the unfused sequence the mode replaces
+    (group_norm in f32, silu, cast, conv2d + bias, + time embedding,
+    + residual) against the chain's own two steps (the GroupNorm fold in
+    torch, then the kernel)."""
+    from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as cc
+    dev, bf16, cl = DEV, torch.bfloat16, torch.channels_last
+    b, groups, eps = 2 * BATCH, 32, 1e-5
+    shapes = []
+
+    def rn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for side, cin, cout in CONV_SHAPES:
+        m = b * side * side
+        x = rn(b, cin, side, side).contiguous(memory_format=cl)
+        res = rn(b, cout, side, side).contiguous(memory_format=cl)
+        w = rn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5
+               ).contiguous(memory_format=cl)
+        bias, temb = rn(cout, scale=0.1), rn(b, cout, scale=0.1)
+        gamma = rn(cin, scale=0.1, dtype=torch.float32) + 1.0
+        beta = rn(cin, scale=0.1, dtype=torch.float32)
+        bt = bias + temb
+        scale, shift = cc.gn_scale_shift(x, gamma, beta, groups, eps)
+
+        def chain(uk, r=res):
+            return cc.conv3x3_chain(x, w, bt, scale, shift, residual=r,
+                                    use_kernels=uk)
+
+        def folded():
+            sc, sh = cc.gn_scale_shift(x, gamma, beta, groups, eps)
+            return cc.conv3x3_chain(x, w, bt, sc, sh, residual=res)
+
+        def unfused():
+            h = F.silu(F.group_norm(x.float(), groups, gamma, beta, eps)).to(bf16)
+            return F.conv2d(h, w, bias, padding=1) + temb[:, :, None, None] + res
+
+        errs = {}
+        for key, r in (("res", res), ("nores", None)):
+            y, y_plain = chain(True, r), chain(False, r)
+            torch.cuda.synchronize()
+            errs[key] = rel_err(y, y_plain)
+            check(errs[key][1] <= ATTN_REL_TOL,
+                  f"chain {cin}->{cout} at {side} ({key}): rel err "
+                  f"{errs[key][1]}")
+        check(y.is_contiguous(memory_format=cl), "chain output not channels-last")
+        # the chain against the sequence it replaces: bf16 rounding of both
+        _, rel_seq = rel_err(folded(), unfused())
+        check(rel_seq <= ATTN_REL_TOL,
+              f"chain {cin}->{cout} at {side}: against the unfused sequence "
+              f"rel err {rel_seq}")
+        ms = cuda_ms(lambda: chain(True), 20)
+        plain_ms = cuda_ms(lambda: chain(False), 3)
+        library_ms = cuda_ms(lambda: F.conv2d(x, w, padding=1), 20)
+        folded_ms = cuda_ms(folded, 20)
+        unfused_ms = cuda_ms(unfused, 20)
+        # 9 tap products of (M, Cin) x (Cin, Cout); x and the residual in, y
+        # out, the weight, bt (bf16) and the f32 scale and shift once
+        bd = bound(2 * 9 * m * cin * cout,
+                   2 * (m * cin + 2 * m * cout + 9 * cin * cout + b * cout)
+                   + 8 * b * cin)
+        abs_e, rel = max(errs.values())
+        print(f"chain {side:2d}x{side:<2d} {cin:4d}->{cout:4d}: max_abs_err "
+              f"{abs_e:.6g} rel {rel:.3e} (no residual {errs['nores'][1]:.3e}; "
+              f"tol {ATTN_REL_TOL:g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, cuDNN conv alone {library_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; fold + kernel "
+              f"{folded_ms:.4f} ms against the unfused sequence "
+              f"{unfused_ms:.4f} ms (rel {rel_seq:.3e})", flush=True)
+        shapes.append(dict(shape=f"B={b},H=W={side},Cin={cin},Cout={cout}",
+                           max_abs_err=abs_e, rel_err=rel, ms=ms,
+                           plain_ms=plain_ms, library_ms=library_ms, **bd,
+                           fold_and_kernel_ms=folded_ms, unfused_ms=unfused_ms))
+    check(sum(CONV_COUNTS) == 2 * RESNETS, "CONV_COUNTS")
+    sums = {k: per_call(shapes, CONV_COUNTS, k) for k in
+            ("ms", "fold_and_kernel_ms", "unfused_ms", "library_ms", "bound_ms")}
+    print(f"chain: the {2 * RESNETS} convs of a UNet call at batch {b} sum to "
+          f"{sums['ms']:.3f} ms in the kernel, {sums['fold_and_kernel_ms']:.3f} "
+          f"ms with the GroupNorm fold, against {sums['unfused_ms']:.3f} ms "
+          f"for the unfused sequence, {sums['library_ms']:.3f} ms for cuDNN's "
+          f"convolutions alone and a bound of {sums['bound_ms']:.3f} ms",
+          flush=True)
+    return shapes
 
 
 # ---------------------------------------------------------------- phase 3/4
@@ -325,8 +532,10 @@ def check_latents(pipe, ivs, cond, uncond):
     """Phase 4: `denoise` from the same latents with the kernels and with
     their plain versions, against the bf16-vs-f32 floor of this card: the
     same denoise with the plain versions in an f32 copy of the model.
-    Returns the f32 pipeline and a `compare(ivs, steps, what)` that runs
-    this comparison and returns (rel, floor)."""
+    Returns a `compare(ivs, steps, what)` that runs this comparison and
+    returns (rel, floor), and what phase 7 holds the serving modes to: the
+    context, the initial latents, the kernels' 50-step latents and the
+    50-step floor."""
     from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
                                                 sd15_config)
     dev, cfg = DEV, pipe.config
@@ -354,14 +563,16 @@ def check_latents(pipe, ivs, cond, uncond):
         check(rel <= FLOOR_FACTOR * floor,
               f"{what}, {steps} steps: kernels-vs-plain {rel} > "
               f"{FLOOR_FACTOR} x floor {floor}")
+        kept["z_k"] = z_k
         return rel, floor
 
+    kept = {}
     for steps in (3, cfg.num_inference_steps):
-        rel, _ = compare(ivs, steps, "MoE on 16 FFs")
+        rel, floor = compare(ivs, steps, "MoE on 16 FFs")
     # `rel` of the last pass: the config's full step count
     check(rel < LATENT_REL_TOL,
           f"{steps} steps: latent rel err {rel} >= {LATENT_REL_TOL}")
-    return pipe32, compare
+    return compare, dict(ctx=ctx, lat=lat, z_k=kept["z_k"], floor=floor)
 
 
 def merge(moe, removal, fields):
@@ -474,6 +685,130 @@ def run_wanda(pipe, ivs, images_before, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+SERVE_PROMPTS = ("a photo of a dog", "a photo of a house",
+                 "a dog in the style of Van Gogh")
+SERVE_SEEDS = (11, 12, 13)
+
+
+def serve(pipe, ivs, what: str, expect_per_batch: dict):
+    """The three seeded requests through a `ServingEngine(batch_size=2)`
+    over `pipe` (one full batch, one padded), then request 0 again, alone.
+    Checks the images, the stats, that request 0 alone equals request 0
+    co-batched, and the kernels' launch counts per batch. Returns the
+    launch counts of the three-request run."""
+    from diffusion_models_moe_tpu_torch.data.tokenize import \
+        per_prompt_hash_tokenize
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.serving import ServingEngine
+    cfg = pipe.config
+    tok = per_prompt_hash_tokenize(cfg.text_encoder.vocab_size,
+                                   cfg.text_encoder.max_length)
+    eng = ServingEngine(pipe, tok, batch_size=BATCH, ivs=ivs, max_wait_ms=100.0)
+    side = 8 * cfg.sample_size
+    with eng:
+        # warm-up: one request (cuDNN and cuBLAS set-up at this batch shape)
+        eng.submit("warm-up", seed=0).result(timeout=600)
+        torch.cuda.synchronize()
+        warm = eng.stats.total_batch_seconds
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        futs = [eng.submit(p, seed=sd)
+                for p, sd in zip(SERVE_PROMPTS, SERVE_SEEDS)]
+        images = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        _build.reset_launch_counts()
+        alone = eng.submit(SERVE_PROMPTS[0], seed=SERVE_SEEDS[0]
+                           ).result(timeout=600)
+        alone_launches = dict(_build.LAUNCHES)
+    st = eng.stats
+    for i, im in enumerate(images + [alone]):
+        check(isinstance(im, np.ndarray) and im.dtype == np.uint8
+              and im.shape == (side, side, 3),
+              f"{what}: image {i} is {type(im).__name__} "
+              f"{getattr(im, 'dtype', None)} {getattr(im, 'shape', None)}")
+        check(int(im.min()) >= 0 and int(im.max()) <= 255 and im.std() > 0,
+              f"{what}: image {i} is out of range or flat")
+    check((st.requests, st.batches, st.padded_slots) == (5, 4, 3),
+          f"{what}: stats {st}")
+    differ = int(np.abs(alone.astype(np.int16)
+                        - images[0].astype(np.int16)).max())
+    busy = st.total_batch_seconds - warm
+    n = len(images) + 1
+    print(f"{what}: ServingEngine(batch_size={BATCH}) served {len(images)} "
+          f"seeded requests {side}x{side} in 2 batches (one padded), PNDM "
+          f"{cfg.num_inference_steps} steps, CFG {cfg.guidance_scale}, MoE "
+          f"topk 0.3 on 16 FFs: wall {wall:.3f} s, {len(images) / wall:.4f} "
+          f"img/s; with request 0 alone after them {n} requests in "
+          f"{busy:.3f} s of batches, {n / busy:.4f} img/s, mean_fill "
+          f"{st.mean_fill:.4f} (warm-up included), peak memory "
+          f"{peak_gib:.2f} GiB; request 0 alone against co-batched: max "
+          f"|diff| {differ} of 255; launches {launches}", flush=True)
+    check(differ == 0, f"{what}: request 0 alone differs from request 0 "
+          f"co-batched by {differ} of 255")
+    for name, per_batch in expect_per_batch.items():
+        check(launches[name] == 2 * per_batch
+              and alone_launches[name] == per_batch,
+              f"{what}: kernel {name} launched {launches[name]} times over 2 "
+              f"batches and {alone_launches[name]} over 1, expected "
+              f"{per_batch} a batch")
+    return launches
+
+
+def run_serving(pipe, ivs, modes_off: dict, card: str) -> dict:
+    """Phase 7: the serving engine over a pipeline with `attn_absorb="1"`
+    and `conv_chain=True` on the seeded weights, its `denoise` latents
+    against those of the modes-off pipeline (phase 4), and the same traffic
+    through an engine with the modes off."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.models.layers import ResnetBlock2D
+    from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import \
+        attn_absorb_ok
+    cfg = sd15_config(torch.bfloat16, attn_absorb="1", conv_chain=True)
+    pipe_on = StableDiffusionPipeline(cfg, device=DEV)
+    pipe_on.init_params(torch.Generator(device=DEV).manual_seed(0))
+    # the gates admit every self-attention level and every resblock conv of
+    # SD1.5 (the channel counts decide, not H and W), so the counts below
+    # leave no call on the ordinary path
+    for tokens, c in LEVELS:
+        check(attn_absorb_ok(tokens, c, 8), f"attn_absorb_ok: S={tokens}, C={c}")
+    n_chain = sum(sum(m.chain_branches(8, 8)) for m in pipe_on.unet.modules()
+                  if isinstance(m, ResnetBlock2D))
+    check(n_chain == 2 * RESNETS, f"{n_chain} chain convs of {2 * RESNETS}")
+    calls = cfg.num_inference_steps + 1
+    attn = 16 * calls
+    on = serve(pipe_on, ivs, f"serving, modes on, {card}",
+               {"ln_qkv_fused": attn, "attn_out_residual_fused": attn,
+                "conv3x3_chain": n_chain * calls, "geglu_ff_fused": attn,
+                "sd_self_attention": attn, "sd_cross_attention": attn,
+                "fused_route_multiply": 0})
+    g, steps = cfg.guidance_scale, cfg.num_inference_steps
+    z_on, _ = pipe_on.denoise(modes_off["ctx"], modes_off["lat"], steps, g,
+                              ivs=ivs)
+    z_off, floor = modes_off["z_k"], modes_off["floor"]
+    check(bool(torch.isfinite(z_on).all()), "modes on: non-finite latents")
+    rel = ((z_on - z_off).norm() / z_off.norm()).item()
+    print(f"denoise {steps} steps, CFG {g}, MoE on 16 FFs: latent rel err "
+          f"modes on vs modes off (kernels, same weights, context and "
+          f"latents) {rel:.6f}; floor (plain bf16 vs plain f32, phase 4) "
+          f"{floor:.6f}", flush=True)
+    check(rel <= FLOOR_FACTOR * floor,
+          f"modes on vs off {rel} > {FLOOR_FACTOR} x floor {floor}")
+    # the same traffic with the modes off, on the same seeded weights (phase
+    # 6 baked masks into `pipe`: give it the seeded weights back)
+    pipe.load_state_dicts({k: m.state_dict()
+                           for k, m in pipe_on.modules().items()})
+    serve(pipe, ivs, f"serving, modes off, {card}",
+          {"ln_qkv_fused": 0, "attn_out_residual_fused": 0, "conv3x3_chain": 0,
+           "geglu_ff_fused": attn, "sd_self_attention": attn,
+           "sd_cross_attention": attn, "fused_route_multiply": 0})
+    return on
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -517,17 +852,23 @@ def main() -> None:
     phase_done("2b (routing kernel)")
     self_attn, cross_attn = check_attention(gen)
     phase_done("2 (attention)")
+    ln_qkv, attn_out = check_absorb(gen)
+    chain = check_chain(gen)
+    phase_done("2c (attention absorb and conv chain)")
     pipe, ivs, cond, uncond, launches, images = run_slice(card)
     phase_done("3 (serving slice)")
-    _, compare = check_latents(pipe, ivs, cond, uncond)
+    compare, modes_off = check_latents(pipe, ivs, cond, uncond)
     phase_done("4 (latents)")
     attribution_launches = run_attribution(pipe, ivs, compare, card)
     phase_done("5 (attribution and neuron erasure)")
     wanda_launches = run_wanda(pipe, ivs, images, card)
     phase_done("6 (wanda erasure and bake)")
+    serving_launches = run_serving(pipe, ivs, modes_off, card)
+    phase_done("7 (serving engine, exact-tier modes)")
     print("launches by path: " + json.dumps({
         "serving": launches, "attribution": attribution_launches,
-        "wanda_erasure": wanda_launches}))
+        "wanda_erasure": wanda_launches,
+        "serving_engine_modes_on": serving_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -541,13 +882,25 @@ def main() -> None:
         ("fused_route_multiply", f"{csrc}/geglu_ff.cu",
          "diffusion_models_moe_tpu/ops/routing_kernel.py:45", route,
          attribution_launches),
+        # their path is the serving engine with the modes on (phase 7)
+        ("ln_qkv_fused", f"{csrc}/attn_absorb.cu",
+         "diffusion_models_moe_tpu/ops/attn_absorb_fused.py:88", ln_qkv,
+         serving_launches),
+        ("attn_out_residual_fused", f"{csrc}/attn_absorb.cu",
+         "diffusion_models_moe_tpu/ops/attn_absorb_fused.py:167", attn_out,
+         serving_launches),
+        ("conv3x3_chain", f"{csrc}/conv_chain.cu",
+         "diffusion_models_moe_tpu/ops/conv_chain_fused.py:76", chain,
+         serving_launches),
     ]
     # the top-level numbers are those of the first (largest-N) shape; every
     # shape's own numbers are under "shapes"
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[name],
                     max_abs_err=m[0]["max_abs_err"], ms=m[0]["ms"],
-                    plain_ms=m[0]["plain_ms"], shape=m[0]["shape"], shapes=m)
+                    plain_ms=m[0]["plain_ms"], bound_ms=m[0]["bound_ms"],
+                    bound_by=m[0]["bound_by"], library_ms=m[0]["library_ms"],
+                    shape=m[0]["shape"], shapes=m)
                for name, src, rep, m, counts in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

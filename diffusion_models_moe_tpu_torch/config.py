@@ -5,6 +5,9 @@ dataclasses and presets, with the compute dtype held as a `torch.dtype`.
 Only the fields the SD1.x serving slice reads are kept; options of the JAX
 package that steer TPU layouts (flash switch, fused routing, quant, Winograd,
 DeepCache, SDXL add-embeds, LCM conditioning) have no counterpart here.
+The two exact-tier serving modes that the JAX package switches with
+environment variables at trace time (DMOE_ATTN_ABSORB, DMOE_CONV_CHAIN) are
+explicit fields of `UNetConfig`; this package reads no environment variable.
 """
 from __future__ import annotations
 
@@ -34,6 +37,18 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     dtype: torch.dtype = torch.float32
+    # absorbed self-attention sub-block (ops/attn_absorb_fused.py): "0" off,
+    # "1" both kernels, "qkv" the LN+qkv prologue only, "out" the
+    # out-projection+residual epilogue only
+    attn_absorb: str = "0"
+    # resblock convs through the fused GN+SiLU -> conv -> bias -> residual
+    # kernel (ops/conv_chain_fused.py) wherever `chain_ok` admits the shape
+    conv_chain: bool = False
+
+    def __post_init__(self):
+        if self.attn_absorb not in ("0", "1", "qkv", "out"):
+            raise ValueError(f"attn_absorb={self.attn_absorb!r}: one of "
+                             "'0', '1', 'qkv', 'out'")
 
     def depth_for_block(self, block_idx: int) -> int:
         d = self.transformer_layers_per_block
@@ -102,17 +117,21 @@ class PipelineConfig:
     prediction_type: str = "epsilon"
 
 
-def sd15_config(dtype: torch.dtype = torch.bfloat16) -> PipelineConfig:
-    """Stable Diffusion v1.4/1.5 geometry."""
+def sd15_config(dtype: torch.dtype = torch.bfloat16, **unet_modes
+                ) -> PipelineConfig:
+    """Stable Diffusion v1.4/1.5 geometry. `unet_modes`: the UNet's serving
+    modes, `attn_absorb` and `conv_chain`."""
     return PipelineConfig(
-        unet=UNetConfig(dtype=dtype),
+        unet=UNetConfig(dtype=dtype, **unet_modes),
         text_encoder=CLIPTextConfig(dtype=dtype),
         vae=VAEConfig(dtype=dtype),
     )
 
 
-def tiny_config(dtype: torch.dtype = torch.float32) -> PipelineConfig:
-    """Tiny model for unit tests: same topology (16 FF layers), small dims."""
+def tiny_config(dtype: torch.dtype = torch.float32, **unet_modes
+                ) -> PipelineConfig:
+    """Tiny model for unit tests: same topology (16 FF layers), small dims.
+    `unet_modes` as in `sd15_config`."""
     return PipelineConfig(
         unet=UNetConfig(
             block_out_channels=(32, 64, 128, 128),
@@ -120,6 +139,7 @@ def tiny_config(dtype: torch.dtype = torch.float32) -> PipelineConfig:
             attention_head_dim=4,
             norm_num_groups=8,
             dtype=dtype,
+            **unet_modes,
         ),
         text_encoder=CLIPTextConfig(
             vocab_size=1000, hidden_size=32, intermediate_size=64,
@@ -130,3 +150,15 @@ def tiny_config(dtype: torch.dtype = torch.float32) -> PipelineConfig:
         sample_size=8,
         num_inference_steps=4,
     )
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Raises where a CUDA device is asked for and none is present, so
+    that nothing falls back to the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for and no CUDA device is present; "
+            "pass device=\"cpu\" to run on the CPU")
+    return dev

@@ -24,3 +24,15 @@ def hash_tokenize(vocab: int, maxlen: int
         ids = rng.randint(0, vocab, (len(texts), maxlen))
         return torch.from_numpy(ids.astype(np.int64))
     return tokenize
+
+
+def per_prompt_hash_tokenize(vocab: int, maxlen: int
+                             ) -> Callable[[Sequence[str]], torch.Tensor]:
+    """`hash_tokenize` applied to each prompt alone: a prompt's ids do not
+    depend on what it is batched with, as a serving engine needs (the batch
+    hash above makes them depend on the whole list)."""
+    one = hash_tokenize(vocab, maxlen)
+
+    def tokenize(texts: Sequence[str]) -> torch.Tensor:
+        return torch.cat([one([t]) for t in texts])
+    return tokenize

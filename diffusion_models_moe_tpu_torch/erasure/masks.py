@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from diffusion_models_moe_tpu_torch.config import resolve_device
 from diffusion_models_moe_tpu_torch.moefication.moefy import (
     build_moe_interventions, ff_param_paths)
 from diffusion_models_moe_tpu_torch.taps import (GEGLU_REMOVAL_FILL,
@@ -94,10 +95,11 @@ def _windowed(m: np.ndarray, max_timestep: Optional[int]) -> np.ndarray:
 def neuron_removal_interventions(
         masks: MaskDict, n_layers: Optional[int] = None,
         fill: float = GEGLU_REMOVAL_FILL, max_timestep: Optional[int] = None,
-        device=None) -> Interventions:
+        device="cuda") -> Interventions:
     """(T, H) or (H,) skilled-neuron masks -> RemoveNeurons interventions.
     `fill` is -0.17 for GEGLU, 0.0 for the GELU path; removal is active for
     t < `max_timestep` (exclusive) when it is given."""
+    device = resolve_device(device)
     ivs = []
     for l in range(_n_layers_for(masks, n_layers)):
         if l not in masks:
@@ -114,7 +116,7 @@ def neuron_removal_interventions(
 def expert_removal_interventions(
         expert_masks: MaskDict, labels: dict[str, np.ndarray],
         topk_ratio: float, n_layers: Optional[int] = None,
-        max_timestep: Optional[int] = 20, device=None,
+        max_timestep: Optional[int] = 20, device="cuda",
         dtype: torch.dtype = torch.float32) -> Interventions:
     """(T, E) or (E,) skilled-expert masks + cluster labels -> RemoveExperts
     routing interventions; experts are removed for t < `max_timestep`
@@ -136,10 +138,11 @@ def expert_removal_interventions(
 
 def wanda_removal_interventions(masks_dh: MaskDict,
                                 n_layers: Optional[int] = None,
-                                device=None) -> Interventions:
+                                device="cuda") -> Interventions:
     """Wanda (D, H) or (T, D, H) masks, in the (out, in) orientation that
     `wanda_pipeline` emits -> out_weight_mask interventions. The port's
     `out_weight_mask` keeps that orientation, W2's nn.Linear layout."""
+    device = resolve_device(device)
     ivs = []
     for l in range(_n_layers_for(masks_dh, n_layers)):
         if l not in masks_dh:

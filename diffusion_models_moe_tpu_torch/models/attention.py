@@ -9,8 +9,11 @@ package runs it with DMOE_FF_FUSED=1. An FF call that collects taps or
 carries a neuron mask, an output-weight mask or an expert boost takes the
 unfused path of the JAX module instead, with its routing in the fused
 routing kernel (`ops/routing_kernel.py`) where no expert tap or boost needs
-the selection. Parameter names follow diffusers (`attn1.to_q`,
-`attn1.to_out.0`, `ff.net.0.proj`, `ff.net.2`, `norm3`, ...).
+the selection. With `attn_absorb` on (the JAX package's DMOE_ATTN_ABSORB),
+`norm1` and the `attn1` residual are delegated to the absorbed-attention
+kernels (`ops/attn_absorb_fused.py`) around the flash kernel. Parameter
+names follow diffusers (`attn1.to_q`, `attn1.to_out.0`, `ff.net.0.proj`,
+`ff.net.2`, `norm3`, ...) and do not depend on the mode.
 
 Tap statistics go into the `taps_out` dict a caller passes down, as
 `taps_out[stat][ff_index]`, the layout `denoise` stacks over steps.
@@ -28,6 +31,8 @@ import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.models.layers import (group_norm_f32,
                                                           layer_norm_f32)
+from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import (
+    absorbed_self_attention, attn_absorb_ok, ln_apply)
 from diffusion_models_moe_tpu_torch.ops.geglu_ff_fused import geglu_ff_fused
 from diffusion_models_moe_tpu_torch.ops.routing_kernel import \
     fused_route_multiply
@@ -53,23 +58,41 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True, ln: Optional[nn.LayerNorm] = None,
+                absorb: str = "1") -> torch.Tensor:
+        """With `ln` (the block's delegated norm1) returns
+        `x + to_out(attention(ln(x)))`: through the absorbed-attention
+        kernels in mode `absorb` where `attn_absorb_ok` admits the shape,
+        else by applying the same LayerNorm here and adding the residual at
+        the end."""
         is_self = context is None
-        ctx = x if is_self else context
         b, s, c = x.shape
         d = c // self.heads
+        scale = 1.0 / d ** 0.5
+        resid = None
+        if ln is not None:
+            if is_self and attn_absorb_ok(s, c, self.heads):
+                out = self.to_out[0]
+                return absorbed_self_attention(
+                    x, self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                    out.weight, out.bias, self.heads, scale,
+                    (ln.weight, ln.bias, ln.eps), mode=absorb,
+                    use_kernels=use_kernels)
+            resid = x
+            x = ln_apply(x, ln.weight, ln.bias, ln.eps).to(x.dtype)
+        ctx = x if is_self else context
 
         def heads4(t):          # (B, S, C) -> (B, S, H, D) view, no copy
             return t.view(t.shape[0], t.shape[1], self.heads, d)
 
         q, k, v = heads4(self.to_q(x)), heads4(self.to_k(ctx)), heads4(self.to_v(ctx))
-        scale = 1.0 / d ** 0.5
         if is_self:
             out = sd_self_attention(q, k, v, scale, use_kernels=use_kernels)
         else:
             out = sd_cross_attention(q, k, v, scale, ctx.shape[1],
                                      use_kernels=use_kernels)
-        return self.to_out[0](out.reshape(b, s, c))
+        out = self.to_out[0](out.reshape(b, s, c))
+        return out if resid is None else resid + out
 
 
 class GEGLU(nn.Module):
@@ -135,12 +158,7 @@ class GEGLUFeedForward(nn.Module):
         its mask, the residual."""
         dt, resid = x.dtype, x
         if ln is not None:
-            # flax order: fast variance, rsqrt folded into the scale
-            xr = x.float()
-            mu = xr.mean(-1, keepdim=True)
-            var = ((xr * xr).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
-            mul = torch.rsqrt(var + ln.eps) * ln.weight.float()
-            x = ((xr - mu) * mul + ln.bias.float()).to(dt)
+            x = ln_apply(x, ln.weight, ln.bias, ln.eps).to(dt)
         hidden, gate = self.net[0].proj(x).chunk(2, dim=-1)
         gate = F.relu(gate) if self.relu else F.gelu(gate)
         hdim = gate.shape[-1]
@@ -239,8 +257,9 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, context_dim: int,
                  ff_mult: int = 4, ff_activation: str = "geglu",
-                 ff_index: int = 0):
+                 ff_index: int = 0, attn_absorb: str = "0"):
         super().__init__()
+        self.attn_absorb = attn_absorb
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = Attention(dim, heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -254,8 +273,13 @@ class BasicTransformerBlock(nn.Module):
                 taps_out: TapsOut = None,
                 use_kernels: bool = True) -> torch.Tensor:
         dt = x.dtype
-        x = x + self.attn1(layer_norm_f32(self.norm1, x).to(dt),
-                           use_kernels=use_kernels)
+        if self.attn_absorb != "0":
+            # norm1 and the residual are delegated to the absorbed attention
+            x = self.attn1(x, use_kernels=use_kernels, ln=self.norm1,
+                           absorb=self.attn_absorb)
+        else:
+            x = x + self.attn1(layer_norm_f32(self.norm1, x).to(dt),
+                               use_kernels=use_kernels)
         x = x + self.attn2(layer_norm_f32(self.norm2, x).to(dt), context,
                            use_kernels=use_kernels)
         # norm3 and the residual are absorbed into the FF
@@ -269,13 +293,14 @@ class Transformer2D(nn.Module):
 
     def __init__(self, dim: int, heads: int, context_dim: int, depth: int = 1,
                  norm_num_groups: int = 32, ff_mult: int = 4,
-                 ff_activation: str = "geglu", ff_index: int = 0):
+                 ff_activation: str = "geglu", ff_index: int = 0,
+                 attn_absorb: str = "0"):
         super().__init__()
         self.norm = nn.GroupNorm(norm_num_groups, dim, eps=1e-6)
         self.proj_in = nn.Linear(dim, dim)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(dim, heads, context_dim, ff_mult, ff_activation,
-                                  ff_index + d)
+                                  ff_index + d, attn_absorb)
             for d in range(depth)])
         self.proj_out = nn.Linear(dim, dim)
 

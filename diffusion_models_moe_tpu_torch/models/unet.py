@@ -1,7 +1,9 @@
 """UNet2DCondition for SD1.x (PyTorch port, NCHW), with MoE-routed FFs.
 
 Counterpart of `diffusion_models_moe_tpu/models/unet.py` without its
-DeepCache, SDXL add-embedding and LCM guidance-embedding options. The GEGLU
+DeepCache, SDXL add-embedding and LCM guidance-embedding options. The
+config's `attn_absorb` and `conv_chain` modes are handed down to the
+transformer blocks and the resblocks. The GEGLU
 FF layers are numbered in execution order, down (0-5), mid (6), up (7-15)
 for SD1.x: `ivs[i]` acts on FF layer i, and its tap statistics are keyed i.
 Parameter names are diffusers'
@@ -52,9 +54,14 @@ class UNet2DCondition(nn.Module):
             depth = cfg.depth_for_block(block_idx)
             t = Transformer2D(dim, cfg.heads_for_block(block_idx),
                               cfg.cross_attention_dim, depth, groups,
-                              cfg.ff_mult, cfg.ff_activation, ff_index=n_ff)
+                              cfg.ff_mult, cfg.ff_activation, ff_index=n_ff,
+                              attn_absorb=cfg.attn_absorb)
             n_ff += depth
             return t
+
+        def resnet(cin, cout):
+            return ResnetBlock2D(cin, cout, groups, 1e-5, tdim,
+                                 conv_chain=cfg.conv_chain)
 
         self.conv_in = nn.Conv2d(cfg.sample_channels, ch[0], 3, 1, 1)
         self.time_embedding = TimestepEmbedding(ch[0], tdim)
@@ -64,7 +71,7 @@ class UNet2DCondition(nn.Module):
         for i, kind in enumerate(cfg.down_block_types):
             blk = _Block()
             for _ in range(cfg.layers_per_block):
-                blk.resnets.append(ResnetBlock2D(cur, ch[i], groups, 1e-5, tdim))
+                blk.resnets.append(resnet(cur, ch[i]))
                 cur = ch[i]
                 if kind == "cross":
                     blk.attentions.append(transformer(ch[i], i))
@@ -74,16 +81,15 @@ class UNet2DCondition(nn.Module):
                 skips.append(cur)
             self.down_blocks.append(blk)
         self.mid_block = _Block()
-        self.mid_block.resnets.append(ResnetBlock2D(cur, cur, groups, 1e-5, tdim))
+        self.mid_block.resnets.append(resnet(cur, cur))
         self.mid_block.attentions.append(transformer(cur, n - 1))
-        self.mid_block.resnets.append(ResnetBlock2D(cur, cur, groups, 1e-5, tdim))
+        self.mid_block.resnets.append(resnet(cur, cur))
         self.up_blocks = nn.ModuleList()
         rev = list(reversed(ch))
         for i, kind in enumerate(cfg.up_block_types):
             blk = _Block()
             for _ in range(cfg.layers_per_block + 1):
-                blk.resnets.append(ResnetBlock2D(cur + skips.pop(), rev[i],
-                                                 groups, 1e-5, tdim))
+                blk.resnets.append(resnet(cur + skips.pop(), rev[i]))
                 cur = rev[i]
                 if kind == "cross":
                     blk.attentions.append(transformer(cur, n - 1 - i))
@@ -123,11 +129,16 @@ class UNet2DCondition(nn.Module):
             ff_index += depth
             return out
 
-        h = self.conv_in(sample.to(dt))
+        sample = sample.to(dt)
+        if cfg.conv_chain:
+            # the chain resblocks keep channels-last activations: start so,
+            # and every conv, cat and upsample between them keeps the format
+            sample = sample.contiguous(memory_format=torch.channels_last)
+        h = self.conv_in(sample)
         stack = [h]
         for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
+                h = res(h, temb, use_kernels)
                 if blk.attentions:
                     h = attend(blk.attentions[j], h, i)
                 stack.append(h)
@@ -135,12 +146,12 @@ class UNet2DCondition(nn.Module):
                 h = blk.downsamplers[0](h)
                 stack.append(h)
         n = len(cfg.block_out_channels)
-        h = self.mid_block.resnets[0](h, temb)
+        h = self.mid_block.resnets[0](h, temb, use_kernels)
         h = attend(self.mid_block.attentions[0], h, n - 1)
-        h = self.mid_block.resnets[1](h, temb)
+        h = self.mid_block.resnets[1](h, temb, use_kernels)
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, stack.pop()], dim=1), temb)
+                h = res(torch.cat([h, stack.pop()], dim=1), temb, use_kernels)
                 if blk.attentions:
                     h = attend(blk.attentions[j], h, n - 1 - i)
             if blk.upsamplers:

@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from diffusion_models_moe_tpu_torch.config import UNetConfig
+from diffusion_models_moe_tpu_torch.config import UNetConfig, resolve_device
 from diffusion_models_moe_tpu_torch.taps import (Interventions,
                                                  LayerIntervention,
                                                  layer_name,
@@ -66,14 +66,15 @@ def build_moe_interventions(labels: dict[str, np.ndarray], topk_ratio: float,
                             n_layers: Optional[int] = None,
                             expert_remove: Optional[dict] = None,
                             expert_boost: Optional[dict] = None,
-                            device=None,
+                            device="cuda",
                             dtype: torch.dtype = torch.float32) -> Interventions:
     """labels -> per-layer routing interventions with
     k = max(int(E * topk_ratio), 1). `n_layers` defaults to covering every
     labelled layer; `expert_remove` maps layer names to (T, E) bool arrays,
     `expert_boost` to (T, E) float arrays. Patterns are made once, on
-    `device` in `dtype` (the model's: the CUDA kernels take them as they
+    `device` (the card by default) in `dtype` (the model's: the CUDA kernels take them as they
     are)."""
+    device = resolve_device(device)
     if n_layers is None:
         n_layers = 1 + max(
             (int(k.rsplit("_", 1)[1]) for k in labels), default=15)

@@ -21,7 +21,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from diffusion_models_moe_tpu_torch.config import PipelineConfig
+from diffusion_models_moe_tpu_torch.config import (PipelineConfig,
+                                                   resolve_device)
 from diffusion_models_moe_tpu_torch.models.clip_text import CLIPTextEncoder
 from diffusion_models_moe_tpu_torch.models.layers import cast_model
 from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
@@ -31,16 +32,17 @@ from diffusion_models_moe_tpu_torch.taps import Interventions, TapSpec
 
 
 class StableDiffusionPipeline:
-    """Holds the three modules and the scheduler on one device."""
+    """Holds the three modules and the scheduler on one device: the card,
+    unless the caller asks for another (`device="cpu"`)."""
 
-    def __init__(self, config: PipelineConfig, device="cpu"):
+    def __init__(self, config: PipelineConfig, device="cuda"):
         if config.scheduler != "pndm":
             raise NotImplementedError(
                 f"scheduler {config.scheduler!r} is not ported (pndm only)")
         if config.prediction_type != "epsilon":
             raise NotImplementedError("only epsilon prediction is ported")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         with torch.device(self.device):
             self.unet = cast_model(UNet2DCondition(config.unet),
                                    config.unet.dtype).eval()
@@ -149,20 +151,35 @@ class StableDiffusionPipeline:
         return torch.randn((batch, cfg.unet.sample_channels, s, s),
                            generator=generator, device=generator.device)
 
+    def seeded_noise(self, seeds) -> torch.Tensor:
+        """Per-request N(0, 1) latents (B, C, s, s): request i's come from
+        its own `torch.Generator` on the pipeline's device, seeded with
+        seeds[i] alone, so they do not depend on what shares its batch."""
+        gens = (torch.Generator(device=self.device).manual_seed(int(sd))
+                for sd in seeds)
+        return torch.cat([self.initial_noise(1, g) for g in gens])
+
     # ------------------------------------------------------------------ full
     @torch.no_grad()
     def generate(self, cond_ids: torch.Tensor, uncond_ids: torch.Tensor,
-                 generator: torch.Generator, *,
+                 generator: Optional[torch.Generator] = None, *,
                  num_steps: Optional[int] = None,
                  guidance_scale: Optional[float] = None,
                  tap: Optional[TapSpec] = None,
                  ivs: Optional[Interventions] = None,
                  text_ivs: Optional[Interventions] = None,
-                 decode: bool = True):
+                 decode: bool = True, seeds=None):
         """Token ids (B, S) -> (images (B, 3, 8s, 8s) in [0, 1], or the final
         latents with decode=False; taps or None). The initial noise comes
-        from `generator`. Text taps add over both encodes."""
+        from `generator`, or with `seeds` (B ints, the serving engine's
+        determinism contract) from each request's own seed. Text taps add
+        over both encodes."""
         cfg = self.config
+        if (generator is None) == (seeds is None):
+            raise ValueError("generate takes a generator or seeds, not both")
+        if seeds is not None and len(seeds) != cond_ids.shape[0]:
+            raise ValueError(f"{len(seeds)} seeds for {cond_ids.shape[0]} "
+                             "requests")
         num_steps = num_steps or cfg.num_inference_steps
         g = cfg.guidance_scale if guidance_scale is None else guidance_scale
         cond, cond_taps = self.encode_text(cond_ids, tap, text_ivs)
@@ -172,9 +189,16 @@ class StableDiffusionPipeline:
                                 for l, v in layers.items()}
                          for stat, layers in cond_taps.items()}
         context = cond if g <= 1.0 else torch.cat([uncond, cond])
-        latents = self.initial_noise(cond_ids.shape[0], generator)
+        latents = (self.seeded_noise(seeds) if seeds is not None
+                   else self.initial_noise(cond_ids.shape[0], generator))
         latents = latents.to(self.device) * self.scheduler.init_noise_sigma
         latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs)
         if text_taps:
             taps = dict(taps or {}, **text_taps)
         return (self.decode(latents) if decode else latents), taps
+
+
+def to_uint8(images: torch.Tensor) -> torch.Tensor:
+    """Images (B, 3, H, W) in [0, 1] -> (B, H, W, 3) uint8, on their device."""
+    return (images.float() * 255.0).round().clamp(0, 255).to(torch.uint8
+                                                             ).permute(0, 2, 3, 1)

@@ -54,25 +54,29 @@ def _resnet(sd: dict, prefix: str, p: dict) -> None:
         _emit(sd, f"{prefix}.time_emb_proj", _linear(p["time_emb_proj"]))
 
 
+def _transformer_block(sd: dict, prefix: str, blk: dict) -> None:
+    for name in ("norm1", "norm2", "norm3"):
+        _emit(sd, f"{prefix}.{name}", _norm(blk[name]))
+    for attn in ("attn1", "attn2"):
+        for proj in ("to_q", "to_k", "to_v"):
+            _emit(sd, f"{prefix}.{attn}.{proj}",
+                  _linear(blk[attn][proj], use_bias=False))
+        _emit(sd, f"{prefix}.{attn}.to_out.0", _linear(blk[attn]["to_out"]))
+    ff = blk["ff"]
+    _emit(sd, f"{prefix}.ff.net.0.proj", _linear(ff["proj"]))
+    sd[f"{prefix}.ff.net.2.weight"] = np.ascontiguousarray(
+        _np(ff["out_proj_kernel"]).T)
+    sd[f"{prefix}.ff.net.2.bias"] = _np(ff["out_proj_bias"])
+
+
 def _transformer2d(sd: dict, prefix: str, p: dict) -> None:
     _emit(sd, f"{prefix}.norm", _norm(p["norm"]))
     _emit(sd, f"{prefix}.proj_in", _linear(p["proj_in"]))
     _emit(sd, f"{prefix}.proj_out", _linear(p["proj_out"]))
     d = 0
     while f"transformer_blocks_{d}" in p:
-        blk, b = p[f"transformer_blocks_{d}"], f"{prefix}.transformer_blocks.{d}"
-        for name in ("norm1", "norm2", "norm3"):
-            _emit(sd, f"{b}.{name}", _norm(blk[name]))
-        for attn in ("attn1", "attn2"):
-            for proj in ("to_q", "to_k", "to_v"):
-                _emit(sd, f"{b}.{attn}.{proj}",
-                      _linear(blk[attn][proj], use_bias=False))
-            _emit(sd, f"{b}.{attn}.to_out.0", _linear(blk[attn]["to_out"]))
-        ff = blk["ff"]
-        _emit(sd, f"{b}.ff.net.0.proj", _linear(ff["proj"]))
-        sd[f"{b}.ff.net.2.weight"] = np.ascontiguousarray(
-            _np(ff["out_proj_kernel"]).T)
-        sd[f"{b}.ff.net.2.bias"] = _np(ff["out_proj_bias"])
+        _transformer_block(sd, f"{prefix}.transformer_blocks.{d}",
+                           p[f"transformer_blocks_{d}"])
         d += 1
 
 

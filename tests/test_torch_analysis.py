@@ -87,7 +87,8 @@ def predictivity(setup):
     out = {}
     for routed in (False, True):
         jivs = jax_build_ivs(setup["labels"], 0.3) if routed else None
-        ivs = build_moe_interventions(setup["labels"], 0.3) if routed else None
+        ivs = (build_moe_interventions(setup["labels"], 0.3, device="cpu")
+               if routed else None)
         out[routed] = (
             jcollect.collect_predictivity(
                 setup["jpipe"], setup["params"], setup["jtok"], BASE, ADJ,
@@ -187,7 +188,8 @@ def test_measure_sparsity_matches_jax(setup):
         setup["cfg"].unet, ff_activation="geglu-relu"))
     tcfg = tiny_config()
     port = StableDiffusionPipeline(dataclasses.replace(
-        tcfg, unet=dataclasses.replace(tcfg.unet, ff_activation="geglu-relu")))
+        tcfg, unet=dataclasses.replace(tcfg.unet, ff_activation="geglu-relu")),
+        device="cpu")
     port.load_state_dicts({k: m.state_dict()
                            for k, m in setup["port"].modules().items()})
     _inject_jax_noise(port, SEED)
@@ -229,7 +231,8 @@ def _denoise_both(setup, jivs, ivs) -> float:
                                    STEPS, 7.5, ivs=ivs)
     plain, _ = setup["port"].denoise(
         torch.from_numpy(ctx), torch.from_numpy(lat).permute(0, 3, 1, 2),
-        STEPS, 7.5, ivs=build_moe_interventions(setup["labels"], 0.3))
+        STEPS, 7.5, ivs=build_moe_interventions(setup["labels"], 0.3,
+                                              device="cpu"))
     assert torch_parity.rel_err(got, plain) > 1e-3      # the removal acts
     return torch_parity.rel_err(got.permute(0, 2, 3, 1).numpy(),
                                 np.asarray(ref))
@@ -241,8 +244,9 @@ def test_neuron_removal_matches_jax(setup, predictivity):
     names = ("neuron_mask", "neuron_fill")
     jivs = _merge(jax_build_ivs(setup["labels"], 0.3),
                   jmasks.neuron_removal_interventions(skilled), names)
-    ivs = _merge(build_moe_interventions(setup["labels"], 0.3),
-                 masks.neuron_removal_interventions(skilled), names)
+    ivs = _merge(build_moe_interventions(setup["labels"], 0.3, device="cpu"),
+                 masks.neuron_removal_interventions(skilled, device="cpu"),
+                 names)
     assert _denoise_both(setup, jivs, ivs) < LATENT_REL_TOL
 
 
@@ -255,7 +259,7 @@ def test_expert_removal_matches_jax(setup):
     jivs = jmasks.expert_removal_interventions(expert, setup["labels"], 0.3,
                                                max_timestep=1)
     ivs = masks.expert_removal_interventions(expert, setup["labels"], 0.3,
-                                             max_timestep=1)
+                                             max_timestep=1, device="cpu")
     assert all(iv.expert_remove.shape[0] == 2 for iv in ivs)
     assert _denoise_both(setup, jivs, ivs) < LATENT_REL_TOL
 
@@ -264,8 +268,9 @@ def test_wanda_removal_matches_jax(setup, wanda):
     names = ("out_weight_mask",)
     jivs = _merge(jax_build_ivs(setup["labels"], 0.3),
                   jmasks.wanda_removal_interventions(wanda["ref"]), names)
-    ivs = _merge(build_moe_interventions(setup["labels"], 0.3),
-                 masks.wanda_removal_interventions(wanda["got"]), names)
+    ivs = _merge(build_moe_interventions(setup["labels"], 0.3, device="cpu"),
+                 masks.wanda_removal_interventions(wanda["got"], device="cpu"),
+                 names)
     assert _denoise_both(setup, jivs, ivs) < LATENT_REL_TOL
 
 
@@ -351,7 +356,8 @@ def test_removal_windows_match_jax(max_timestep, static):
     assert_same(masks._windowed(m[0], max_timestep),
                 jmasks._windowed(m[0], max_timestep))
     ref = jmasks.neuron_removal_interventions(m, max_timestep=max_timestep)
-    got = masks.neuron_removal_interventions(m, max_timestep=max_timestep)
+    got = masks.neuron_removal_interventions(m, max_timestep=max_timestep,
+                                             device="cpu")
     assert len(got) == len(ref) == 16
     assert_same(got[0].neuron_mask.numpy(), np.asarray(ref[0].neuron_mask))
     assert got[0].neuron_fill == ref[0].neuron_fill

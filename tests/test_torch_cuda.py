@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from diffusion_models_moe_tpu_torch.ops import _build
+from diffusion_models_moe_tpu_torch.ops import attn_absorb_fused as absorb
+from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as chain
 from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
 from diffusion_models_moe_tpu_torch.ops import routing_kernel, sd_flash
 from diffusion_models_moe_tpu_torch.taps import (TapSpec, patterns_from_labels,
@@ -129,6 +131,145 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     pat = patterns_from_labels(np.arange(4 * c) % e, e).cuda()
     with pytest.raises(ValueError):
         ffm.geglu_ff_fused(x, w1, b1, w2, b2, pat, 3)
+
+
+@pytest.mark.parametrize("has_ln", [True, False])
+@pytest.mark.parametrize("shape", [(3, 200, 320, 8), (1, 77, 96, 2),
+                                   (2, 1000, 1280, 8)])
+def test_ln_qkv_kernel_matches_plain(gen, shape, has_ln):
+    """Kernel 5 at ragged shapes: B*S no multiple of the 64- and 128-row
+    tiles, 3C no multiple of the 128-column tile (C = 96, 320); q, k, v are
+    views of one tensor that the flash kernel takes as they are."""
+    b, s, c, heads = shape
+    x = _rn(gen, b, s, c)
+    wq, wk, wv = (_rn(gen, c, c, scale=c ** -0.5) for _ in range(3))
+    ln = ()
+    if has_ln:
+        ln = (_rn(gen, c, scale=0.1, dtype=torch.float32) + 1,
+              _rn(gen, c, scale=0.1, dtype=torch.float32))
+    _build.reset_launch_counts()
+    got = absorb.ln_qkv_fused(x, wq, wk, wv, heads, *ln)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ln_qkv_fused"] == 1
+    ref = absorb.ln_qkv_fused(x, wq, wk, wv, heads, *ln, use_kernels=False)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (b, s, heads, c // heads)
+        assert g.stride() == (s * 3 * c, 3 * c, c // heads, 1)
+        assert _rel(g, r) < REL_TOL
+    if c // heads in (40, 160):
+        o = sd_flash.sd_self_attention(*got, (c // heads) ** -0.5)
+        o_ref = sd_flash.sd_self_attention(*(t.contiguous() for t in got),
+                                           (c // heads) ** -0.5)
+        assert torch.equal(o, o_ref)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("shape", [(3, 200, 320, 8), (1, 77, 96, 2),
+                                   (2, 1000, 1280, 8)])
+def test_attn_out_residual_kernel_matches_plain(gen, shape, strided):
+    """Kernel 6 at ragged shapes, reading o contiguous and as a strided view
+    (the value third of a (B, S, 3C) tensor)."""
+    b, s, c, heads = shape
+    d = c // heads
+    o = _rn(gen, b, s, heads, d)
+    if strided:
+        o = torch.cat([o.view(b, s, c)] * 3, dim=-1)[..., 2 * c:].view(
+            b, s, heads, d)
+        assert not o.is_contiguous()
+    w, bias = _rn(gen, c, c, scale=c ** -0.5), _rn(gen, c, scale=0.1)
+    resid = _rn(gen, b, s, c)
+    _build.reset_launch_counts()
+    got = absorb.attn_out_residual_fused(o, w, bias, resid)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["attn_out_residual_fused"] == 1
+    ref = absorb.attn_out_residual_fused(o, w, bias, resid, use_kernels=False)
+    assert _rel(got, ref) < REL_TOL
+
+
+@pytest.mark.parametrize("mode", ["1", "qkv", "out"])
+def test_absorbed_self_attention_kernels_match_plain(gen, mode):
+    b, s, c, heads = 2, 200, 320, 8
+    x = _rn(gen, b, s, c)
+    wq, wk, wv, wo = (_rn(gen, c, c, scale=c ** -0.5) for _ in range(4))
+    bo = _rn(gen, c, scale=0.1)
+    ln = (_rn(gen, c, scale=0.1, dtype=torch.float32) + 1,
+          _rn(gen, c, scale=0.1, dtype=torch.float32), 1e-5)
+    args = (x, wq, wk, wv, wo, bo, heads, (c // heads) ** -0.5, ln, mode)
+    _build.reset_launch_counts()
+    got = absorb.absorbed_self_attention(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ln_qkv_fused"] == (mode != "out")
+    assert _build.LAUNCHES["attn_out_residual_fused"] == (mode != "qkv")
+    assert _build.LAUNCHES["sd_self_attention"] == 1
+    ref = absorb.absorbed_self_attention(*args, use_kernels=False)
+    assert _rel(got, ref) < REL_TOL
+
+
+@pytest.mark.parametrize("prologue,res", [(True, True), (True, False),
+                                          (False, True), (False, False)])
+@pytest.mark.parametrize("shape", [(3, 13, 9, 40, 72), (1, 7, 7, 8, 8),
+                                   (2, 20, 12, 320, 136)])
+def test_conv_chain_kernel_matches_plain(gen, shape, prologue, res):
+    """Kernel 7 at ragged shapes: B*H*W no multiple of the row tiles, odd H
+    and W (every pixel of a 7x7 image is on or next to the border), Cin no
+    multiple of the 32-deep tile, Cout no multiple of the 128-column tile."""
+    b, h, w, cin, cout = shape
+    cl = torch.channels_last
+    x = _rn(gen, b, cin, h, w).contiguous(memory_format=cl)
+    wt = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5
+             ).contiguous(memory_format=cl)
+    bt = _rn(gen, b, cout, scale=0.1)
+    scale = shift = None
+    if prologue:
+        scale = _rn(gen, b, cin, scale=0.1, dtype=torch.float32) + 1
+        shift = _rn(gen, b, cin, scale=0.5, dtype=torch.float32)
+    r = _rn(gen, b, cout, h, w).contiguous(memory_format=cl) if res else None
+    _build.reset_launch_counts()
+    got = chain.conv3x3_chain(x, wt, bt, scale, shift, residual=r,
+                              prologue=prologue)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["conv3x3_chain"] == 1
+    assert got.is_contiguous(memory_format=cl)
+    ref = chain.conv3x3_chain(x, wt, bt, scale, shift, residual=r,
+                              prologue=prologue, use_kernels=False)
+    assert _rel(got, ref) < REL_TOL
+
+
+def test_conv_chain_kernel_refuses_nchw_memory(gen):
+    x = _rn(gen, 1, 8, 8, 8)
+    wt = _rn(gen, 8, 8, 3, 3).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="channels_last"):
+        chain.conv3x3_chain(x, wt, _rn(gen, 1, 8), prologue=False)
+
+
+def test_unet_call_with_the_modes_on_matches_modes_off(gen):
+    """One UNet call at SD1.5 widths (16x16 latents) with `attn_absorb` and
+    `conv_chain` on: all 16 self-attentions and all 44 resblock convs take
+    the kernels, and eps agrees with the modes-off UNet on the same weights
+    at bf16 rounding scale."""
+    from diffusion_models_moe_tpu_torch import sd15_config
+    from diffusion_models_moe_tpu_torch.models.layers import cast_model
+    from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
+    with torch.device("cuda"):
+        off = cast_model(UNet2DCondition(sd15_config(torch.bfloat16).unet),
+                         torch.bfloat16).eval()
+        on = cast_model(UNet2DCondition(sd15_config(
+            torch.bfloat16, attn_absorb="1", conv_chain=True).unet),
+            torch.bfloat16).eval()
+    on.load_state_dict(off.state_dict(), strict=True)
+    lat = torch.randn((2, 4, 16, 16), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, 768), generator=gen, device="cuda")
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        eps_on = on(lat, 500, ctx)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        eps_off = off(lat, 500, ctx)
+    assert counts["ln_qkv_fused"] == counts["attn_out_residual_fused"] == 16
+    assert counts["conv3x3_chain"] == 44
+    assert torch.isfinite(eps_on).all()
+    assert ((eps_on.float() - eps_off.float()).norm()
+            / eps_off.float().norm()).item() < 0.05
 
 
 def _route_inputs(gen, n, e, hdim):

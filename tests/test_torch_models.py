@@ -80,7 +80,8 @@ def test_unet_matches_jax_with_moe_routing(unet_case):
     unet.load_state_dict(bridge.to_torch(
         bridge.unet_numpy_state_dict(unet_case["params"], cfg)), strict=True)
     ivs = build_moe_interventions(unet_case["labels"], 0.3,
-                                  expert_remove=unet_case["remove"])
+                                  expert_remove=unet_case["remove"],
+                                  device="cpu")
     with torch.no_grad():
         out = unet(torch.from_numpy(unet_case["lat"]).permute(0, 3, 1, 2), 17,
                    torch.from_numpy(unet_case["ctx"]), ivs=ivs, step_idx=1)

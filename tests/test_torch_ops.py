@@ -19,6 +19,9 @@ from diffusion_models_moe_tpu.ops.sd_flash import (_sd_cross_fwd_impl,
                                                    _sd_self_fwd_impl)
 from diffusion_models_moe_tpu.taps import routing_mask as jax_routing_mask
 from diffusion_models_moe_tpu_torch.ops import _build
+from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import (
+    attn_out_residual_fused, ln_qkv_fused)
+from diffusion_models_moe_tpu_torch.ops.conv_chain_fused import conv3x3_chain
 from diffusion_models_moe_tpu_torch.ops.geglu_ff_fused import (
     geglu_ff_fused, geglu_ff_reference)
 from diffusion_models_moe_tpu_torch.ops.sd_flash import (sd_cross_attention,
@@ -80,7 +83,8 @@ def test_ff_plain_matches_jax_kernel(routed, relu, absorb):
                              relu, interpret=True, **ln)
     got = _port_ff(x, w1, b1, w2, b2, pat, k, relu,
                    g if absorb else None, bb if absorb else None)
-    assert _rel_err(got, ref) < FF_RTOL
+    err = _rel_err(got, ref)
+    assert err < FF_RTOL, f"max |port - jax| / max |jax| = {err:.3e}"
 
 
 def test_ff_ties_keep_more_than_k_experts():
@@ -113,7 +117,8 @@ def test_ff_cpu_wrapper_is_the_plain_version():
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("op", ["ff", "self", "cross"])
+@pytest.mark.parametrize("op", ["ff", "self", "cross", "ln_qkv", "attn_out",
+                                "chain"])
 def test_wrappers_take_the_plain_version_only_on_cpu(op):
     """Off the CPU a wrapper launches its kernel or raises; it never falls
     back to the plain version (a meta tensor has no kernel)."""
@@ -124,9 +129,18 @@ def test_wrappers_take_the_plain_version_only_on_cpu(op):
             geglu_ff_fused(t(8, 32), t(256, 32), t(256), t(32, 128), t(32))
         elif op == "self":
             sd_self_attention(t(1, 8, 2, 40), t(1, 8, 2, 40), t(1, 8, 2, 40), 0.1)
-        else:
+        elif op == "cross":
             sd_cross_attention(t(1, 8, 2, 40), t(1, 77, 2, 40),
                                t(1, 77, 2, 40), 0.1, 77)
+        elif op == "ln_qkv":
+            ln_qkv_fused(t(1, 8, 32), t(32, 32), t(32, 32), t(32, 32), 2,
+                         t(32), t(32))
+        elif op == "attn_out":
+            attn_out_residual_fused(t(1, 8, 2, 16), t(32, 32), t(32),
+                                    t(1, 8, 32))
+        else:
+            conv3x3_chain(t(1, 8, 4, 4), t(16, 8, 3, 3), t(1, 16), t(1, 8),
+                          t(1, 8), residual=t(1, 16, 4, 4))
 
 
 def _qkv(seed, b, s, h, d, s_kv=None):

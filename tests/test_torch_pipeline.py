@@ -18,7 +18,9 @@ from diffusion_models_moe_tpu.moefication.moefy import \
     build_moe_interventions as jax_build_ivs
 from diffusion_models_moe_tpu.pipelines.stable_diffusion import \
     StableDiffusionPipeline as JaxPipeline
-from diffusion_models_moe_tpu_torch import build_moe_interventions
+from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                            build_moe_interventions,
+                                            tiny_config)
 from diffusion_models_moe_tpu_torch.ops import _build
 
 REL_TOL = 1e-3
@@ -67,7 +69,7 @@ def test_denoise_and_decode_match_jax(jax_run, port):
     """encode -> 2 PNDM steps with CFG 7.5 and MoE on all 16 FFs -> decode."""
     ids = [torch.from_numpy(jax_run[k]).long() for k in ("uncond", "cond")]
     context = torch.cat([port.encode_text(i)[0] for i in ids])
-    ivs = build_moe_interventions(jax_run["labels"], 0.3)
+    ivs = build_moe_interventions(jax_run["labels"], 0.3, device="cpu")
     assert sum(iv is not None for iv in ivs) == 16
     lat = torch.from_numpy(jax_run["latents"]).permute(0, 3, 1, 2)
     _build.reset_launch_counts()
@@ -78,6 +80,25 @@ def test_denoise_and_decode_match_jax(jax_run, port):
     assert _rel_err(got, jax_run["final"]) < REL_TOL
     images = port.decode(final).permute(0, 2, 3, 1).numpy()
     assert _rel_err(images, jax_run["images"]) < REL_TOL
+
+
+def test_denoise_with_the_exact_tier_modes_matches_jax(jax_run, port):
+    """The same slice with `attn_absorb` and `conv_chain` on (same state
+    dicts): against the port's own `denoise` with the modes off and against
+    the JAX pipeline's, from the JAX-made latents."""
+    modes_on = StableDiffusionPipeline(
+        tiny_config(attn_absorb="1", conv_chain=True), device="cpu")
+    modes_on.load_state_dicts({k: m.state_dict()
+                               for k, m in port.modules().items()})
+    ids = [torch.from_numpy(jax_run[k]).long() for k in ("uncond", "cond")]
+    context = torch.cat([port.encode_text(i)[0] for i in ids])
+    ivs = build_moe_interventions(jax_run["labels"], 0.3, device="cpu")
+    lat = torch.from_numpy(jax_run["latents"]).permute(0, 3, 1, 2)
+    on, _ = modes_on.denoise(context, lat, STEPS, GUIDANCE, ivs=ivs)
+    off, _ = port.denoise(context, lat, STEPS, GUIDANCE, ivs=ivs)
+    assert not torch.equal(on, off)       # the modes' own summation orders
+    assert _rel_err(on.numpy(), off.numpy()) < REL_TOL
+    assert _rel_err(on.permute(0, 2, 3, 1).numpy(), jax_run["final"]) < REL_TOL
 
 
 def test_generate_guidance_one_turns_cfg_off(port):
@@ -100,7 +121,7 @@ def test_generate_guidance_one_turns_cfg_off(port):
 
 
 def test_generate_images_are_finite_in_unit_range(port, jax_run):
-    ivs = build_moe_interventions(jax_run["labels"], 0.3)
+    ivs = build_moe_interventions(jax_run["labels"], 0.3, device="cpu")
     cond = torch.from_numpy(jax_run["cond"]).long()
     img, taps = port.generate(cond, torch.zeros_like(cond),
                               torch.Generator().manual_seed(5),
@@ -110,3 +131,33 @@ def test_generate_images_are_finite_in_unit_range(port, jax_run):
     assert img.shape == (2, 3, s, s)
     assert torch.isfinite(img).all()
     assert img.min() >= 0.0 and img.max() <= 1.0
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "moe", "neuron", "expert",
+                                   "wanda"])
+def test_entry_points_default_to_the_card(entry):
+    """Every entry point that makes tensors runs on the card unless the
+    caller asks for the CPU: with no CUDA device the default raises and
+    nothing falls back to the CPU."""
+    from diffusion_models_moe_tpu_torch.erasure import masks
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    cfg = tiny_config()
+    labels = torch_parity.labels(cfg.unet)
+    mask = {0: np.zeros(128, bool)}
+    calls = {
+        "pipeline": lambda **kw: StableDiffusionPipeline(cfg, **kw),
+        "moe": lambda **kw: build_moe_interventions(labels, 0.3, **kw),
+        "neuron": lambda **kw: masks.neuron_removal_interventions(mask, **kw),
+        "expert": lambda **kw: masks.expert_removal_interventions(
+            {0: np.zeros(6, bool)}, labels, 0.3, **kw),
+        "wanda": lambda **kw: masks.wanda_removal_interventions(
+            {0: np.zeros((32, 128), bool)}, **kw),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device is present"):
+        calls[entry]()
+    out = calls[entry](device="cpu")
+    dev = (out.device if entry == "pipeline" else
+           next(t for t in vars(out[0]).values()
+                if isinstance(t, torch.Tensor)).device)
+    assert dev.type == "cpu"

@@ -92,7 +92,8 @@ def test_static_and_windowed_expert_remove_match_jax(setup):
     got, _ = setup["port"].denoise(
         torch.from_numpy(setup["context"]), _nchw(setup["latents"]), STEPS,
         GUIDANCE, ivs=build_moe_interventions(setup["labels"], 0.3,
-                                              expert_remove=remove))
+                                              expert_remove=remove,
+                                              device="cpu"))
     assert torch_parity.rel_err(got.permute(0, 2, 3, 1).numpy(),
                                 np.asarray(ref)) < LATENT_REL_TOL
 
@@ -120,7 +121,8 @@ def _scenario_ivs(name: str, setup):
                  for n, lab in labels.items()}
     jivs = list(jax_build_ivs(labels, 0.3, expert_boost=None if boost is None
                               else {k: jnp.asarray(v) for k, v in boost.items()}))
-    pivs = list(build_moe_interventions(labels, 0.3, expert_boost=boost))
+    pivs = list(build_moe_interventions(labels, 0.3, expert_boost=boost,
+                                        device="cpu"))
     for l, (d, s) in enumerate(zip(dims, tokens)):
         h = 4 * d
         if name == "neuron_mask":

@@ -25,6 +25,15 @@ def rel_err(got, ref) -> float:
     return float(np.max(np.abs(got - ref)) / (np.max(np.abs(ref)) + 1e-12))
 
 
+def block_state_dict(kind: str, params: dict) -> dict:
+    """One block's JAX params -> the port block's torch state dict, through
+    the bridge's own per-block mapping. kind: "resnet" (ResnetBlock2D) or
+    "transformer_block" (BasicTransformerBlock)."""
+    sd: dict = {}
+    getattr(bridge, f"_{kind}")(sd, "_", params)
+    return bridge.to_torch({k[2:]: v for k, v in sd.items()})
+
+
 def labels(unet_cfg, seed: int = 0) -> dict:
     """Random balanced 20-neuron expert labels for every FF layer."""
     rng = np.random.RandomState(seed)
@@ -49,7 +58,7 @@ def _random_state(module: torch.nn.Module, rng: np.random.RandomState) -> dict:
 
 def pipelines(jax_cfg, seed: int = 0):
     """(JAX params as numpy, the port's tiny f32 pipeline), same weights."""
-    port = StableDiffusionPipeline(tiny_config())
+    port = StableDiffusionPipeline(tiny_config(), device="cpu")
     rng = np.random.RandomState(seed)
     sds = {k: _random_state(m, rng) for k, m in port.modules().items()}
     params = {
