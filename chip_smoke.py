@@ -43,9 +43,25 @@ Run from the root of a checkout. Phases:
      and `conv_chain=True` (the same seeded weights) serves 3 seeded requests
      at 50 steps (one full batch, one padded); images uint8 and finite,
      request 0 served alone equals request 0 co-batched, the launch counts
-     of all seven kernels, `denoise` latents with the modes on against the
+     of the kernels, `denoise` latents with the modes on against the
      modes off within the card's floor, and the same traffic through an
-     engine with the modes off.
+     engine with the modes off;
+  2d. (run after 2c) the fused Winograd F(2x2, 3x3) kernel against its plain
+     version, the formulation of ops/winograd.py on the same hoisted filter,
+     at every distinct shape the UNet (batch 4) and the VAE decoder (batch 2)
+     give it, with cuDNN's convolution on the same tensors as the yardstick
+     and the count of convs of that shape per call;
+  8. the remaining serving modes: a `ServingEngine(batch_size=2)` over a
+     pipeline with `conv_winograd="fused"` on the UNet and the VAE serves the
+     3 seeded requests of phase 7 (kernel 8's launches per batch and per
+     shape held to the tables of phase 2d, the chain kernel at 0, request 0
+     alone equal to co-batched, `denoise` latents against the modes-off
+     pipeline within the card's floor); then `quant_int8` (a 50-step generate
+     of 2 requests: no fused FF, every FF through the routing kernel;
+     request 0 equal whatever shares its batch) and `deep_cache_interval=3`
+     (full and shallow UNet calls counted through the FF kernel's launches),
+     each with its latent error against the exact path, held below
+     APPROX_FACTOR of what two unrelated samples differ by on this card.
 Every kernel's line carries its bound: the larger of its operations over
 989 TFLOP/s (bf16, dense) and the bytes it must move over 3.35 TB/s. Each
 phase prints its wall time. It needs CUDA and exits non-zero on any
@@ -103,6 +119,27 @@ CONV_SHAPES = ((64, 320, 320), (64, 640, 320), (64, 960, 320),
                (16, 2560, 1280), (8, 1280, 1280), (8, 2560, 1280))
 CONV_COUNTS = (7, 2, 1, 1, 6, 1, 1, 1, 1, 6, 1, 2, 11, 3)
 RESNETS = 22             # resblocks of the SD1.5 UNet, two 3x3 convs each
+# (side, Cin, Cout) of every stride-1 3x3 conv that takes the fused Winograd
+# kernel, and how many convs of one call have that shape. UNet (batch
+# 2 x BATCH): the 30 resblock convs above 8 x 8 and the 3 upsampler convs.
+WINO_UNET = (((64, 320, 320), 7), ((64, 640, 320), 2), ((64, 960, 320), 1),
+             ((64, 640, 640), 1), ((32, 320, 640), 1), ((32, 640, 640), 6),
+             ((32, 960, 640), 1), ((32, 1280, 640), 1), ((32, 1920, 640), 1),
+             ((32, 1280, 1280), 1), ((16, 640, 1280), 1), ((16, 1280, 1280), 7),
+             ((16, 1920, 1280), 1), ((16, 2560, 1280), 2))
+# VAE decoder (batch BATCH): 4 mid, 24 up and 3 upsampler convs
+WINO_VAE = (((64, 512, 512), 10), ((128, 512, 512), 7), ((256, 512, 512), 1),
+            ((256, 512, 256), 1), ((256, 256, 256), 5), ((512, 256, 256), 1),
+            ((512, 256, 128), 1), ((512, 128, 128), 5))
+WINO_UNET_CONVS, WINO_VAE_CONVS = 33, 31
+# An approximate serving mode (int8, DeepCache) moves the latents by more
+# than rounding. The repo's own yardstick for such modes (quality_modes.py)
+# is the "decorrelated" distance: what the same prompts give from other
+# initial noise, about 1.1 in relative L2. A mode is held below
+# APPROX_FACTOR of that distance as measured on this card in this run: it
+# must stay on its own sample's side of the halfway point to an unrelated
+# one.
+APPROX_FACTOR = 0.5
 
 
 def check(ok: bool, msg: str) -> None:
@@ -453,6 +490,80 @@ def check_chain(gen: torch.Generator) -> list:
           f"for the unfused sequence, {sums['library_ms']:.3f} ms for cuDNN's "
           f"convolutions alone and a bound of {sums['bound_ms']:.3f} ms",
           flush=True)
+    return shapes
+
+
+# ---------------------------------------------------------------- phase 2d
+def check_winograd(gen: torch.Generator) -> list:
+    """Phase 2d: the fused Winograd kernel against its plain version (the
+    formulation of ops/winograd.py on the same hoisted, rounded filter) at
+    every shape of WINO_UNET (batch 2 x BATCH) and WINO_VAE (batch BATCH),
+    with the bias. Beside it, as a yardstick only, cuDNN's convolution on
+    the same tensors (it rounds neither V nor U, so it is held to twice the
+    limit)."""
+    from diffusion_models_moe_tpu_torch.ops import winograd_fused as wf
+    dev, bf16, cl = DEV, torch.bfloat16, torch.channels_last
+    shapes = []
+    for what, b, table, total in (("unet", 2 * BATCH, WINO_UNET, WINO_UNET_CONVS),
+                                  ("vae", BATCH, WINO_VAE, WINO_VAE_CONVS)):
+        check(sum(n for _, n in table) == total, f"WINO table of the {what}")
+        for (side, cin, cout), n in table:
+            check(wf.fused_ok(side, side, cin, cout),
+                  f"fused_ok {side} {cin}->{cout}")
+            x = (torch.randn((b, cin, side, side), generator=gen, device=dev)
+                 ).to(bf16).contiguous(memory_format=cl)
+            w = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+                 * (9 * cin) ** -0.5).to(bf16)
+            bias = (torch.randn((cout,), generator=gen, device=dev) * 0.1
+                    ).to(bf16)
+            u = wf.fused_filter(w)
+
+            def conv(uk):
+                return wf.winograd3x3_fused(x, u, bias, use_kernels=uk)
+
+            y, y_plain = conv(True), conv(False)
+            torch.cuda.synchronize()
+            check(y.is_contiguous(memory_format=cl),
+                  "winograd output not channels-last")
+            abs_e, rel = rel_err(y, y_plain)
+            _, rel_lib = rel_err(y, F.conv2d(x, w, bias, padding=1))
+            del y, y_plain
+            check(rel <= ATTN_REL_TOL,
+                  f"winograd {what} {cin}->{cout} at {side}: rel err {rel}")
+            check(rel_lib <= 2 * ATTN_REL_TOL,
+                  f"winograd {what} {cin}->{cout} at {side}: against cuDNN's "
+                  f"convolution rel err {rel_lib}")
+            ms = cuda_ms(lambda: conv(True), 10 if side >= 256 else 20)
+            plain_ms = cuda_ms(lambda: conv(False), 2)
+            library_ms = cuda_ms(lambda: F.conv2d(x, w, bias, padding=1),
+                                 10 if side >= 256 else 20)
+            tiles = b * (side // 2) ** 2
+            # 16 products of (tiles, Cin) x (Cin, Cout); x, u, the bias in
+            # and y out once (bf16)
+            bd = bound(2 * tiles * 16 * cin * cout,
+                       2 * (4 * tiles * (cin + cout) + 16 * cin * cout + cout))
+            print(f"wino {what:4s} {side:3d}x{side:<3d} {cin:4d}->{cout:4d} "
+                  f"(x{n} a call): max_abs_err {abs_e:.6g} rel {rel:.3e} (tol "
+                  f"{ATTN_REL_TOL:g}), against cuDNN rel {rel_lib:.3e}; kernel "
+                  f"{ms:.4f} ms, plain (the formulation of ops/winograd.py) "
+                  f"{plain_ms:.4f} ms, cuDNN conv {library_ms:.4f} ms, bound "
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}", flush=True)
+            shapes.append(dict(
+                shape=f"{what}: B={b},H=W={side},Cin={cin},Cout={cout}",
+                convs_per_call=n, max_abs_err=abs_e, rel_err=rel,
+                rel_err_vs_library=rel_lib, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bd))
+    n_unet = len(WINO_UNET)
+    for what, rows, table in (("UNet call at batch 4", shapes[:n_unet], WINO_UNET),
+                              ("VAE decode at batch 2", shapes[n_unet:], WINO_VAE)):
+        counts = tuple(n for _, n in table)
+        sums = {k: per_call(rows, counts, k)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"wino: the {sum(counts)} convs of a {what} sum to "
+              f"{sums['ms']:.3f} ms in the kernel, {sums['plain_ms']:.3f} ms "
+              f"in the formulation of ops/winograd.py, {sums['library_ms']:.3f} "
+              f"ms in cuDNN's convolutions and a bound of "
+              f"{sums['bound_ms']:.3f} ms", flush=True)
     return shapes
 
 
@@ -809,6 +920,161 @@ def run_serving(pipe, ivs, modes_off: dict, card: str) -> dict:
     return on
 
 
+# ---------------------------------------------------------------- phase 8
+def seeded_pipeline(**modes):
+    """An SD1.5 bf16 pipeline with the serving `modes` on the seeded weights
+    of every other phase."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    pipe = StableDiffusionPipeline(sd15_config(torch.bfloat16, **modes),
+                                   device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    return pipe
+
+
+def winograd_shapes(pipe, ivs) -> tuple:
+    """One UNet call at batch 2 x BATCH and one VAE decode at batch BATCH
+    with a hook on every `WinoConv`: the (side, Cin, Cout) of each conv that
+    takes the kernel, counted, for the UNet and for the VAE."""
+    import collections
+    from diffusion_models_moe_tpu_torch.models.layers import WinoConv
+    cfg = pipe.config
+    seen = collections.Counter()
+
+    def hook(mod, args, _out):
+        h, w = args[0].shape[2:]
+        if mod.takes_kernel(h, w):
+            seen[(h, mod.in_channels, mod.out_channels)] += 1
+
+    out = []
+    lat = torch.zeros((BATCH, 4, cfg.sample_size, cfg.sample_size), device=DEV)
+    ctx = torch.zeros((2 * BATCH, cfg.text_encoder.max_length,
+                       cfg.unet.cross_attention_dim), device=DEV)
+    for module, run in ((pipe.unet, lambda: pipe.unet(
+            torch.cat([lat, lat]), 500, ctx, ivs=ivs)),
+                        (pipe.vae_decoder, lambda: pipe.decode(lat))):
+        hooks = [m.register_forward_hook(hook) for m in module.modules()
+                 if isinstance(m, WinoConv)]
+        seen.clear()
+        with torch.no_grad():
+            run()
+        for h in hooks:
+            h.remove()
+        out.append(dict(seen))
+    return tuple(out)
+
+
+def approx_mode(pipe, what: str, cond, uncond, ivs, modes_off: dict,
+                decorrelated: float, expect: dict, card: str) -> dict:
+    """A 50-step generate of BATCH requests through an approximate serving
+    mode, its launch counts held to `expect`, and its `denoise` latents
+    against the exact path's (phase 4), held below APPROX_FACTOR of the
+    decorrelated distance."""
+    cfg = pipe.config
+    pipe.generate(cond, uncond, torch.Generator(device=DEV).manual_seed(2),
+                  num_steps=1, ivs=ivs)                     # warm-up
+    torch.cuda.synchronize()
+    _, launches = timed_generate(pipe, f"{what} on {card}", cond, uncond,
+                                 seed=3, ivs=ivs, expect=expect)
+    z, _ = pipe.denoise(modes_off["ctx"], modes_off["lat"],
+                        cfg.num_inference_steps, cfg.guidance_scale, ivs=ivs)
+    check(bool(torch.isfinite(z).all()), f"{what}: non-finite latents")
+    z_off = modes_off["z_k"]
+    rel = ((z - z_off).norm() / z_off.norm()).item()
+    print(f"denoise {cfg.num_inference_steps} steps, {what}: latent rel err "
+          f"against the exact path (kernels, same weights, context and "
+          f"latents) {rel:.6f}; limit {APPROX_FACTOR} x the decorrelated "
+          f"distance {decorrelated:.6f}; floor (plain bf16 vs plain f32, "
+          f"phase 4) {modes_off['floor']:.6f}", flush=True)
+    check(rel <= APPROX_FACTOR * decorrelated,
+          f"{what}: latent rel err {rel} > {APPROX_FACTOR} x {decorrelated}")
+    return launches
+
+
+def run_remaining_modes(pipe, ivs, cond, uncond, modes_off: dict,
+                        card: str) -> dict:
+    """Phase 8: the Winograd (fused kernel), int8 and DeepCache serving
+    modes at full SD1.5 width, on the seeded weights."""
+    cfg = pipe.config
+    steps, g = cfg.num_inference_steps, cfg.guidance_scale
+    calls = steps + 1
+    attn = 16 * calls
+
+    # --- conv_winograd="fused" through the serving engine
+    fused = seeded_pipeline(conv_winograd="fused")
+    unet_seen, vae_seen = winograd_shapes(fused, ivs)
+    check(unet_seen == dict(WINO_UNET),
+          f"convs of a UNet call on the kernel: {unet_seen}")
+    check(vae_seen == dict(WINO_VAE),
+          f"convs of a VAE decode on the kernel: {vae_seen}")
+    per_batch = WINO_UNET_CONVS * calls + WINO_VAE_CONVS
+    print(f"winograd: {WINO_UNET_CONVS} convs of a UNet call and "
+          f"{WINO_VAE_CONVS} of a VAE decode take the kernel: {per_batch} "
+          f"launches a served batch", flush=True)
+    launches = serve(fused, ivs, f"serving, conv_winograd=fused, {card}",
+                     {"winograd3x3_fused": per_batch, "conv3x3_chain": 0,
+                      "ln_qkv_fused": 0, "attn_out_residual_fused": 0,
+                      "geglu_ff_fused": attn, "sd_self_attention": attn,
+                      "sd_cross_attention": attn, "fused_route_multiply": 0})
+    z_on, _ = fused.denoise(modes_off["ctx"], modes_off["lat"], steps, g,
+                            ivs=ivs)
+    z_off, floor = modes_off["z_k"], modes_off["floor"]
+    check(bool(torch.isfinite(z_on).all()), "winograd: non-finite latents")
+    rel = ((z_on - z_off).norm() / z_off.norm()).item()
+    print(f"denoise {steps} steps, CFG {g}, MoE on 16 FFs: latent rel err "
+          f"conv_winograd=fused vs modes off (kernels, same weights, context "
+          f"and latents) {rel:.6f}; floor (plain bf16 vs plain f32, phase 4) "
+          f"{floor:.6f}", flush=True)
+    check(rel <= FLOOR_FACTOR * floor,
+          f"winograd vs modes off {rel} > {FLOOR_FACTOR} x floor {floor}")
+    del fused
+
+    # --- what two unrelated samples differ by on this card: the exact path
+    # from other initial noise
+    other = torch.randn(modes_off["lat"].shape, device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(5))
+    z_other, _ = pipe.denoise(modes_off["ctx"], other, steps, g, ivs=ivs)
+    decorrelated = ((z_other - z_off).norm() / z_off.norm()).item()
+    print(f"denoise {steps} steps from other initial noise: decorrelated "
+          f"latent distance {decorrelated:.6f}", flush=True)
+
+    # --- quant_int8: no fused FF, no absorb; every FF through kernel 4
+    quant = seeded_pipeline(quant_int8=True)
+    approx_mode(quant, "quant_int8", cond, uncond, ivs, modes_off,
+                decorrelated,
+                {"geglu_ff_fused": 0, "fused_route_multiply": attn,
+                 "sd_self_attention": attn, "sd_cross_attention": attn,
+                 "winograd3x3_fused": 0, "conv3x3_chain": 0}, card)
+    kw = dict(num_steps=10, ivs=ivs, decode=False)
+    other_cond = torch.roll(cond, 1, dims=1)
+    a, _ = quant.generate(cond, uncond, seeds=[11, 12], **kw)
+    b, _ = quant.generate(torch.cat([cond[:1], other_cond[1:]]), uncond,
+                          seeds=[11, 99], **kw)
+    differ = (a[0] - b[0]).abs().max().item()
+    print(f"quant_int8: request 0 of a 10-step generate against the same "
+          f"request beside another prompt and seed: max |latent diff| "
+          f"{differ}; the other slot moved by "
+          f"{(a[1] - b[1]).abs().max().item():.4f}", flush=True)
+    check(differ == 0.0 and not torch.equal(a[1], b[1]),
+          f"quant_int8: request 0 depends on its batch ({differ})")
+    del quant
+
+    # --- deep_cache_interval=3: the branch is on the index over the
+    # scheduler's table
+    interval = 3
+    full = sum(i % interval == 0 for i in range(calls))
+    shallow = calls - full
+    deep = seeded_pipeline(deep_cache_interval=interval)
+    ffs = 16 * full + 5 * shallow   # the shallow forward runs FFs 0, 1, 13-15
+    print(f"deep_cache_interval={interval}: {full} full and {shallow} shallow "
+          f"UNet calls over {calls} scheduler entries", flush=True)
+    approx_mode(deep, f"deep_cache_interval={interval}", cond, uncond, ivs,
+                modes_off, decorrelated,
+                {"geglu_ff_fused": ffs, "sd_self_attention": ffs,
+                 "sd_cross_attention": ffs, "fused_route_multiply": 0}, card)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -855,6 +1121,8 @@ def main() -> None:
     ln_qkv, attn_out = check_absorb(gen)
     chain = check_chain(gen)
     phase_done("2c (attention absorb and conv chain)")
+    wino = check_winograd(gen)
+    phase_done("2d (fused Winograd)")
     pipe, ivs, cond, uncond, launches, images = run_slice(card)
     phase_done("3 (serving slice)")
     compare, modes_off = check_latents(pipe, ivs, cond, uncond)
@@ -865,10 +1133,14 @@ def main() -> None:
     phase_done("6 (wanda erasure and bake)")
     serving_launches = run_serving(pipe, ivs, modes_off, card)
     phase_done("7 (serving engine, exact-tier modes)")
+    wino_launches = run_remaining_modes(pipe, ivs, cond, uncond, modes_off,
+                                        card)
+    phase_done("8 (Winograd, int8 and DeepCache serving modes)")
     print("launches by path: " + json.dumps({
         "serving": launches, "attribution": attribution_launches,
         "wanda_erasure": wanda_launches,
-        "serving_engine_modes_on": serving_launches}))
+        "serving_engine_modes_on": serving_launches,
+        "serving_engine_winograd": wino_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -892,6 +1164,10 @@ def main() -> None:
         ("conv3x3_chain", f"{csrc}/conv_chain.cu",
          "diffusion_models_moe_tpu/ops/conv_chain_fused.py:76", chain,
          serving_launches),
+        # its path is the serving engine with conv_winograd="fused" (phase 8)
+        ("winograd3x3_fused", f"{csrc}/winograd.cu",
+         "diffusion_models_moe_tpu/ops/winograd_fused.py:76", wino,
+         wino_launches),
     ]
     # the top-level numbers are those of the first (largest-N) shape; every
     # shape's own numbers are under "shapes"

@@ -3,11 +3,19 @@
 Counterpart of `diffusion_models_moe_tpu/config.py`: the same frozen
 dataclasses and presets, with the compute dtype held as a `torch.dtype`.
 Only the fields the SD1.x serving slice reads are kept; options of the JAX
-package that steer TPU layouts (flash switch, fused routing, quant, Winograd,
-DeepCache, SDXL add-embeds, LCM conditioning) have no counterpart here.
-The two exact-tier serving modes that the JAX package switches with
-environment variables at trace time (DMOE_ATTN_ABSORB, DMOE_CONV_CHAIN) are
-explicit fields of `UNetConfig`; this package reads no environment variable.
+package that steer TPU layouts or other model families (flash switch, fused
+routing, SDXL add-embeds, LCM conditioning) have no counterpart here.
+
+Serving modes, all off by default. The exact-tier modes that the JAX package
+switches with environment variables at trace time (DMOE_ATTN_ABSORB,
+DMOE_CONV_CHAIN) are the `UNetConfig` fields `attn_absorb` and `conv_chain`.
+The opt-in modes are `conv_winograd`, `winograd_tile` and `quant_int8` on
+`UNetConfig` and `VAEConfig` (DMOE_WINO_FUSED and DMOE_WINO_TILE are the
+values `"fused"` and the tile field) and `PipelineConfig.deep_cache_interval`.
+Precedence as in the JAX package: Winograd or int8 switch the conv chain
+off, int8 switches the attention absorb and the fused FF kernel off, and
+with both Winograd takes the stride-1 3x3 convs and int8 the rest. This
+package reads no environment variable.
 """
 from __future__ import annotations
 
@@ -15,6 +23,14 @@ import dataclasses
 from typing import Any, Sequence
 
 import torch
+
+
+def check_winograd(conv_winograd: str, winograd_tile: int) -> None:
+    if conv_winograd not in ("0", "1", "fused"):
+        raise ValueError(f"conv_winograd={conv_winograd!r}: one of '0', '1', "
+                         "'fused'")
+    if winograd_tile not in (2, 4):
+        raise ValueError(f"winograd_tile={winograd_tile!r}: 2 or 4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +60,20 @@ class UNetConfig:
     # resblock convs through the fused GN+SiLU -> conv -> bias -> residual
     # kernel (ops/conv_chain_fused.py) wherever `chain_ok` admits the shape
     conv_chain: bool = False
+    # stride-1 3x3 convs as Winograd: "0" off, "1" the batched-product
+    # formulation of ops/winograd.py at `winograd_tile` (2 or 4), "fused" the
+    # F(2x2, 3x3) kernel (ops/winograd_fused.py) wherever `fused_ok` admits
+    # the shape and the direct conv elsewhere
+    conv_winograd: str = "0"
+    winograd_tile: int = 2
+    # W8A8 int8 dots and convs (ops/quant.py)
+    quant_int8: bool = False
 
     def __post_init__(self):
         if self.attn_absorb not in ("0", "1", "qkv", "out"):
             raise ValueError(f"attn_absorb={self.attn_absorb!r}: one of "
                              "'0', '1', 'qkv', 'out'")
+        check_winograd(self.conv_winograd, self.winograd_tile)
 
     def depth_for_block(self, block_idx: int) -> int:
         d = self.transformer_layers_per_block
@@ -103,6 +128,13 @@ class VAEConfig:
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
     dtype: torch.dtype = torch.float32
+    # the decoder's serving modes, as on UNetConfig
+    conv_winograd: str = "0"
+    winograd_tile: int = 2
+    quant_int8: bool = False
+
+    def __post_init__(self):
+        check_winograd(self.conv_winograd, self.winograd_tile)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,23 +147,39 @@ class PipelineConfig:
     num_inference_steps: int = 50
     scheduler: str = "pndm"
     prediction_type: str = "epsilon"
+    # DeepCache: > 0 runs the full UNet on every interval-th step and the
+    # shallow forward on a cached deep feature between them
+    deep_cache_interval: int = 0
 
 
-def sd15_config(dtype: torch.dtype = torch.bfloat16, **unet_modes
-                ) -> PipelineConfig:
-    """Stable Diffusion v1.4/1.5 geometry. `unet_modes`: the UNet's serving
-    modes, `attn_absorb` and `conv_chain`."""
+_SHARED_MODES = ("conv_winograd", "winograd_tile", "quant_int8")
+
+
+def _split_modes(modes: dict) -> tuple[dict, dict, dict]:
+    """Serving-mode keywords -> (UNet fields, VAE fields, pipeline fields):
+    the Winograd and int8 modes go to the UNet and the VAE decoder alike."""
+    pipe = {k: modes.pop(k) for k in ("deep_cache_interval",) if k in modes}
+    vae = {k: modes[k] for k in _SHARED_MODES if k in modes}
+    return modes, vae, pipe
+
+
+def sd15_config(dtype: torch.dtype = torch.bfloat16, **modes) -> PipelineConfig:
+    """Stable Diffusion v1.4/1.5 geometry. `modes`: the serving modes,
+    `attn_absorb`, `conv_chain`, `conv_winograd`, `winograd_tile`,
+    `quant_int8` and `deep_cache_interval`."""
+    unet_modes, vae_modes, pipe_modes = _split_modes(modes)
     return PipelineConfig(
         unet=UNetConfig(dtype=dtype, **unet_modes),
         text_encoder=CLIPTextConfig(dtype=dtype),
-        vae=VAEConfig(dtype=dtype),
+        vae=VAEConfig(dtype=dtype, **vae_modes),
+        **pipe_modes,
     )
 
 
-def tiny_config(dtype: torch.dtype = torch.float32, **unet_modes
-                ) -> PipelineConfig:
+def tiny_config(dtype: torch.dtype = torch.float32, **modes) -> PipelineConfig:
     """Tiny model for unit tests: same topology (16 FF layers), small dims.
-    `unet_modes` as in `sd15_config`."""
+    `modes` as in `sd15_config`."""
+    unet_modes, vae_modes, pipe_modes = _split_modes(modes)
     return PipelineConfig(
         unet=UNetConfig(
             block_out_channels=(32, 64, 128, 128),
@@ -146,9 +194,10 @@ def tiny_config(dtype: torch.dtype = torch.float32, **unet_modes
             num_layers=2, num_heads=4, max_length=16, dtype=dtype,
         ),
         vae=VAEConfig(block_out_channels=(32, 32, 64, 64), norm_num_groups=8,
-                      layers_per_block=1, dtype=dtype),
+                      layers_per_block=1, dtype=dtype, **vae_modes),
         sample_size=8,
         num_inference_steps=4,
+        **pipe_modes,
     )
 
 

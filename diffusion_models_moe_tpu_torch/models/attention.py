@@ -11,8 +11,11 @@ unfused path of the JAX module instead, with its routing in the fused
 routing kernel (`ops/routing_kernel.py`) where no expert tap or boost needs
 the selection. With `attn_absorb` on (the JAX package's DMOE_ATTN_ABSORB),
 `norm1` and the `attn1` residual are delegated to the absorbed-attention
-kernels (`ops/attn_absorb_fused.py`) around the flash kernel. Parameter
-names follow diffusers (`attn1.to_q`, `attn1.to_out.0`, `ff.net.0.proj`,
+kernels (`ops/attn_absorb_fused.py`) around the flash kernel. With `quant`
+(`UNetConfig.quant_int8`) every projection of the block is a `QuantDense`
+(the int8 W8A8 dot of `ops/quant.py`), the attention absorb is off and every
+FF call takes the unfused path, its routing still in the routing kernel.
+Parameter names follow diffusers (`attn1.to_q`, `attn1.to_out.0`, `ff.net.0.proj`,
 `ff.net.2`, `norm3`, ...) and do not depend on the mode.
 
 Tap statistics go into the `taps_out` dict a caller passes down, as
@@ -29,11 +32,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffusion_models_moe_tpu_torch.models.layers import (group_norm_f32,
+from diffusion_models_moe_tpu_torch.models.layers import (HoistedWeight,
+                                                          group_norm_f32,
                                                           layer_norm_f32)
 from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import (
     absorbed_self_attention, attn_absorb_ok, ln_apply)
 from diffusion_models_moe_tpu_torch.ops.geglu_ff_fused import geglu_ff_fused
+from diffusion_models_moe_tpu_torch.ops.quant import (int8_dot,
+                                                      quantize_dense_weight)
 from diffusion_models_moe_tpu_torch.ops.routing_kernel import \
     fused_route_multiply
 from diffusion_models_moe_tpu_torch.ops.sd_flash import (sd_cross_attention,
@@ -44,18 +50,36 @@ from diffusion_models_moe_tpu_torch.taps import (LayerIntervention, TapSpec,
 TapsOut = Optional[dict]     # {stat: {ff_index: tensor}}, filled in place
 
 
+class QuantDense(HoistedWeight, nn.Linear):
+    """`nn.Linear` (same parameters) through the int8 W8A8 dot of
+    `ops/quant.py`; the weight's quantisation is hoisted."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.weight.dtype
+        y = int8_dot(x.to(dt), wq=self.hoisted(quantize_dense_weight))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def make_dense(in_features: int, out_features: int, bias: bool = True,
+               quant: bool = False) -> nn.Linear:
+    """nn.Linear, or its int8 twin when `quant` (the same parameters)."""
+    return (QuantDense if quant else nn.Linear)(in_features, out_features,
+                                                bias=bias)
+
+
 class Attention(nn.Module):
     """Multi-head self- or cross-attention on (B, S, C) tokens."""
 
     def __init__(self, query_dim: int, heads: int = 8,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, quant: bool = False):
         super().__init__()
         self.heads = heads
         kv_dim = context_dim or query_dim
-        self.to_q = nn.Linear(query_dim, query_dim, bias=False)
-        self.to_k = nn.Linear(kv_dim, query_dim, bias=False)
-        self.to_v = nn.Linear(kv_dim, query_dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim)])
+        self.to_q = make_dense(query_dim, query_dim, False, quant)
+        self.to_k = make_dense(kv_dim, query_dim, False, quant)
+        self.to_v = make_dense(kv_dim, query_dim, False, quant)
+        self.to_out = nn.ModuleList([make_dense(query_dim, query_dim,
+                                                quant=quant)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 use_kernels: bool = True, ln: Optional[nn.LayerNorm] = None,
@@ -98,9 +122,9 @@ class Attention(nn.Module):
 class GEGLU(nn.Module):
     """The GEGLU input projection: `proj` emits (hidden, gate), 2H wide."""
 
-    def __init__(self, dim: int, hidden_dim: int):
+    def __init__(self, dim: int, hidden_dim: int, quant: bool = False):
         super().__init__()
-        self.proj = nn.Linear(dim, 2 * hidden_dim)
+        self.proj = make_dense(dim, 2 * hidden_dim, quant=quant)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -109,19 +133,21 @@ class GEGLUFeedForward(nn.Module):
     `net.0.proj` is W1 (2H, C), `net.1` the (inference-time identity)
     dropout, `net.2` W2 (C, H). `forward(x, ln=...)` returns
     `x + ff(layernorm(x))` with the LayerNorm and residual absorbed.
-    `ff_index` is the layer's place in the canonical FF order."""
+    `ff_index` is the layer's place in the canonical FF order. With `quant`
+    both projections are int8 dots and no call takes the fused kernel."""
 
     def __init__(self, dim: int, mult: int = 4, activation: str = "geglu",
-                 ff_index: int = 0):
+                 ff_index: int = 0, quant: bool = False):
         super().__init__()
         if activation not in ("geglu", "geglu-relu"):
             raise NotImplementedError(
                 f"ff activation {activation!r} is not ported (geglu, geglu-relu)")
         self.relu = activation == "geglu-relu"
         self.ff_index = ff_index
+        self.quant = quant
         hidden = dim * mult
-        self.net = nn.ModuleList([GEGLU(dim, hidden), nn.Identity(),
-                                  nn.Linear(hidden, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, hidden, quant), nn.Identity(),
+                                  make_dense(hidden, dim, quant=quant)])
 
     def forward(self, x: torch.Tensor, *, step_idx: int = 0,
                 tap: Optional[TapSpec] = None,
@@ -130,7 +156,7 @@ class GEGLUFeedForward(nn.Module):
                 use_kernels: bool = True) -> torch.Tensor:
         collecting = tap is not None and (tap.any_gate_stat()
                                           or tap.any_expert_stat())
-        if not collecting and (iv is None or (
+        if not self.quant and not collecting and (iv is None or (
                 iv.neuron_mask is None and iv.out_weight_mask is None
                 and iv.expert_boost is None
                 and (iv.patterns is None or iv.k > 0))):
@@ -200,12 +226,15 @@ class GEGLUFeedForward(nn.Module):
             y2 = y2 / y2.norm(dim=-1, keepdim=True).clamp_min(1e-12)
             sink.setdefault("ff_out_colnorm_sq", {})[idx] = (y2 * y2).sum(0)
         out = self.net[2]
-        w2 = out.weight
         if iv is not None and iv.out_weight_mask is not None:
             wm = iv.out_weight_mask
             wm = step_row(wm, t) if wm.dim() == 3 else wm          # (D, H)
-            w2 = w2 * (1.0 - wm.to(w2.dtype))
-        y = F.linear(y, w2, out.bias)
+            w2 = out.weight * (1.0 - wm.to(out.weight.dtype))
+            # a masked W2 is this step's own: under int8 it is quantised here
+            y = (int8_dot(y, w2) + out.bias if self.quant
+                 else F.linear(y, w2, out.bias))
+        else:
+            y = out(y)
         return y if ln is None else resid + y
 
 
@@ -257,15 +286,19 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, context_dim: int,
                  ff_mult: int = 4, ff_activation: str = "geglu",
-                 ff_index: int = 0, attn_absorb: str = "0"):
+                 ff_index: int = 0, attn_absorb: str = "0",
+                 quant: bool = False):
         super().__init__()
-        self.attn_absorb = attn_absorb
+        # the absorbed kernels read bf16 weights: int8 switches them off
+        self.attn_absorb = "0" if quant else attn_absorb
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads)
+        self.attn1 = Attention(dim, heads, quant=quant)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, heads, context_dim=context_dim)
+        self.attn2 = Attention(dim, heads, context_dim=context_dim,
+                               quant=quant)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = GEGLUFeedForward(dim, ff_mult, ff_activation, ff_index)
+        self.ff = GEGLUFeedForward(dim, ff_mult, ff_activation, ff_index,
+                                   quant)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
                 step_idx: int = 0, tap: Optional[TapSpec] = None,
@@ -294,15 +327,15 @@ class Transformer2D(nn.Module):
     def __init__(self, dim: int, heads: int, context_dim: int, depth: int = 1,
                  norm_num_groups: int = 32, ff_mult: int = 4,
                  ff_activation: str = "geglu", ff_index: int = 0,
-                 attn_absorb: str = "0"):
+                 attn_absorb: str = "0", quant: bool = False):
         super().__init__()
         self.norm = nn.GroupNorm(norm_num_groups, dim, eps=1e-6)
-        self.proj_in = nn.Linear(dim, dim)
+        self.proj_in = make_dense(dim, dim, quant=quant)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(dim, heads, context_dim, ff_mult, ff_activation,
-                                  ff_index + d, attn_absorb)
+                                  ff_index + d, attn_absorb, quant)
             for d in range(depth)])
-        self.proj_out = nn.Linear(dim, dim)
+        self.proj_out = make_dense(dim, dim, quant=quant)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
                 step_idx: int = 0, tap: Optional[TapSpec] = None,

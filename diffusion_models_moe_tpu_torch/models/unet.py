@@ -1,9 +1,13 @@
 """UNet2DCondition for SD1.x (PyTorch port, NCHW), with MoE-routed FFs.
 
-Counterpart of `diffusion_models_moe_tpu/models/unet.py` without its
-DeepCache, SDXL add-embedding and LCM guidance-embedding options. The
-config's `attn_absorb` and `conv_chain` modes are handed down to the
-transformer blocks and the resblocks. The GEGLU
+Counterpart of `diffusion_models_moe_tpu/models/unet.py` without its SDXL
+add-embedding and LCM guidance-embedding options. The config's serving modes
+(`attn_absorb`, `conv_chain`, `conv_winograd`, `quant_int8`) are handed down
+to the transformer blocks, the resblocks and the samplers; `conv_in` and
+`conv_out` stay direct convs, as in the JAX module. `forward` also has the
+DeepCache pair of the JAX module: the full forward can return the feature
+entering the last up block, and the shallow forward splices a cached one and
+runs only conv_in, down block 0, the last up block and conv_out. The GEGLU
 FF layers are numbered in execution order, down (0-5), mid (6), up (7-15)
 for SD1.x: `ivs[i]` acts on FF layer i, and its tap statistics are keyed i.
 Parameter names are diffusers'
@@ -55,13 +59,18 @@ class UNet2DCondition(nn.Module):
             t = Transformer2D(dim, cfg.heads_for_block(block_idx),
                               cfg.cross_attention_dim, depth, groups,
                               cfg.ff_mult, cfg.ff_activation, ff_index=n_ff,
-                              attn_absorb=cfg.attn_absorb)
+                              attn_absorb=cfg.attn_absorb,
+                              quant=cfg.quant_int8)
             n_ff += depth
             return t
 
+        wino = dict(winograd=cfg.conv_winograd,
+                    winograd_tile=cfg.winograd_tile)
+
         def resnet(cin, cout):
             return ResnetBlock2D(cin, cout, groups, 1e-5, tdim,
-                                 conv_chain=cfg.conv_chain)
+                                 conv_chain=cfg.conv_chain,
+                                 quant=cfg.quant_int8, **wino)
 
         self.conv_in = nn.Conv2d(cfg.sample_channels, ch[0], 3, 1, 1)
         self.time_embedding = TimestepEmbedding(ch[0], tdim)
@@ -77,7 +86,7 @@ class UNet2DCondition(nn.Module):
                     blk.attentions.append(transformer(ch[i], i))
                 skips.append(cur)
             if i < n - 1:
-                blk.downsamplers.append(Downsample2D(cur))
+                blk.downsamplers.append(Downsample2D(cur, cfg.quant_int8))
                 skips.append(cur)
             self.down_blocks.append(blk)
         self.mid_block = _Block()
@@ -94,7 +103,7 @@ class UNet2DCondition(nn.Module):
                 if kind == "cross":
                     blk.attentions.append(transformer(cur, n - 1 - i))
             if i < n - 1:
-                blk.upsamplers.append(Upsample2D(cur))
+                blk.upsamplers.append(Upsample2D(cur, cfg.quant_int8, **wino))
             self.up_blocks.append(blk)
         self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=1e-5)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, 1, 1)
@@ -104,12 +113,28 @@ class UNet2DCondition(nn.Module):
                 ivs: Optional[Interventions] = None, step_idx: int = 0,
                 tap: Optional[TapSpec] = None,
                 taps_out: Optional[dict] = None,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True,
+                deep_feature: Optional[torch.Tensor] = None,
+                return_deep: bool = False):
         """sample: (B, C, H, W) latents; timestep: scalar or (B,);
         encoder_hidden_states: (B, S, D_text). Returns the predicted noise
         (B, C, H, W) in f32. With `tap`, each FF layer writes its statistics
-        into `taps_out` as {stat: {ff_index: tensor}}."""
+        into `taps_out` as {stat: {ff_index: tensor}}.
+
+        DeepCache (Ma et al. 2023): the feature entering the last up block
+        changes slowly between adjacent steps. `return_deep=True` runs the
+        full forward and returns `(eps, deep)` with that feature;
+        `deep_feature=deep` runs the shallow forward: conv_in and down block
+        0 (the skips the last up block consumes), the spliced feature, the
+        last up block and conv_out, every other block skipped. The two are
+        exclusive. The executed FF layers keep their full-forward `ff_index`,
+        so interventions address them as before."""
         cfg = self.cfg
+        shallow = deep_feature is not None
+        if shallow and return_deep:
+            raise ValueError("deep_feature and return_deep are exclusive")
+        if (shallow or return_deep) and len(cfg.up_block_types) < 2:
+            raise ValueError("deep cache needs >= 2 up blocks")
         dt = self.conv_in.weight.dtype
         b = sample.shape[0]
         t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
@@ -122,39 +147,56 @@ class UNet2DCondition(nn.Module):
                   use_kernels=use_kernels)
         ff_index = 0
 
-        def attend(attn, h, block_idx):
+        def attend(attn, h, block_idx, run=True):
+            # the numbering advances over skipped blocks too
             nonlocal ff_index
             depth = cfg.depth_for_block(block_idx)
-            out = attn(h, context, ivs=ivs[ff_index:ff_index + depth], **kw)
+            if run:
+                h = attn(h, context, ivs=ivs[ff_index:ff_index + depth], **kw)
             ff_index += depth
-            return out
+            return h
 
         sample = sample.to(dt)
-        if cfg.conv_chain:
-            # the chain resblocks keep channels-last activations: start so,
-            # and every conv, cat and upsample between them keeps the format
+        if self.mid_block.resnets[0].channels_last:
+            # such resblocks keep channels-last activations: start so, and
+            # every conv, cat and upsample between them keeps the format
             sample = sample.contiguous(memory_format=torch.channels_last)
         h = self.conv_in(sample)
         stack = [h]
         for i, blk in enumerate(self.down_blocks):
+            run = not shallow or i == 0
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb, use_kernels)
+                if run:
+                    h = res(h, temb, use_kernels)
                 if blk.attentions:
-                    h = attend(blk.attentions[j], h, i)
-                stack.append(h)
-            if blk.downsamplers:
+                    h = attend(blk.attentions[j], h, i, run)
+                if run:
+                    stack.append(h)
+            if blk.downsamplers and not shallow:
                 h = blk.downsamplers[0](h)
                 stack.append(h)
         n = len(cfg.block_out_channels)
-        h = self.mid_block.resnets[0](h, temb, use_kernels)
-        h = attend(self.mid_block.attentions[0], h, n - 1)
-        h = self.mid_block.resnets[1](h, temb, use_kernels)
+        if not shallow:
+            h = self.mid_block.resnets[0](h, temb, use_kernels)
+        h = attend(self.mid_block.attentions[0], h, n - 1, not shallow)
+        if not shallow:
+            h = self.mid_block.resnets[1](h, temb, use_kernels)
+        deep = None
         for i, blk in enumerate(self.up_blocks):
+            last = i == len(self.up_blocks) - 1
+            if last and return_deep:
+                deep = h             # the feature entering the last up block
+            if last and shallow:
+                h = deep_feature.to(dt)
+            run = not shallow or last
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, stack.pop()], dim=1), temb, use_kernels)
+                if run:
+                    h = res(torch.cat([h, stack.pop()], dim=1), temb,
+                            use_kernels)
                 if blk.attentions:
-                    h = attend(blk.attentions[j], h, n - 1 - i)
-            if blk.upsamplers:
-                h = blk.upsamplers[0](h)
+                    h = attend(blk.attentions[j], h, n - 1 - i, run)
+            if blk.upsamplers and not shallow:
+                h = blk.upsamplers[0](h, use_kernels)
         h = F.silu(group_norm_f32(self.conv_norm_out, h)).to(dt)
-        return self.conv_out(h).float()
+        eps = self.conv_out(h).float()
+        return (eps, deep) if return_deep else eps

@@ -2,7 +2,9 @@
 
 Counterpart of the decoder half of `diffusion_models_moe_tpu/models/vae.py`.
 The mid-block attention is one head at d = 512 over h*w tokens, in plain
-torch ops (the JAX package leaves it to XLA).
+torch ops (the JAX package leaves it to XLA), and is never quantised. Every
+conv of the decoder, `post_quant_conv` included, is made by `make_conv` with
+the config's `conv_winograd` and `quant_int8` modes.
 """
 from __future__ import annotations
 
@@ -13,7 +15,13 @@ import torch.nn.functional as F
 from diffusion_models_moe_tpu_torch.config import VAEConfig
 from diffusion_models_moe_tpu_torch.models.layers import (ResnetBlock2D,
                                                           Upsample2D,
-                                                          group_norm_f32)
+                                                          group_norm_f32,
+                                                          make_conv)
+
+
+def _modes(cfg: VAEConfig) -> dict:
+    return dict(quant=cfg.quant_int8, winograd=cfg.conv_winograd,
+                winograd_tile=cfg.winograd_tile)
 
 
 class VAEAttention(nn.Module):
@@ -37,11 +45,11 @@ class VAEAttention(nn.Module):
 
 
 class VAEMidBlock(nn.Module):
-    def __init__(self, channels: int, norm_num_groups: int):
+    def __init__(self, channels: int, norm_num_groups: int, modes: dict):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(channels, channels, norm_num_groups, 1e-6),
-            ResnetBlock2D(channels, channels, norm_num_groups, 1e-6)])
+            ResnetBlock2D(channels, channels, norm_num_groups, 1e-6, **modes),
+            ResnetBlock2D(channels, channels, norm_num_groups, 1e-6, **modes)])
         self.attentions = nn.ModuleList([VAEAttention(channels, norm_num_groups)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -52,12 +60,13 @@ class VAEMidBlock(nn.Module):
 
 class _UpBlock(nn.Module):
     def __init__(self, cin: int, cout: int, n_res: int, groups: int,
-                 upsample: bool):
+                 upsample: bool, modes: dict):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(cin if j == 0 else cout, cout, groups, 1e-6)
+            ResnetBlock2D(cin if j == 0 else cout, cout, groups, 1e-6, **modes)
             for j in range(n_res)])
-        self.upsamplers = nn.ModuleList([Upsample2D(cout)] if upsample else [])
+        self.upsamplers = nn.ModuleList(
+            [Upsample2D(cout, **modes)] if upsample else [])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for res in self.resnets:
@@ -71,15 +80,15 @@ class _Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         rev = list(reversed(cfg.block_out_channels))
-        g = cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, 1, 1)
-        self.mid_block = VAEMidBlock(rev[0], g)
+        g, modes = cfg.norm_num_groups, _modes(cfg)
+        self.conv_in = make_conv(cfg.latent_channels, rev[0], **modes)
+        self.mid_block = VAEMidBlock(rev[0], g, modes)
         self.up_blocks = nn.ModuleList([
             _UpBlock(rev[max(i - 1, 0)], ch, cfg.layers_per_block + 1, g,
-                     i < len(rev) - 1)
+                     i < len(rev) - 1, modes)
             for i, ch in enumerate(rev)])
         self.conv_norm_out = nn.GroupNorm(g, rev[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(rev[-1], cfg.in_channels, 3, 1, 1)
+        self.conv_out = make_conv(rev[-1], cfg.in_channels, **modes)
 
 
 class VAEDecoder(nn.Module):
@@ -88,8 +97,9 @@ class VAEDecoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
-                                         cfg.latent_channels, 1)
+        self.post_quant_conv = make_conv(cfg.latent_channels,
+                                         cfg.latent_channels, 1, padding=0,
+                                         quant=cfg.quant_int8)
         self.decoder = _Decoder(cfg)
 
     def forward(self, latents: torch.Tensor) -> torch.Tensor:

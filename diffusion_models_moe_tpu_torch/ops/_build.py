@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"geglu_ff_fused": 0, "sd_self_attention": 0,
             "sd_cross_attention": 0, "fused_route_multiply": 0,
             "ln_qkv_fused": 0, "attn_out_residual_fused": 0,
-            "conv3x3_chain": 0}
+            "conv3x3_chain": 0, "winograd3x3_fused": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +53,7 @@ _SIGNATURES = {
     "dmoe_ln_qkv": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P],
     "dmoe_attn_out_residual": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "dmoe_conv3x3_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dmoe_winograd3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

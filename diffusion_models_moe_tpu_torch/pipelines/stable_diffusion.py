@@ -11,6 +11,13 @@ With a `TapSpec`, `denoise` returns the statistics of every step stacked to
 device until the loop ends. `generate` returns `(images, taps)`, the CLIP
 MLP taps added over the prompt and the negative-prompt encodes.
 
+The Winograd and int8 serving modes are fields of the UNet's and the VAE's
+configs and change nothing here. With `config.deep_cache_interval > 0`
+`denoise` runs the full UNet on every interval-th entry of the scheduler's
+timestep table, keeping the feature that enters the last up block, and the
+shallow forward on that feature in between: a host branch where the JAX
+pipeline has a `lax.cond`.
+
 `denoise(use_kernels=False)` runs the plain versions of the hand-written
 kernels on CUDA tensors; it exists only for kernel-vs-plain comparisons.
 """
@@ -113,6 +120,13 @@ class StableDiffusionPipeline:
         timesteps, coeffs = self.scheduler.set_timesteps(num_steps)
         do_cfg = guidance_scale > 1.0
         collect = tap is not None and tap.any()
+        dc = self.config.deep_cache_interval
+        if dc > 0 and tap is not None:
+            raise ValueError(
+                "deep_cache_interval > 0 does not support taps: shallow "
+                "steps skip the deep layers, so the taps of a step would "
+                "lack their statistics")
+        deep = None
         state = self.scheduler.init_state()
         lat = latents.to(self.device, torch.float32)
         context = context.to(self.device)
@@ -120,9 +134,18 @@ class StableDiffusionPipeline:
         for i, t in enumerate(timesteps.tolist()):
             lat_in = torch.cat([lat, lat]) if do_cfg else lat
             step_taps: dict = {}
-            eps = self.unet(lat_in, t, context, ivs=ivs, step_idx=i,
-                            tap=tap if collect else None,
-                            taps_out=step_taps, use_kernels=use_kernels)
+            if dc > 0 and i % dc == 0:
+                # entry 0 is always full, so `deep` is set before its first use
+                eps, deep = self.unet(lat_in, t, context, ivs=ivs, step_idx=i,
+                                      use_kernels=use_kernels,
+                                      return_deep=True)
+            elif dc > 0:
+                eps = self.unet(lat_in, t, context, ivs=ivs, step_idx=i,
+                                use_kernels=use_kernels, deep_feature=deep)
+            else:
+                eps = self.unet(lat_in, t, context, ivs=ivs, step_idx=i,
+                                tap=tap if collect else None,
+                                taps_out=step_taps, use_kernels=use_kernels)
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)

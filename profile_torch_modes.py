@@ -1,10 +1,11 @@
-"""Where a serving generate's device time goes, with the exact-tier serving
-modes off and on.
+"""Where a serving generate's device time goes, with the serving modes off,
+with the exact-tier modes on, and with the fused Winograd convs.
 
 Runs the moefied SD1.5 text-to-image path at full width in bf16 (seeded
 random weights, MoE top-k 0.3 over 20-neuron experts on all 16 FFs, CFG 7.5)
-for 10 PNDM steps under `torch.profiler`, once with `attn_absorb` and
-`conv_chain` off and once with both on, and prints for each the unprofiled
+for 10 PNDM steps under `torch.profiler`, once with every mode off, once with
+`attn_absorb` and `conv_chain` on and once with `conv_winograd="fused"` (the
+UNet's and the VAE decoder's), and prints for each the unprofiled
 wall time, the summed device time of all kernels, and the device time by
 kernel group. Needs one CUDA card:
 
@@ -24,6 +25,7 @@ import torch
 # kernel-name fragments -> group, first match wins
 GROUPS = (
     ("conv chain kernel (kernel 7)", ("conv_chain_kernel",)),
+    ("fused Winograd kernel (kernel 8)", ("winograd_kernel",)),
     ("LN + qkv kernel (kernel 5)", ("ln_qkv_kernel",)),
     ("out projection + residual kernel (kernel 6)", ("attn_out_kernel",)),
     ("FF GEMM kernels (ff_up, ff_down)", ("ff_up_kernel", "ff_down_kernel")),
@@ -116,7 +118,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     results = [profile({}),
-               profile(dict(attn_absorb="1", conv_chain=True))]
+               profile(dict(attn_absorb="1", conv_chain=True)),
+               profile(dict(conv_winograd="fused"))]
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "results": results}))
 

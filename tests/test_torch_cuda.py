@@ -19,6 +19,7 @@ from diffusion_models_moe_tpu_torch.ops import attn_absorb_fused as absorb
 from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as chain
 from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
 from diffusion_models_moe_tpu_torch.ops import routing_kernel, sd_flash
+from diffusion_models_moe_tpu_torch.ops import winograd_fused as wino
 from diffusion_models_moe_tpu_torch.taps import (TapSpec, patterns_from_labels,
                                                  routing_mask)
 
@@ -335,3 +336,76 @@ def test_tapped_routed_unet_call_runs_the_routing_kernel(gen):
     assert sorted(taps["max_gate"]) == list(range(16))
     for l, d in enumerate(cfg.ff_dims()):
         assert taps["max_gate"][l].shape == (4 * d,)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("shape", [
+    (3, 18, 22, 24, 136),    # H != W, Cin no multiple of the depth step,
+                             # Cout no multiple of the column tile, batch 3
+    (1, 16, 16, 16, 128),    # the least geometry fused_ok admits
+    (2, 20, 16, 72, 264),    # three depth steps, three column blocks
+])
+def test_winograd_kernel_matches_plain(gen, shape, bias):
+    """Kernel 8 at ragged shapes against its plain version and, at twice the
+    limit (the plain version shares the kernel's rounding of V and U, cuDNN
+    does not), against the direct convolution."""
+    b, h, w, cin, cout = shape
+    assert wino.fused_ok(h, w, cin, cout)
+    x = _rn(gen, b, cin, h, w).contiguous(memory_format=torch.channels_last)
+    wt = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+    bs = _rn(gen, cout, scale=0.1) if bias else None
+    u = wino.fused_filter(wt)
+    _build.reset_launch_counts()
+    y = wino.winograd3x3_fused(x, u, bs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["winograd3x3_fused"] == 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    plain = wino.winograd3x3_fused(x, u, bs, use_kernels=False)
+    assert _build.LAUNCHES["winograd3x3_fused"] == 1
+    assert _rel(y, plain) < REL_TOL
+    direct = torch.nn.functional.conv2d(x, wt, bs, padding=1)
+    assert _rel(y, direct) < 2 * REL_TOL
+
+
+def test_winograd_kernel_refuses_nchw_memory(gen):
+    x = _rn(gen, 1, 16, 16, 16)
+    u = wino.fused_filter(_rn(gen, 128, 16, 3, 3))
+    with pytest.raises(ValueError, match="channels_last"):
+        wino.winograd3x3_fused(x, u)
+    with pytest.raises(ValueError, match="dtype"):
+        wino.winograd3x3_fused(
+            x.float().contiguous(memory_format=torch.channels_last), u.float())
+
+
+def test_unet_call_with_fused_winograd_counts_its_launches(gen):
+    """One UNet call at SD1.5 widths on 64 x 64 latents with
+    `conv_winograd="fused"`: the 30 resblock convs above 8 x 8 and the 3
+    upsampler convs take kernel 8, no conv the chain kernel, and the result
+    agrees with the modes-off UNet on the same weights."""
+    from diffusion_models_moe_tpu_torch import sd15_config
+    from diffusion_models_moe_tpu_torch.models.layers import cast_model
+    from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
+    with torch.device("cuda"):
+        on = cast_model(UNet2DCondition(sd15_config(
+            torch.bfloat16, conv_winograd="fused", conv_chain=True).unet),
+            torch.bfloat16).eval()
+        off = cast_model(UNet2DCondition(sd15_config(torch.bfloat16).unet),
+                         torch.bfloat16).eval()
+    with torch.no_grad():
+        for p in on.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                    * (p[0].numel() ** -0.5 if p.dim() > 1 else 0.02)
+                    + (1.0 if p.dim() == 1 else 0.0))
+    off.load_state_dict(on.state_dict(), strict=True)
+    lat = torch.randn((2, 4, 64, 64), generator=gen, device="cuda")
+    ctx = torch.randn((2, 77, 768), generator=gen, device="cuda")
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        eps = on(lat, 500, ctx)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["winograd3x3_fused"] == 33
+    assert _build.LAUNCHES["conv3x3_chain"] == 0
+    with torch.no_grad():
+        ref = off(lat, 500, ctx)
+    assert torch.isfinite(eps).all()
+    assert ((eps - ref).norm() / ref.norm()).item() < 0.05

@@ -56,9 +56,33 @@ def _random_state(module: torch.nn.Module, rng: np.random.RandomState) -> dict:
     return out
 
 
-def pipelines(jax_cfg, seed: int = 0):
-    """(JAX params as numpy, the port's tiny f32 pipeline), same weights."""
-    port = StableDiffusionPipeline(tiny_config(), device="cpu")
+def nchw(a) -> torch.Tensor:
+    """A JAX-side NHWC array as the port's NCHW tensor."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(a), (0, 3, 1, 2))))
+
+
+def nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+def oihw(k) -> torch.Tensor:
+    """A JAX-side HWIO kernel as the port's OIHW tensor."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(k), (3, 2, 0, 1))))
+
+
+def rel_l2(got, ref) -> float:
+    """||got - ref|| / ||ref||."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / (np.linalg.norm(ref) + 1e-12))
+
+
+def pipelines(jax_cfg, seed: int = 0, port_cfg=None):
+    """(JAX params as numpy, the port's tiny f32 pipeline), same weights.
+    `port_cfg`: the port's config where it differs from `tiny_config()` (its
+    serving modes; the parameters are the same)."""
+    port = StableDiffusionPipeline(port_cfg or tiny_config(), device="cpu")
     rng = np.random.RandomState(seed)
     sds = {k: _random_state(m, rng) for k, m in port.modules().items()}
     params = {
