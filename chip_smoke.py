@@ -413,6 +413,7 @@ def check_chain(gen: torch.Generator) -> list:
     (group_norm in f32, silu, cast, conv2d + bias, + time embedding,
     + residual) against the chain's own two steps (the GroupNorm fold in
     torch, then the kernel)."""
+    from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as cc
     dev, bf16, cl = DEV, torch.bfloat16, torch.channels_last
     b, groups, eps = 2 * BATCH, 32, 1e-5
@@ -432,6 +433,7 @@ def check_chain(gen: torch.Generator) -> list:
         beta = rn(cin, scale=0.1, dtype=torch.float32)
         bt = bias + temb
         scale, shift = cc.gn_scale_shift(x, gamma, beta, groups, eps)
+        plan = cc.chain_plan(b, side, side, cin, cout, _build.sm_count(x.device))
 
         def chain(uk, r=res):
             return cc.conv3x3_chain(x, w, bt, scale, shift, residual=r,
@@ -476,8 +478,11 @@ def check_chain(gen: torch.Generator) -> list:
               f"{plain_ms:.4f} ms, cuDNN conv alone {library_ms:.4f} ms, bound "
               f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; fold + kernel "
               f"{folded_ms:.4f} ms against the unfused sequence "
-              f"{unfused_ms:.4f} ms (rel {rel_seq:.3e})", flush=True)
+              f"{unfused_ms:.4f} ms (rel {rel_seq:.3e}); {plan.blocks(b)} "
+              f"blocks of 8x{plan.tile_w} pixels, depth split {plan.split}",
+              flush=True)
         shapes.append(dict(shape=f"B={b},H=W={side},Cin={cin},Cout={cout}",
+                           split=plan.split, blocks=plan.blocks(b),
                            max_abs_err=abs_e, rel_err=rel, ms=ms,
                            plain_ms=plain_ms, library_ms=library_ms, **bd,
                            fold_and_kernel_ms=folded_ms, unfused_ms=unfused_ms))
@@ -501,6 +506,7 @@ def check_winograd(gen: torch.Generator) -> list:
     with the bias. Beside it, as a yardstick only, cuDNN's convolution on
     the same tensors (it rounds neither V nor U, so it is held to twice the
     limit)."""
+    from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import winograd_fused as wf
     dev, bf16, cl = DEV, torch.bfloat16, torch.channels_last
     shapes = []
@@ -517,6 +523,8 @@ def check_winograd(gen: torch.Generator) -> list:
             bias = (torch.randn((cout,), generator=gen, device=dev) * 0.1
                     ).to(bf16)
             u = wf.fused_filter(w)
+            plan = wf.fused_plan(b, side, side, cin, cout,
+                                 _build.sm_count(x.device))
 
             def conv(uk):
                 return wf.winograd3x3_fused(x, u, bias, use_kernels=uk)
@@ -547,10 +555,13 @@ def check_winograd(gen: torch.Generator) -> list:
                   f"{ATTN_REL_TOL:g}), against cuDNN rel {rel_lib:.3e}; kernel "
                   f"{ms:.4f} ms, plain (the formulation of ops/winograd.py) "
                   f"{plain_ms:.4f} ms, cuDNN conv {library_ms:.4f} ms, bound "
-                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}", flush=True)
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; "
+                  f"{plan.blocks(b)} blocks, depth split {plan.split}",
+                  flush=True)
             shapes.append(dict(
                 shape=f"{what}: B={b},H=W={side},Cin={cin},Cout={cout}",
-                convs_per_call=n, max_abs_err=abs_e, rel_err=rel,
+                convs_per_call=n, split=plan.split, blocks=plan.blocks(b),
+                max_abs_err=abs_e, rel_err=rel,
                 rel_err_vs_library=rel_lib, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, **bd))
     n_unet = len(WINO_UNET)

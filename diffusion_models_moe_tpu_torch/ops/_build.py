@@ -52,8 +52,10 @@ _SIGNATURES = {
                                 _P],
     "dmoe_ln_qkv": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P],
     "dmoe_attn_out_residual": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "dmoe_conv3x3_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "dmoe_winograd3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dmoe_conv3x3_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _P],
+    "dmoe_winograd3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _P, _P],
 }
 
 
@@ -139,6 +141,13 @@ def load_library() -> KernelLibrary:
     lib.dmoe_error_string.argtypes = [ctypes.c_int]
     lib.dmoe_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib, so_path, build_seconds, log)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA device (the wrappers plan their
+    grids against it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -3,8 +3,11 @@ SAME convolution, bias (+ time embedding) and residual epilogue.
 
 Counterpart of `diffusion_models_moe_tpu/ops/conv_chain_fused.py`. On CUDA
 tensors `conv3x3_chain` launches the hand-written implicit-GEMM kernel of
-`csrc/conv_chain.cu`; on CPU tensors it runs the plain PyTorch version beside
-it, which rounds where the kernel rounds. As in the JAX package the
+`csrc/conv_chain.cu` (wgmma products, the weights by TMA, a producer/consumer
+pipeline on mbarriers); on CPU tensors it runs the plain PyTorch version
+beside it, which rounds where the kernel rounds. How a launch is cut into
+blocks is decided here, in `chain_plan`, a pure function of the shape and
+the card's SM count that the CPU tests reach. As in the JAX package the
 GroupNorm statistics are a plain reduction outside the kernel
 (`gn_scale_shift`), folded with the affine into a per-(sample, channel)
 scale and shift.
@@ -22,6 +25,8 @@ Inference only: no autograd.Function, no backward.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -30,6 +35,62 @@ import torch.nn.functional as F
 from diffusion_models_moe_tpu_torch.ops import _build
 
 CL = torch.channels_last
+# the kernel's tiling (csrc/conv_chain.cu: C_TH, C_BN, C_BK)
+TILE_H = 8          # output rows of a block's pixel rectangle
+COUT_TILE = 160     # output channels a block (divides 320, 640, 1280)
+CIN_CHUNK = 64      # input channels a depth chunk; all 9 taps inside a chunk
+# The depth is split over several blocks only where the unsplit grid has at
+# most this many blocks an SM: a split pays an f32 round trip of the output
+# through a scratch, which a grid near one wave does not earn back.
+SPLIT_BELOW_BLOCKS_PER_SM = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """How one launch of the conv-chain kernel is cut into blocks. A block
+    takes a rectangle of `TILE_H` x `tile_w` output pixels of one image
+    (`tiles_y` x `tiles_x` rectangles cover an image, masked past its edge),
+    `COUT_TILE` output channels (`cout_tiles` of them), and `chunks_per_split`
+    consecutive Cin chunks of `CIN_CHUNK` channels, with all 9 taps of each:
+    split `s` takes chunks [s * chunks_per_split, (s + 1) * chunks_per_split)
+    of the `chunks`. With `split` > 1 the blocks write f32 partial sums and a
+    second kernel adds them in the order s = 0, 1, ..."""
+    tile_w: int
+    tiles_y: int
+    tiles_x: int
+    cout_tiles: int
+    chunks: int
+    split: int
+    chunks_per_split: int
+
+    def blocks(self, batch: int) -> int:
+        return batch * self.tiles_y * self.tiles_x * self.cout_tiles * self.split
+
+
+def split_depth(blocks: int, chunks: int, sms: int, blocks_per_sm: int):
+    """(split, chunks_per_split) for a grid of `blocks` blocks over `chunks`
+    depth chunks: 1 split unless the grid is at most
+    SPLIT_BELOW_BLOCKS_PER_SM blocks an SM; then as many splits as keep the
+    grid within `blocks_per_sm` resident blocks an SM, every split non-empty."""
+    if blocks > SPLIT_BELOW_BLOCKS_PER_SM * sms:
+        return 1, chunks
+    want = min(chunks, max(1, blocks_per_sm * sms // blocks))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def chain_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int) -> ChainPlan:
+    """The plan of `conv3x3_chain` at this shape on a card with `sms` SMs: a
+    pure function of its arguments. Rectangles are 8 x 16 pixels (two
+    consumer warpgroups, one block an SM) from 16 columns up and 8 x 8 below
+    (one warpgroup, two blocks an SM)."""
+    tile_w = 16 if w >= 16 else 8
+    tiles_y, tiles_x = -(-h // TILE_H), -(-w // tile_w)
+    cout_tiles, chunks = -(-cout // COUT_TILE), -(-cin // CIN_CHUNK)
+    split, per = split_depth(b * tiles_y * tiles_x * cout_tiles, chunks, sms,
+                             blocks_per_sm=1 if tile_w == 16 else 2)
+    return ChainPlan(tile_w, tiles_y, tiles_x, cout_tiles, chunks, split, per)
 
 
 def chain_ok(h: int, w: int, cin: int, cout: int) -> bool:
@@ -49,10 +110,12 @@ def gn_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     xg = x.float().view(b, groups, c // groups, *x.shape[2:])
     var, mean = torch.var_mean(xg, dim=(2, 3, 4), correction=0)     # (B, G)
     rstd = torch.rsqrt(var + eps)
-    reps = c // groups
-    scale = rstd.repeat_interleave(reps, dim=1) * gamma.float()
-    shift = beta.float() - mean.repeat_interleave(reps, dim=1) * scale
-    return scale, shift
+    # per channel by broadcasting over (B, G, C/G): the same products as
+    # repeating rstd and mean per channel, in fewer launches
+    per_group = (groups, c // groups)
+    scale = rstd[:, :, None] * gamma.float().view(per_group)
+    shift = beta.float().view(per_group) - mean[:, :, None] * scale
+    return scale.view(b, c), shift.view(b, c)
 
 
 def conv3x3_chain_reference(x, w, bt, scale=None, shift=None, residual=None,
@@ -119,11 +182,19 @@ def conv3x3_chain(x: torch.Tensor, w: torch.Tensor, bt: torch.Tensor,
             if tuple(t.shape) != (b, cin):
                 raise ValueError(f"{name} {tuple(t.shape)}: need ({b}, {cin})")
     y = torch.empty((b, cout, h, wd), device=dev, dtype=bf16, memory_format=CL)
+    plan = chain_plan(b, h, wd, cin, cout, _build.sm_count(dev))
+    partial = None
+    if plan.split > 1:
+        partial = torch.empty((plan.split, b, h, wd, cout), device=dev,
+                              dtype=torch.float32)
     _build.load_library().call(
         "dmoe_conv3x3_chain", x.data_ptr(),
         scale.data_ptr() if prologue else None,
         shift.data_ptr() if prologue else None, w.data_ptr(), bt.data_ptr(),
         None if residual is None else residual.data_ptr(), b, h, wd, cin,
-        cout, y.data_ptr(), _build.stream_ptr(dev))
+        cout, plan.tile_w, plan.tiles_x, plan.tiles_y, plan.split,
+        plan.chunks_per_split, y.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        _build.stream_ptr(dev))
     _build.LAUNCHES["conv3x3_chain"] += 1
     return y

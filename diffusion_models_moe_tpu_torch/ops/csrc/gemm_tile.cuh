@@ -1,5 +1,6 @@
-// The block-level GEMM tile shared by the attention-absorb, conv-chain and
-// Winograd kernels: a BM x 128 output tile per block of 8 warps, depth T_BK per
+// The block-level GEMM tile of the attention-absorb kernels (the two
+// convolution kernels are built on wgmma_tile.cuh instead): a BM x 128
+// output tile per block of 8 warps, depth T_BK per
 // shared-memory tile, bf16 mma.sync m16n8k16 with f32 accumulation on
 // fragments that ldmatrix reads from shared memory.
 //
@@ -12,8 +13,7 @@
 //
 // BM is 128 where the problem fills the card with such tiles and 64 where it
 // does not (the launchers choose by the tile count against the card's SM
-// count, see big_tiles_fill). The Winograd kernel, which brings its own depth
-// loop and uses only mma() and stage(), takes 64 or 32.
+// count, see big_tiles_fill).
 #pragma once
 
 #include "common.cuh"
@@ -51,11 +51,11 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 
 template <int BM>
 struct Tile {
-  static_assert(BM == 32 || BM == 64 || BM == 128, "BM is 32, 64 or 128");
-  static constexpr int WARPS_M = BM / 32;           // 1, 2 or 4 warps down
-  static constexpr int WARPS_N = 8 / WARPS_M;       // 8, 4 or 2 warps across
-  static constexpr int WN = T_BN / WARPS_N;         // 16 to 64 columns a warp
-  static constexpr int NI = WN / 8;                 // 2, 4 or 8 n8 tiles across
+  static_assert(BM == 64 || BM == 128, "BM is 64 or 128");
+  static constexpr int WARPS_M = BM / 32;           // 2 or 4 warps down
+  static constexpr int WARPS_N = 8 / WARPS_M;       // 4 or 2 warps across
+  static constexpr int WN = T_BN / WARPS_N;         // 32 or 64 columns a warp
+  static constexpr int NI = WN / 8;                 // 4 or 8 n8 tiles across
   static constexpr int A_PER = BM / T_ROWS_PER_PASS;   // A chunks a thread
   static constexpr int BUF_ELEMS = (BM + T_BN) * T_LDS;
   static constexpr size_t TILE_BYTES = (size_t)2 * BUF_ELEMS * 2;
@@ -186,11 +186,10 @@ __device__ __forceinline__ void commit_weight_tile(const uint4 (&rb)[T_B_PER],
         rb[it];
 }
 
-// True when BM = 128 tiles give every SM at least `per_sm` blocks. Measured
-// on an H100: the conv chain's 160 tiles at 32x32 (Cout = 640) run 17% faster
-// as 320 BM = 64 tiles, so it asks for 2 a SM; the LN + qkv kernel repeats
-// its row statistics in every column block and is faster on the larger tile
-// from 1 a SM. The SM count is the current device's, asked once.
+// True when BM = 128 tiles give every SM at least `per_sm` blocks: the LN +
+// qkv kernel repeats its row statistics in every column block and is faster
+// on the larger tile from 1 a SM. The SM count is the current device's,
+// asked once.
 inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {

@@ -1,0 +1,347 @@
+// Hopper building blocks shared by the two convolution kernels (conv_chain.cu
+// and winograd.cu): mbarriers, TMA tensor maps and loads, the warpgroup matrix
+// product (wgmma) with its fences, shared-memory matrix descriptors, register
+// rebalancing between warpgroups, and the fixed-order reduction that finishes
+// a convolution whose depth was split over several blocks.
+//
+// Both kernels are warp-specialised: a producer warpgroup fills rings of
+// shared-memory tiles (one thread issues TMA loads that complete on an
+// mbarrier; the other producer warps prepare the activation operand), and
+// one or two consumer warpgroups wait on the "full" barriers, issue
+// wgmma.mma_async on the tiles and arrive on the "empty" barriers. The
+// k-th use of a ring slot waits its full barrier with parity k & 1 and its
+// empty barrier with parity (k & 1) ^ 1, so the first fill passes at once.
+//
+// Tensor maps are encoded on the host in the launchers, through the entry
+// point of cuTensorMapEncodeTiled that the CUDA runtime hands out (no link
+// against libcuda), and passed by value as __grid_constant__ kernel
+// parameters.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace wg {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// makes the initialised barriers visible to the TMA unit (async proxy)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// one arrival that also announces `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// spins until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy (wgmma reading through a descriptor), before the barrier that
+// hands the tile over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A slot of a ring of `n` stages and the parity of its current use.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance(int n) {
+    if (++stage == n) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// ------------------------------------------------------------------ TMA
+// one box of a 3-D / 4-D tensor map into shared memory, completing on `bar`;
+// coordinates innermost first, signed, zeros outside the tensor
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Host side: a bf16 tensor map of `rank` dimensions (innermost first; its
+// elements contiguous), `strides` in bytes for dimensions 1.., each a
+// multiple of 16. Returns false if the encoding is refused.
+inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                            const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+      const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+      CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+      CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return false;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  cuuint64_t gdims[5], gstrides[4];
+  cuuint32_t gbox[5], estrides[5];
+  for (int i = 0; i < rank; ++i) {
+    gdims[i] = dims[i];
+    gbox[i] = box[i];
+    estrides[i] = 1;
+    if (i > 0) gstrides[i - 1] = strides[i - 1];
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), gdims, gstrides, gbox, estrides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------- wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// at most N of the newest committed groups still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// Descriptor of a K-major operand tile in shared memory: rows of ROW_BYTES
+// (128 or 64: 64 or 32 bf16 of depth) in the matching TMA swizzle, 8-row
+// groups ROW_BYTES * 8 apart; the tile starts on a multiple of that. A depth
+// step of 16 bf16 inside the row advances the descriptor by 32 bytes (+2).
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t kmajor_desc(const void* tile) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "128B or 64B swizzle");
+  uint64_t d = (smem_u32(tile) & 0x3FFFFu) >> 4;
+  d |= 1ull << 16;                                   // LBO: unused when swizzled
+  d |= static_cast<uint64_t>((ROW_BYTES * 8) >> 4) << 32;   // SBO
+  d |= (ROW_BYTES == 128 ? 1ull : 2ull) << 62;       // swizzle mode
+  return d;
+}
+
+// Four 8 x 8 b16 matrices from shared memory (addresses in the shared
+// window): lane l gives the address of row l % 8 of matrix l / 8. With lanes
+// 0-15 on rows 0-15 at depth 0 and lanes 16-31 on the same rows at depth 8,
+// the four registers are a warp's 16 x 16 A fragment of wgmma (and mma.sync).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (64 x 160 f32, this warpgroup's) += a (64 x 16 bf16 in registers: warp w
+// holds rows 16w..16w+15) * b^T (160 x 16 bf16 through its descriptor).
+// Thread (warp w, lane 4g + t) holds d[4j + {0,1}] = row 16w + g, columns
+// 8j + 2t + {0,1} and d[4j + {2,3}] = row 16w + g + 8, the same columns.
+__device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+// d (64 x 64 f32) = [d +] a (64 x 16 bf16) * b^T (64 x 16 bf16), both through
+// descriptors; `accumulate` false starts d afresh (no zeroing pass). The
+// thread layout of d is that of the 160-wide product.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t a_desc,
+                                                   uint64_t b_desc,
+                                                   bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate ? 1 : 0));
+}
+
+// The dynamic shared memory of a block, from its first multiple of 1024
+// bytes (swizzled tiles start on multiples of their 8-row group); launchers
+// ask for 1024 bytes more than they lay out.
+__device__ __forceinline__ unsigned char* smem_base_1024(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// ------------------------------------------------- finishing a split depth
+// y = round(sum over s of partial[s]) (+ add) (+ resid): the f32 partial sums
+// of `nsplit` blocks, each (m, cout) with m = batch * hw pixels in
+// channels-last order, added in the order s = 0, 1, ... whatever order the
+// blocks ran in, then the epilogue in the kernels' rounding order: the sum
+// to bf16, + add in bf16 (row pixel / hw of `add`, or its only row when
+// add_stride is 0), + resid in bf16. One thread takes 8 channels.
+static __global__ void __launch_bounds__(256) split_finish_kernel(
+    const float* __restrict__ partial, int nsplit, int m, int hw, int cout,
+    const bf16* __restrict__ add, int add_stride,
+    const bf16* __restrict__ resid, bf16* __restrict__ y) {
+  const int groups = cout >> 3;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)m * groups) return;
+  const int pix = static_cast<int>(i / groups);
+  const int co = static_cast<int>(i - (long long)pix * groups) << 3;
+  const size_t off = (size_t)pix * cout + co;
+  const size_t plane = (size_t)m * cout;
+  float acc[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) acc[q] = 0.f;
+  for (int s = 0; s < nsplit; ++s) {
+    const float4 lo = *reinterpret_cast<const float4*>(partial + s * plane + off);
+    const float4 hi =
+        *reinterpret_cast<const float4*>(partial + s * plane + off + 4);
+    acc[0] += lo.x; acc[1] += lo.y; acc[2] += lo.z; acc[3] += lo.w;
+    acc[4] += hi.x; acc[5] += hi.y; acc[6] += hi.z; acc[7] += hi.w;
+  }
+  alignas(16) bf16 a8[8], r8[8], out[8];
+  if (add != nullptr)
+    *reinterpret_cast<uint4*>(a8) = *reinterpret_cast<const uint4*>(
+        add + (size_t)(pix / hw) * add_stride + co);
+  if (resid != nullptr)
+    *reinterpret_cast<uint4*>(r8) = *reinterpret_cast<const uint4*>(resid + off);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    bf16 v = f2bf(acc[q]);
+    if (add != nullptr) v = f2bf(bf2f(v) + bf2f(a8[q]));
+    if (resid != nullptr) v = f2bf(bf2f(v) + bf2f(r8[q]));
+    out[q] = v;
+  }
+  *reinterpret_cast<uint4*>(y + off) = *reinterpret_cast<const uint4*>(out);
+}
+
+inline void launch_split_finish(const float* partial, int nsplit, int m, int hw,
+                                int cout, const bf16* add, int add_stride,
+                                const bf16* resid, bf16* y,
+                                cudaStream_t stream) {
+  const long long items = (long long)m * (cout / 8);
+  split_finish_kernel<<<static_cast<unsigned>((items + 255) / 256), 256, 0,
+                        stream>>>(partial, nsplit, m, hw, cout, add, add_stride,
+                                  resid, y);
+}
+
+// The epilogue's value for two neighbouring channels from registers, in the
+// kernels' rounding order: v to bf16, + add in bf16, + resid in bf16.
+__device__ __forceinline__ __nv_bfloat162 finish2(float v0, float v1,
+                                                  const bf16* add,
+                                                  const bf16* resid) {
+  bf16 a = f2bf(v0), b = f2bf(v1);
+  if (add != nullptr) {
+    const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(add);
+    a = f2bf(bf2f(a) + bf2f(t.x));
+    b = f2bf(bf2f(b) + bf2f(t.y));
+  }
+  if (resid != nullptr) {
+    const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(resid);
+    a = f2bf(bf2f(a) + bf2f(t.x));
+    b = f2bf(bf2f(b) + bf2f(t.y));
+  }
+  __nv_bfloat162 out;
+  out.x = a;
+  out.y = b;
+  return out;
+}
+
+}  // namespace wg

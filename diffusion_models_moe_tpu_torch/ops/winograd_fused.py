@@ -4,8 +4,12 @@ of y.
 
 Counterpart of `diffusion_models_moe_tpu/ops/winograd_fused.py`. On CUDA
 tensors `winograd3x3_fused` launches the hand-written kernel of
-`csrc/winograd.cu`; on CPU tensors it runs the plain PyTorch version beside
-it, `winograd3x3_reference`, which repeats the kernel's arithmetic: the
+`csrc/winograd.cu` (a producer warpgroup that transforms the input while two
+consumer warpgroups run wgmma products; x and the filter by TMA); how a
+launch is cut into blocks is decided here, in `fused_plan`, a pure function
+of the shape and the card's SM count that the CPU tests reach. On CPU
+tensors it runs the plain PyTorch version beside it,
+`winograd3x3_reference`, which repeats the kernel's arithmetic: the
 transforms in f32, V and U rounded to the model dtype, f32 accumulation, the
 result rounded to the model dtype, then the bias added in the model dtype.
 
@@ -24,15 +28,56 @@ Inference only: no autograd.Function, no backward.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from diffusion_models_moe_tpu_torch.ops import _build
+from diffusion_models_moe_tpu_torch.ops.conv_chain_fused import split_depth
 from diffusion_models_moe_tpu_torch.ops.winograd import (transform_filter,
                                                          winograd_conv3x3)
 
 CL = torch.channels_last
+# the kernel's tiling (csrc/winograd.cu: 2 * W_SIDE, W_BN, W_BK)
+SQUARE = 16         # output pixels along a side of a block: 8 x 8 tiles of 2 x 2
+COUT_TILE = 128     # output channels a block
+CIN_CHUNK = 32      # input channels a depth chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """How one launch of the fused Winograd kernel is cut into blocks. A
+    block takes a square of `SQUARE` x `SQUARE` output pixels of one image
+    (`blocks_y` x `blocks_x` squares cover an image, masked past its edge),
+    `COUT_TILE` output channels (`cout_tiles` of them) and
+    `chunks_per_split` consecutive Cin chunks of `CIN_CHUNK` channels: split
+    `s` takes chunks [s * chunks_per_split, (s + 1) * chunks_per_split) of the
+    `chunks`. With `split` > 1 the blocks write f32 partial planes and a
+    second kernel adds them in the order s = 0, 1, ..."""
+    blocks_y: int
+    blocks_x: int
+    cout_tiles: int
+    chunks: int
+    split: int
+    chunks_per_split: int
+
+    def blocks(self, batch: int) -> int:
+        return (batch * self.blocks_y * self.blocks_x * self.cout_tiles
+                * self.split)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int) -> FusedPlan:
+    """The plan of `winograd3x3_fused` at this shape on a card with `sms`
+    SMs: a pure function of its arguments (one block an SM; the split rule is
+    the conv chain's, `split_depth`)."""
+    blocks_y, blocks_x = -(-h // SQUARE), -(-w // SQUARE)
+    cout_tiles, chunks = -(-cout // COUT_TILE), -(-cin // CIN_CHUNK)
+    split, per = split_depth(b * blocks_y * blocks_x * cout_tiles, chunks, sms,
+                             blocks_per_sm=1)
+    return FusedPlan(blocks_y, blocks_x, cout_tiles, chunks, split, per)
 
 
 def fused_ok(h: int, w: int, cin: int, cout: int) -> bool:
@@ -89,9 +134,16 @@ def winograd3x3_fused(x: torch.Tensor, u: torch.Tensor,
     if bias is not None:
         _build.check_cuda_tensor("bias", bias, bf16, dev)
     y = torch.empty((b, cout, h, wd), device=dev, dtype=bf16, memory_format=CL)
+    plan = fused_plan(b, h, wd, cin, cout, _build.sm_count(dev))
+    partial = None
+    if plan.split > 1:
+        partial = torch.empty((plan.split, b, h, wd, cout), device=dev,
+                              dtype=torch.float32)
     _build.load_library().call(
         "dmoe_winograd3x3", x.data_ptr(), u.data_ptr(),
         None if bias is None else bias.data_ptr(), b, h, wd, cin, cout,
-        y.data_ptr(), _build.stream_ptr(dev))
+        plan.blocks_x, plan.blocks_y, plan.split, plan.chunks_per_split,
+        y.data_ptr(), None if partial is None else partial.data_ptr(),
+        _build.stream_ptr(dev))
     _build.LAUNCHES["winograd3x3_fused"] += 1
     return y

@@ -26,6 +26,8 @@ import torch
 GROUPS = (
     ("conv chain kernel (kernel 7)", ("conv_chain_kernel",)),
     ("fused Winograd kernel (kernel 8)", ("winograd_kernel",)),
+    ("fixed-order finish of a split depth (kernels 7, 8)",
+     ("split_finish_kernel",)),
     ("LN + qkv kernel (kernel 5)", ("ln_qkv_kernel",)),
     ("out projection + residual kernel (kernel 6)", ("attn_out_kernel",)),
     ("FF GEMM kernels (ff_up, ff_down)", ("ff_up_kernel", "ff_down_kernel")),

@@ -208,13 +208,24 @@ def test_absorbed_self_attention_kernels_match_plain(gen, mode):
 
 @pytest.mark.parametrize("prologue,res", [(True, True), (True, False),
                                           (False, True), (False, False)])
-@pytest.mark.parametrize("shape", [(3, 13, 9, 40, 72), (1, 7, 7, 8, 8),
-                                   (2, 20, 12, 320, 136)])
-def test_conv_chain_kernel_matches_plain(gen, shape, prologue, res):
-    """Kernel 7 at ragged shapes: B*H*W no multiple of the row tiles, odd H
-    and W (every pixel of a 7x7 image is on or next to the border), Cin no
-    multiple of the 32-deep tile, Cout no multiple of the 128-column tile."""
+@pytest.mark.parametrize("shape,split", [
+    ((3, 13, 9, 40, 72), False),      # two 8x8 tiles each way, across the edge
+    ((1, 7, 7, 8, 8), False),         # under a tile, a chunk and a column tile
+    ((2, 20, 12, 320, 136), True),    # 12 tiles x 1 column tile: 5 chunks split
+    ((2, 8, 24, 96, 160), True),      # 8x16 tiles across the edge, 2 chunks
+    ((1, 16, 16, 72, 168), True),     # a ragged second chunk and column tile
+    ((1, 8, 8, 256, 160), True),      # one block without the split: 4 splits
+    ((4, 32, 32, 128, 640), False),   # 128 blocks: a split is forbidden
+])
+def test_conv_chain_kernel_matches_plain(gen, shape, split, prologue, res):
+    """Kernel 7 at ragged shapes: H and W under and across the 8 x 8 and
+    8 x 16 pixel tiles (every pixel of a 7x7 image is on or next to the
+    border), Cin below and no multiple of the 64-channel chunk, Cout below
+    and no multiple of the 160-column tile, with the depth split over blocks
+    and without."""
     b, h, w, cin, cout = shape
+    plan = chain.chain_plan(*shape, _build.sm_count(torch.device("cuda", 0)))
+    assert (plan.split > 1) == split
     cl = torch.channels_last
     x = _rn(gen, b, cin, h, w).contiguous(memory_format=cl)
     wt = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5
@@ -234,6 +245,29 @@ def test_conv_chain_kernel_matches_plain(gen, shape, prologue, res):
     ref = chain.conv3x3_chain(x, wt, bt, scale, shift, residual=r,
                               prologue=prologue, use_kernels=False)
     assert _rel(got, ref) < REL_TOL
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 8, 1280, 1280),
+                                   (2, 20, 12, 320, 136)])
+def test_conv_chain_split_is_bit_equal_on_a_repeat(gen, shape):
+    """The split partial sums are added in a fixed order: the same input
+    gives the same bits, launch after launch."""
+    b, h, w, cin, cout = shape
+    dev = torch.device("cuda", 0)
+    assert chain.chain_plan(*shape, _build.sm_count(dev)).split > 1
+    cl = torch.channels_last
+    x = _rn(gen, b, cin, h, w).contiguous(memory_format=cl)
+    wt = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5
+             ).contiguous(memory_format=cl)
+    bt = _rn(gen, b, cout, scale=0.1)
+    scale = _rn(gen, b, cin, scale=0.1, dtype=torch.float32) + 1
+    shift = _rn(gen, b, cin, scale=0.5, dtype=torch.float32)
+    r = _rn(gen, b, cout, h, w).contiguous(memory_format=cl)
+    outs = [chain.conv3x3_chain(x, wt, bt, scale, shift, residual=r)
+            for _ in range(4)]
+    torch.cuda.synchronize()
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0])
 
 
 def test_conv_chain_kernel_refuses_nchw_memory(gen):
@@ -339,18 +373,26 @@ def test_tapped_routed_unet_call_runs_the_routing_kernel(gen):
 
 
 @pytest.mark.parametrize("bias", [True, False])
-@pytest.mark.parametrize("shape", [
-    (3, 18, 22, 24, 136),    # H != W, Cin no multiple of the depth step,
-                             # Cout no multiple of the column tile, batch 3
-    (1, 16, 16, 16, 128),    # the least geometry fused_ok admits
-    (2, 20, 16, 72, 264),    # three depth steps, three column blocks
+@pytest.mark.parametrize("shape,split", [
+    ((3, 18, 22, 24, 136), False),   # H != W across the 16-pixel squares, Cin
+                                     # under a chunk, Cout no multiple of the
+                                     # column tile, batch 3
+    ((1, 16, 16, 16, 128), False),   # the least geometry fused_ok admits
+    ((2, 20, 16, 72, 264), True),    # three chunks (the last ragged) split,
+                                     # three column blocks
+    ((1, 16, 48, 96, 128), True),    # three squares, three whole chunks split
+    ((1, 16, 16, 40, 136), True),    # Cin 40: a ragged second chunk, split
+    ((4, 64, 64, 40, 256), False),   # 128 blocks: a split is forbidden
 ])
-def test_winograd_kernel_matches_plain(gen, shape, bias):
+def test_winograd_kernel_matches_plain(gen, shape, split, bias):
     """Kernel 8 at ragged shapes against its plain version and, at twice the
     limit (the plain version shares the kernel's rounding of V and U, cuDNN
-    does not), against the direct convolution."""
+    does not), against the direct convolution, with the depth split over
+    blocks and without."""
     b, h, w, cin, cout = shape
     assert wino.fused_ok(h, w, cin, cout)
+    plan = wino.fused_plan(*shape, _build.sm_count(torch.device("cuda", 0)))
+    assert (plan.split > 1) == split
     x = _rn(gen, b, cin, h, w).contiguous(memory_format=torch.channels_last)
     wt = _rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
     bs = _rn(gen, cout, scale=0.1) if bias else None
@@ -365,6 +407,21 @@ def test_winograd_kernel_matches_plain(gen, shape, bias):
     assert _rel(y, plain) < REL_TOL
     direct = torch.nn.functional.conv2d(x, wt, bs, padding=1)
     assert _rel(y, direct) < 2 * REL_TOL
+
+
+def test_winograd_split_is_bit_equal_on_a_repeat(gen):
+    """The split partial planes are added in a fixed order: the same input
+    gives the same bits, launch after launch."""
+    b, h, w, cin, cout = shape = (4, 16, 16, 1280, 1280)
+    assert wino.fused_plan(
+        *shape, _build.sm_count(torch.device("cuda", 0))).split > 1
+    x = _rn(gen, b, cin, h, w).contiguous(memory_format=torch.channels_last)
+    u = wino.fused_filter(_rn(gen, cout, cin, 3, 3, scale=(9 * cin) ** -0.5))
+    bs = _rn(gen, cout, scale=0.1)
+    outs = [wino.winograd3x3_fused(x, u, bs) for _ in range(4)]
+    torch.cuda.synchronize()
+    for y in outs[1:]:
+        assert torch.equal(y, outs[0])
 
 
 def test_winograd_kernel_refuses_nchw_memory(gen):

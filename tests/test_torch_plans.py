@@ -1,0 +1,152 @@
+"""The launch plans of the torch port's two convolution kernels, on the CPU.
+
+`chain_plan` (conv chain) and `fused_plan` (fused Winograd) decide, in plain
+Python, how a launch is cut into blocks: the pixel rectangle, the output
+channel tile and the share of the Cin depth each block takes, and whether the
+depth is split over several blocks whose f32 partial sums a second kernel
+adds in a fixed order. The kernels trust the plan, so it is held here, at
+every SD1.5 shape `chip_smoke.py` runs and at the ragged shapes of
+`tests/test_torch_cuda.py`: the blocks cover every output pixel, every output
+channel and every input channel (with all 9 taps, or all 16 positions)
+exactly once, a block's pixels lie in one image, and the plan is a function
+of (B, H, W, Cin, Cout, SM count) alone.
+"""
+import numpy as np
+import pytest
+
+from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as chain
+from diffusion_models_moe_tpu_torch.ops import winograd_fused as wino
+
+H100_SMS = 132
+# (B, H, W, Cin, Cout): the 14 resblock conv shapes of SD1.5 at UNet batch 4
+CHAIN_SD15 = [(4, s, s, ci, co) for s, ci, co in (
+    (64, 320, 320), (64, 640, 320), (64, 960, 320), (32, 320, 640),
+    (32, 640, 640), (32, 960, 640), (32, 1280, 640), (32, 1920, 640),
+    (16, 640, 1280), (16, 1280, 1280), (16, 1920, 1280), (16, 2560, 1280),
+    (8, 1280, 1280), (8, 2560, 1280))]
+CHAIN_RAGGED = [(3, 13, 9, 40, 72), (1, 7, 7, 8, 8), (2, 20, 12, 320, 136),
+                (2, 8, 24, 96, 160), (1, 16, 16, 72, 168), (4, 8, 8, 1280, 8)]
+# the 14 UNet (batch 4) and 8 VAE (batch 2) shapes of the fused Winograd mode
+WINO_SD15 = [(4, s, s, ci, co) for s, ci, co in (
+    (64, 320, 320), (64, 640, 320), (64, 960, 320), (64, 640, 640),
+    (32, 320, 640), (32, 640, 640), (32, 960, 640), (32, 1280, 640),
+    (32, 1920, 640), (32, 1280, 1280), (16, 640, 1280), (16, 1280, 1280),
+    (16, 1920, 1280), (16, 2560, 1280))] + [(2, s, s, ci, co) for s, ci, co in (
+        (64, 512, 512), (128, 512, 512), (256, 512, 512), (256, 512, 256),
+        (256, 256, 256), (512, 256, 256), (512, 256, 128), (512, 128, 128))]
+WINO_RAGGED = [(3, 18, 22, 24, 136), (1, 16, 16, 16, 128), (2, 20, 16, 72, 264),
+               (1, 16, 48, 96, 128), (2, 16, 16, 1280, 136)]
+
+
+def _covered_once(extent: int, step: int, count: int) -> bool:
+    """`count` pieces of `step` from 0, clipped at `extent`, cover
+    range(extent) exactly once and none is empty."""
+    seen = np.zeros(extent, dtype=np.int64)
+    for i in range(count):
+        lo, hi = i * step, min((i + 1) * step, extent)
+        if hi <= lo:
+            return False
+        seen[lo:hi] += 1
+    return bool((seen == 1).all())
+
+
+def _pixels_once(b, h, w, tiles_y, tiles_x, tile_h, tile_w) -> bool:
+    """The kernels' decoding of grid y = image * tiles + tile: every pixel of
+    every image in exactly one block, and a block in exactly one image."""
+    seen = np.zeros((b, h, w), dtype=np.int64)
+    tiles = tiles_y * tiles_x
+    for by in range(b * tiles):
+        image, tile = divmod(by, tiles)
+        if image >= b:
+            return False
+        y0, x0 = (tile // tiles_x) * tile_h, (tile % tiles_x) * tile_w
+        if y0 >= h or x0 >= w:
+            return False            # a block with no pixel of its image
+        seen[image, y0:y0 + tile_h, x0:x0 + tile_w] += 1
+    return bool((seen == 1).all())
+
+
+def _depth_once(cin, chunk, chunks, split, per) -> bool:
+    """Splits of `per` chunks of `chunk` channels cover range(cin) once."""
+    if chunks != -(-cin // chunk) or split < 1 or per < 1:
+        return False
+    seen = np.zeros(cin, dtype=np.int64)
+    for s in range(split):
+        n = min(per, chunks - s * per)      # the kernels' own count
+        if n < 1:
+            return False
+        seen[s * per * chunk:min((s * per + n) * chunk, cin)] += 1
+    return bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("shape", CHAIN_SD15 + CHAIN_RAGGED)
+def test_chain_plan_covers_the_convolution_once(shape):
+    b, h, w, cin, cout = shape
+    plan = chain.chain_plan(*shape, H100_SMS)
+    assert plan.tile_w in (8, 16)
+    assert _pixels_once(b, h, w, plan.tiles_y, plan.tiles_x, chain.TILE_H,
+                        plan.tile_w)
+    assert _covered_once(cout, chain.COUT_TILE, plan.cout_tiles)
+    assert _depth_once(cin, chain.CIN_CHUNK, plan.chunks, plan.split,
+                       plan.chunks_per_split)
+
+
+@pytest.mark.parametrize("shape", WINO_SD15 + WINO_RAGGED)
+def test_fused_plan_covers_the_convolution_once(shape):
+    b, h, w, cin, cout = shape
+    assert wino.fused_ok(h, w, cin, cout)
+    plan = wino.fused_plan(*shape, H100_SMS)
+    assert _pixels_once(b, h, w, plan.blocks_y, plan.blocks_x, wino.SQUARE,
+                        wino.SQUARE)
+    assert _covered_once(cout, wino.COUT_TILE, plan.cout_tiles)
+    assert _depth_once(cin, wino.CIN_CHUNK, plan.chunks, plan.split,
+                       plan.chunks_per_split)
+
+
+@pytest.mark.parametrize("sms", [1, 66, 108, 132, 1000])
+@pytest.mark.parametrize("which", ["chain", "fused"])
+def test_split_only_below_the_stated_blocks_per_sm(which, sms):
+    """The depth is split only where the unsplit grid has at most
+    SPLIT_BELOW_BLOCKS_PER_SM blocks an SM, the split grid stays within the
+    resident blocks of the card (unless one split a chunk is all there is),
+    and the same arguments give the same plan."""
+    shapes = (CHAIN_SD15 + CHAIN_RAGGED if which == "chain"
+              else WINO_SD15 + WINO_RAGGED)
+    plan_of = chain.chain_plan if which == "chain" else wino.fused_plan
+    n_split = 0
+    for shape in shapes:
+        plan = plan_of(*shape, sms)
+        assert plan == plan_of(*shape, sms)
+        unsplit = plan.blocks(shape[0]) // plan.split
+        if unsplit > chain.SPLIT_BELOW_BLOCKS_PER_SM * sms:
+            assert plan.split == 1 and plan.chunks_per_split == plan.chunks
+            continue
+        resident = 2 if which == "chain" and plan.tile_w == 8 else 1
+        assert 1 <= plan.split <= plan.chunks
+        assert plan.blocks(shape[0]) <= max(resident * sms, unsplit)
+        n_split += plan.split > 1
+    assert (n_split > 0) == (sms >= 66)
+
+
+def test_plans_on_the_h100_split_the_small_levels():
+    """What the rule gives at 132 SMs: the 8x8 and 16x16 levels of the UNet
+    at batch 4 are split, 32x32 and 64x64 are not; a batch does not change
+    which image a block belongs to, only how many blocks there are."""
+    for shape in CHAIN_SD15:
+        assert (chain.chain_plan(*shape, H100_SMS).split > 1) == (shape[1] <= 16)
+    for shape in WINO_SD15:
+        assert (wino.fused_plan(*shape, H100_SMS).split > 1) == (shape[1] <= 16)
+    one = chain.chain_plan(1, 64, 64, 320, 320, H100_SMS)
+    four = chain.chain_plan(4, 64, 64, 320, 320, H100_SMS)
+    assert (one.tiles_y, one.tiles_x, one.tile_w) == (four.tiles_y, four.tiles_x,
+                                                      four.tile_w)
+    assert four.blocks(4) // four.split == 4 * (one.blocks(1) // one.split)
+
+
+def test_split_depth_keeps_every_split_non_empty():
+    for chunks in range(1, 41):
+        for blocks in (1, 7, 32, 40, 64, 66, 67, 500):
+            split, per = chain.split_depth(blocks, chunks, H100_SMS, 1)
+            assert (split - 1) * per < chunks <= split * per
+            if blocks > 66:
+                assert split == 1
