@@ -10,7 +10,9 @@ Run from the root of a checkout. Phases:
      and the build of the hand-written kernels from ops/csrc/;
   2. each kernel against its plain PyTorch version (f32 math on the same
      bf16 inputs) at the SD1.5 shapes of the main path, with errors and
-     CUDA-event times of both;
+     CUDA-event times of both; the attention kernels also at ragged S, at
+     fewer valid keys, on the (B, S, 3C) column thirds of kernel 5, at head
+     dim 64, with SDPA as the yardstick and the wrapper's host time;
   2b. the fused MoE routing kernel of the unfused FF path against its plain
      version at the four SD1.5 FF shapes, with errors and times;
   2c. the absorbed-attention kernels (LN + qkv projection, out projection +
@@ -28,6 +30,10 @@ Run from the root of a checkout. Phases:
      kernels and with their plain versions: latent relative error, held
      against the bf16-vs-f32 floor of the card (the plain versions in an f32
      copy of the model) and, at 50 steps, below 0.05;
+  4b. where the kernels' predicates say no: a 3-step `generate` of that f32
+     SD1.5 pipeline and a `tiny_config` `generate` run on the card, launch no
+     kernel and hand every attention and FF call to a plain version (the
+     `plain:` counters); on every SD1.5 bf16 path those counters stay 0;
   5. skill attribution and neuron erasure: `collect_predictivity` under MoE
      routing over 2 (base, concept) prompt pairs through the hash tokenizer
      (max-gate taps: every FF call takes the routing kernel, none the fused
@@ -62,8 +68,10 @@ Run from the root of a checkout. Phases:
      (full and shallow UNet calls counted through the FF kernel's launches),
      each with its latent error against the exact path, held below
      APPROX_FACTOR of what two unrelated samples differ by on this card.
-Every kernel's line carries its bound: the larger of its operations over
-989 TFLOP/s (bf16, dense) and the bytes it must move over 3.35 TB/s. Each
+Every kernel's line carries its bound: the largest of its tensor-core
+operations over 989 TFLOP/s (bf16, dense), the bytes it must move over 3.35
+TB/s and, for attention, its exponentials over 16 a clock an SM at the
+card's maximum SM clock (nvidia-smi clocks.max.sm). Each
 phase prints its wall time. It needs CUDA and exits non-zero on any
 failure, printing no result. Its second-to-last line is a JSON object
 describing each kernel, its last line {"ok": true, "device": {...}}.
@@ -107,6 +115,10 @@ UNION_RATIO = 0.0          # its union-over-timesteps ratio for "Van Gogh"
 DEV = "cuda"
 PEAK_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate (data sheet)
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 rate (data sheet)
+# exponentials a second: 16 a clock an SM (ex2 on the special-function
+# units of sm_90) x SMs x the maximum SM clock that nvidia-smi reports
+EXP_PER_CLOCK_PER_SM = 16
+EXP_RATE = [0.0]
 # (tokens, channels) of the UNet levels; the UNet batch is 2 x BATCH with CFG
 LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 LEVEL_BLOCKS = (5, 5, 5, 1)   # transformer blocks of SD1.5 at each level
@@ -161,14 +173,21 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: operations over the bf16 peak or
-    bytes (each input read once, each output written once) over the memory
-    rate, whichever is larger."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return dict(bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+def bound(flops: float, nbytes: float, exps: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the tensor-core
+    operations over the bf16 peak, the bytes (each input read once, each
+    output written once) over the memory rate, and the exponentials over
+    the special-function units' rate (16 a clock an SM at the card's maximum
+    SM clock, EXP_RATE, set in main). `bound_by` is "bytes" or "operations"
+    (tensor-core or exponential); `binds` says which of the three."""
+    times = {"tensor operations": flops / PEAK_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3,
+             "exponentials": exps / EXP_RATE[0] * 1e3 if exps else 0.0}
+    binds = max(times, key=times.get)
+    return dict(bound_ms=times[binds],
+                bound_by="bytes" if binds == "bytes" else "operations",
+                binds=binds, gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                gexp=exps / 1e9)
 
 
 def per_call(shapes: list, counts: tuple, key: str) -> float:
@@ -304,48 +323,157 @@ def check_routing(gen: torch.Generator) -> list:
     return shapes
 
 
-def check_attention(gen: torch.Generator) -> tuple[dict, dict]:
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of fn() from a CUDA graph of `iters` calls, by CUDA
+    events around its replay: what the card takes when the host does not
+    pace the launches (a wrapper's Python and ctypes take tens of
+    microseconds a call, longer than the smaller attention kernels run)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds a call of fn() takes to return (the wrapper's
+    checks, plan, tensor-map encodes and launch; the kernels run on)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / n * 1e6
+
+
+# Extra attention cases, each held to ATTN_REL_TOL beside the four SD1.5
+# shapes of each kind: (B, S, D, view, kv_valid) with S no multiple of the
+# tiles, q, k, v as the column thirds of kernel 5's (B, S, 3C) tensor, fewer
+# valid keys than 77, and SD2.x's head dim 64.
+ATTN_EXTRA = ((4, 77, 40, "bsc", 77), (4, 1000, 80, "bsc", 77),
+              (4, 4100, 40, "bsc", 77), (4, 4096, 40, "bs3c", 77),
+              (4, 1024, 80, "bs3c", 77), (4, 256, 160, "bs3c", 77),
+              (4, 4096, 40, "bsc", 40), (4, 1024, 80, "bsc", 1),
+              (4, 4096, 64, "bsc", 77), (4, 1024, 64, "bs3c", 77))
+
+
+def check_attention(gen: torch.Generator) -> tuple[list, list]:
+    """Phase 2: kernels 2 and 3 against their plain versions at the four
+    SD1.5 shapes of each kind (with SDPA on the same tensors as the
+    yardstick, and the wrapper's host time) and at ATTN_EXTRA."""
+    from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import sd_flash
     dev = DEV
-    b, heads = 2 * BATCH, 8
+    heads = 8
     out = {}
-    for kind in ("self", "cross"):
-        shapes = out[kind] = []
-        for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
-            s_kv = s if kind == "self" else 77
-            # (B, S, C) projection outputs viewed as (B, S, H, D), as the
-            # model hands them to the kernels
-            q, k, v = (torch.randn((b, n, heads * d), generator=gen,
-                                   device=dev).bfloat16().view(b, n, heads, d)
-                       for n in (s, s_kv, s_kv))
-            scale = d ** -0.5
-            if kind == "self":
-                fn = lambda uk: sd_flash.sd_self_attention(  # noqa: E731
-                    q, k, v, scale, use_kernels=uk)
-            else:
-                fn = lambda uk: sd_flash.sd_cross_attention(  # noqa: E731
-                    q, k, v, scale, 77, use_kernels=uk)
-            o, o_plain = fn(True), fn(False)
-            torch.cuda.synchronize()
-            abs_e, rel = rel_err(o, o_plain)
-            ms = cuda_ms(lambda: fn(True), 20)
+
+    def heads4(b, n, d, view):
+        # (B, S, C) projection outputs viewed as (B, S, H, D), as the model
+        # hands them to the kernels; "bs3c": kernel 5's column thirds
+        c = heads * d
+        width = 3 * c if view == "bs3c" else c
+        t = torch.randn((b, n, width), generator=gen, device=dev).bfloat16()
+        return t[..., c:2 * c].reshape(b, n, heads, d) if view == "bs3c" \
+            else t.view(b, n, heads, d)
+
+    cases = [(kind, 2 * BATCH, s, d, "bsc", 77, True)
+             for kind in ("self", "cross")
+             for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
+    cases += [(kind, b, s, d, view, kvv, False)
+              for kind in ("self", "cross") for b, s, d, view, kvv in ATTN_EXTRA
+              if kind == "cross" or kvv == 77]
+    for kind, b, s, d, view, kv_valid, main in cases:
+        shapes = out.setdefault(kind, [])
+        s_kv = s if kind == "self" else 77
+        q, k, v = (heads4(b, n, d, view) for n in (s, s_kv, s_kv))
+        if view == "bs3c":
+            assert not q.is_contiguous()
+        scale = d ** -0.5
+        if kind == "self":
+            fn = lambda uk: sd_flash.sd_self_attention(  # noqa: E731
+                q, k, v, scale, use_kernels=uk)
+        else:
+            fn = lambda uk: sd_flash.sd_cross_attention(  # noqa: E731
+                q, k, v, scale, kv_valid, use_kernels=uk)
+        check(sd_flash.attn_kernel_ok(q, k, None if kind == "self" else kv_valid),
+              f"attn_kernel_ok refuses {kind} S={s} D={d} {view}")
+        plan = sd_flash.attn_plan(kind, b, heads, s, s_kv, d,
+                                  _build.sm_count(q.device))
+        o, o_plain = fn(True), fn(False)
+        torch.cuda.synchronize()
+        abs_e, rel = rel_err(o, o_plain)
+        del o_plain
+        what = (f"{kind:5s} B={b} S={s:4d} S_kv={s_kv:4d} D={d:3d} {view:4s} "
+                f"kv_valid={kv_valid if kind == 'cross' else s_kv}")
+        check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
+        keys = s_kv if kind == "self" else kv_valid
+        # products: Q K^T and P V over the valid keys; bytes: q, o and the
+        # keys and values, each once; one exponential a valid score
+        bd = bound(4 * b * heads * s * keys * d,
+                   2 * 2 * b * heads * d * (s + s_kv), b * heads * s * keys)
+        row = dict(shape=f"B={b},S={s},S_kv={s_kv},H={heads},D={d},{view},"
+                         f"kv_valid={keys}", rows=plan.rows, run=plan.run,
+                   blocks=plan.blocks(b, heads), max_abs_err=abs_e,
+                   rel_err=rel, **bd)
+        if main:
+            # device times from CUDA graphs (kernel and SDPA alike); beside
+            # them the time of back-to-back calls, which the host paces
+            # where a call's host work outlasts the kernel
+            ms = graph_ms(lambda: fn(True))
+            call_ms = cuda_ms(lambda: fn(True), 20)
             plain_ms = cuda_ms(lambda: fn(False), 5)
             # the library's one call for the same function on the same
             # tensors: a yardstick, used nowhere in the package
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, scale=scale), 20)
-            bd = bound(4 * b * heads * s * s_kv * d,
-                       2 * 2 * b * heads * d * (s + s_kv))
-            print(f"{kind:5s} S={s:4d} S_kv={s_kv:4d} D={d:3d}: max_abs_err "
-                  f"{abs_e:.6g} rel {rel:.3e} (tol {ATTN_REL_TOL:g}); kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library SDPA "
-                  f"{library_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
-                  f"{bd['bound_by']}", flush=True)
-            check(rel <= ATTN_REL_TOL, f"{kind} S={s} D={d}: rel err {rel}")
-            shapes.append(dict(shape=f"B={b},S={s},S_kv={s_kv},H={heads},D={d}",
-                               max_abs_err=abs_e, rel_err=rel, ms=ms,
-                               plain_ms=plain_ms, library_ms=library_ms, **bd))
+            mask = None
+            if kind == "cross" and kv_valid < s_kv:
+                mask = torch.arange(s_kv, device=dev) < kv_valid
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask,
+                                                      scale=scale)
+
+            library_ms = graph_ms(sdpa)
+            row.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
+                       library_call_ms=cuda_ms(sdpa, 20),
+                       host_us=host_us(lambda: fn(True)),
+                       library_host_us=host_us(sdpa))
+            timing = (f"kernel {ms:.4f} ms (back-to-back calls {call_ms:.4f}), "
+                      f"plain {plain_ms:.4f} ms, library SDPA "
+                      f"{library_ms:.4f} ms ({row['library_call_ms']:.4f}), "
+                      f"host {row['host_us']:.1f} us a call (SDPA "
+                      f"{row['library_host_us']:.1f}), ")
+        else:
+            timing = ""
+        print(f"{what}: max_abs_err {abs_e:.6g} rel {rel:.3e} (tol "
+              f"{ATTN_REL_TOL:g}); {timing}bound {bd['bound_ms']:.4f} ms by "
+              f"{bd['binds']}; {plan.blocks(b, heads)} blocks of {plan.rows} "
+              f"rows x {plan.run} tiles", flush=True)
+        shapes.append(row)
+    for kind, counts in (("self", LEVEL_BLOCKS), ("cross", LEVEL_BLOCKS)):
+        rows = out[kind][:4]
+        print(f"{kind}: the 16 launches of a UNet call at batch {2 * BATCH} "
+              f"sum to {per_call(rows, counts, 'ms'):.3f} ms in the kernel, "
+              f"{per_call(rows, counts, 'library_ms'):.3f} ms in SDPA, bound "
+              f"{per_call(rows, counts, 'bound_ms'):.3f} ms", flush=True)
     return out["self"], out["cross"]
 
 
@@ -647,7 +775,16 @@ def timed_generate(pipe, what: str, cond, uncond, seed: int, ivs,
         check(launches[name] == count,
               f"{what}: kernel {name} launched {launches[name]} times, "
               f"expected {count}")
+    check_no_plain(launches, what)
     return images, launches
+
+
+def check_no_plain(launches: dict, what: str) -> None:
+    """On an SD1.5 bf16 path every call the kernels could take went to
+    them: the model handed none to a plain version."""
+    from diffusion_models_moe_tpu_torch.ops import _build
+    plain = {k: launches[k] for k in _build.PLAIN if launches[k]}
+    check(not plain, f"{what}: calls handed to plain versions: {plain}")
 
 
 def check_latents(pipe, ivs, cond, uncond):
@@ -694,7 +831,52 @@ def check_latents(pipe, ivs, cond, uncond):
     # `rel` of the last pass: the config's full step count
     check(rel < LATENT_REL_TOL,
           f"{steps} steps: latent rel err {rel} >= {LATENT_REL_TOL}")
-    return compare, dict(ctx=ctx, lat=lat, z_k=kept["z_k"], floor=floor)
+    return compare, dict(ctx=ctx, lat=lat, z_k=kept["z_k"], floor=floor,
+                         pipe32=pipe32)
+
+
+def run_off_kernels(pipe32, cond, uncond, card: str) -> dict:
+    """Phase 4b: where the kernels' predicates say no, `generate` runs on the
+    card through the plain versions: the f32 SD1.5 pipeline of phase 4 (3
+    PNDM steps, 512x512) and a `tiny_config` pipeline (head dims 8 to 32, f32)
+    at its 4 steps. No kernel launches; every attention and FF call is
+    counted as a plain call."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                tiny_config)
+    from diffusion_models_moe_tpu_torch.ops import _build
+    tiny = StableDiffusionPipeline(tiny_config(), device=DEV)
+    tiny.init_params(torch.Generator(device=DEV).manual_seed(0))
+    tcfg = tiny.config.text_encoder
+    tcond = torch.randint(0, tcfg.vocab_size, (BATCH, tcfg.max_length),
+                          generator=torch.Generator().manual_seed(1)).to(DEV)
+    out = {}
+    for what, pipe, c, steps in (("f32 SD1.5", pipe32, cond, 3),
+                                 ("tiny_config", tiny, tcond, None)):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        images, _ = pipe.generate(c, torch.zeros_like(c),
+                                  torch.Generator(device=DEV).manual_seed(3),
+                                  num_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        side = 8 * pipe.config.sample_size
+        check(tuple(images.shape) == (BATCH, 3, side, side)
+              and bool(torch.isfinite(images).all()),
+              f"{what}: images {tuple(images.shape)} not finite or misshapen")
+        calls = 16 * ((steps or pipe.config.num_inference_steps) + 1)
+        ran = {k: launches[k] for k in _build.KERNELS if launches[k]}
+        print(f"{what} on {card}: generate {BATCH} requests {side}x{side}, "
+              f"{steps or pipe.config.num_inference_steps} PNDM steps: wall "
+              f"{wall:.3f} s; kernels launched {ran or 'none'}; plain calls "
+              f"{ {k: launches[k] for k in _build.PLAIN} }", flush=True)
+        check(not ran, f"{what}: kernels launched {ran}")
+        for key in ("plain:sd_self_attention", "plain:sd_cross_attention",
+                    "plain:geglu_ff_fused"):
+            check(launches[key] == calls,
+                  f"{what}: {key} {launches[key]}, expected {calls}")
+        out[what] = launches
+    return out
 
 
 def merge(moe, removal, fields):
@@ -735,6 +917,7 @@ def run_attribution(pipe, ivs, compare, card: str) -> dict:
         check(launches[name] == count,
               f"attribution: kernel {name} launched {launches[name]} times, "
               f"expected {count} ({16 * calls} per tapped generate)")
+    check_no_plain(launches, "attribution")
     for acc in (pred.base, pred.adj):
         for l, d in enumerate(cfg.unet.ff_dims()):
             m = acc.mean()[l]
@@ -871,6 +1054,8 @@ def serve(pipe, ivs, what: str, expect_per_batch: dict):
           f"|diff| {differ} of 255; launches {launches}", flush=True)
     check(differ == 0, f"{what}: request 0 alone differs from request 0 "
           f"co-batched by {differ} of 255")
+    check_no_plain(launches, what)
+    check_no_plain(alone_launches, f"{what}, request 0 alone")
     for name, per_batch in expect_per_batch.items():
         check(launches[name] == 2 * per_batch
               and alone_launches[name] == per_batch,
@@ -1100,6 +1285,14 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_RATE[0] = EXP_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
+    print(f"max SM clock {clock_mhz:.0f} MHz, {sms} SMs: {EXP_RATE[0] / 1e12:.3f} "
+          f"T exponentials/s at {EXP_PER_CLOCK_PER_SM} a clock an SM")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -1138,6 +1331,8 @@ def main() -> None:
     phase_done("3 (serving slice)")
     compare, modes_off = check_latents(pipe, ivs, cond, uncond)
     phase_done("4 (latents)")
+    run_off_kernels(modes_off.pop("pipe32"), cond, uncond, card)
+    phase_done("4b (f32 and tiny_config generates on the plain versions)")
     attribution_launches = run_attribution(pipe, ivs, compare, card)
     phase_done("5 (attribution and neuron erasure)")
     wanda_launches = run_wanda(pipe, ivs, images, card)

@@ -163,13 +163,17 @@ def _split_modes(modes: dict) -> tuple[dict, dict, dict]:
     return modes, vae, pipe
 
 
-def sd15_config(dtype: torch.dtype = torch.bfloat16, **modes) -> PipelineConfig:
-    """Stable Diffusion v1.4/1.5 geometry. `modes`: the serving modes,
-    `attn_absorb`, `conv_chain`, `conv_winograd`, `winograd_tile`,
-    `quant_int8` and `deep_cache_interval`."""
+def sd15_config(dtype: torch.dtype = torch.bfloat16, relufied: bool = False,
+                **modes) -> PipelineConfig:
+    """Stable Diffusion v1.4/1.5 geometry; `relufied` gives the ReLUfied
+    model (GEGLU gates through ReLU, as the JAX preset). `modes`: the
+    serving modes, `attn_absorb`, `conv_chain`, `conv_winograd`,
+    `winograd_tile`, `quant_int8` and `deep_cache_interval`."""
     unet_modes, vae_modes, pipe_modes = _split_modes(modes)
     return PipelineConfig(
-        unet=UNetConfig(dtype=dtype, **unet_modes),
+        unet=UNetConfig(dtype=dtype,
+                        ff_activation="geglu-relu" if relufied else "geglu",
+                        **unet_modes),
         text_encoder=CLIPTextConfig(dtype=dtype),
         vae=VAEConfig(dtype=dtype, **vae_modes),
         **pipe_modes,

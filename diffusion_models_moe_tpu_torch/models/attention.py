@@ -5,7 +5,12 @@ self-attention goes through the flash kernel (`ops/sd_flash.py`),
 cross-attention through the one-pass text-token kernel, and the whole
 `x + ff(norm3(x))` sub-block through the fused GEGLU-MoE kernel
 (`ops/geglu_ff_fused.py`) with norm3 and the residual absorbed, as the JAX
-package runs it with DMOE_FF_FUSED=1. An FF call that collects taps or
+package runs it with DMOE_FF_FUSED=1. Each kernel is taken where its
+predicate (`attn_kernel_ok`, `fused_ff_ok`, `route_kernel_ok`) admits the
+call; elsewhere on the card (an f32 model, a head dim or an expert count
+the kernels do not take) the layer runs the plain version, counted under
+`plain:<kernel>` in `ops/_build.LAUNCHES`, as the JAX package falls back to
+its library path. An FF call that collects taps or
 carries a neuron mask, an output-weight mask or an expert boost takes the
 unfused path of the JAX module instead, with its routing in the fused
 routing kernel (`ops/routing_kernel.py`) where no expert tap or boost needs
@@ -35,15 +40,17 @@ import torch.nn.functional as F
 from diffusion_models_moe_tpu_torch.models.layers import (HoistedWeight,
                                                           group_norm_f32,
                                                           layer_norm_f32)
+from diffusion_models_moe_tpu_torch.ops import _build
 from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import (
     absorbed_self_attention, attn_absorb_ok, ln_apply)
-from diffusion_models_moe_tpu_torch.ops.geglu_ff_fused import geglu_ff_fused
+from diffusion_models_moe_tpu_torch.ops.geglu_ff_fused import (fused_ff_ok,
+                                                               geglu_ff_fused)
 from diffusion_models_moe_tpu_torch.ops.quant import (int8_dot,
                                                       quantize_dense_weight)
-from diffusion_models_moe_tpu_torch.ops.routing_kernel import \
-    fused_route_multiply
-from diffusion_models_moe_tpu_torch.ops.sd_flash import (sd_cross_attention,
-                                                         sd_self_attention)
+from diffusion_models_moe_tpu_torch.ops.routing_kernel import (
+    fused_route_multiply, route_kernel_ok)
+from diffusion_models_moe_tpu_torch.ops.sd_flash import (cross_attention,
+                                                         self_attention)
 from diffusion_models_moe_tpu_torch.taps import (LayerIntervention, TapSpec,
                                                  routing_mask, step_row)
 
@@ -86,16 +93,17 @@ class Attention(nn.Module):
                 absorb: str = "1") -> torch.Tensor:
         """With `ln` (the block's delegated norm1) returns
         `x + to_out(attention(ln(x)))`: through the absorbed-attention
-        kernels in mode `absorb` where `attn_absorb_ok` admits the shape,
-        else by applying the same LayerNorm here and adding the residual at
-        the end."""
+        kernels in mode `absorb` where `attn_absorb_ok` admits the shape
+        (and, on the card, the model is bf16), else by applying the same
+        LayerNorm here and adding the residual at the end."""
         is_self = context is None
         b, s, c = x.shape
         d = c // self.heads
         scale = 1.0 / d ** 0.5
         resid = None
         if ln is not None:
-            if is_self and attn_absorb_ok(s, c, self.heads):
+            if is_self and attn_absorb_ok(s, c, self.heads) and (
+                    x.device.type == "cpu" or x.dtype == torch.bfloat16):
                 out = self.to_out[0]
                 return absorbed_self_attention(
                     x, self.to_q.weight, self.to_k.weight, self.to_v.weight,
@@ -111,10 +119,10 @@ class Attention(nn.Module):
 
         q, k, v = heads4(self.to_q(x)), heads4(self.to_k(ctx)), heads4(self.to_v(ctx))
         if is_self:
-            out = sd_self_attention(q, k, v, scale, use_kernels=use_kernels)
+            out = self_attention(q, k, v, scale, use_kernels=use_kernels)
         else:
-            out = sd_cross_attention(q, k, v, scale, ctx.shape[1],
-                                     use_kernels=use_kernels)
+            out = cross_attention(q, k, v, scale, ctx.shape[1],
+                                  use_kernels=use_kernels)
         out = self.to_out[0](out.reshape(b, s, c))
         return out if resid is None else resid + out
 
@@ -160,7 +168,12 @@ class GEGLUFeedForward(nn.Module):
                 iv.neuron_mask is None and iv.out_weight_mask is None
                 and iv.expert_boost is None
                 and (iv.patterns is None or iv.k > 0))):
-            return self._fused(x, step_idx, iv, ln, use_kernels)
+            e = 0 if iv is None or iv.patterns is None else iv.patterns.shape[0]
+            c = x.shape[-1]
+            if (not use_kernels or x.device.type == "cpu" or fused_ff_ok(
+                    x.numel() // c, c, self.net[2].in_features, e, x.dtype)):
+                return self._fused(x, step_idx, iv, ln, use_kernels)
+            _build.LAUNCHES["plain:geglu_ff_fused"] += 1
         return self._unfused(x, step_idx, tap, iv, ln, taps_out, use_kernels)
 
     def _fused(self, x, t, iv, ln, use_kernels):
@@ -201,7 +214,8 @@ class GEGLUFeedForward(nn.Module):
             patterns = _step_patterns(iv, t)
             boost = (None if iv.expert_boost is None
                      else step_row(iv.expert_boost, t))
-            if boost is None and not need_sel:
+            if boost is None and not need_sel and _route_kernel(
+                    gate, patterns, use_kernels):
                 y = fused_route_multiply(
                     hidden.reshape(-1, hdim), gate.reshape(-1, hdim),
                     patterns, iv.k, use_kernels=use_kernels
@@ -236,6 +250,18 @@ class GEGLUFeedForward(nn.Module):
         else:
             y = out(y)
         return y if ln is None else resid + y
+
+
+def _route_kernel(gate: torch.Tensor, patterns: torch.Tensor,
+                  use_kernels: bool) -> bool:
+    """Whether routing goes through `fused_route_multiply` (its kernel, or
+    on the CPU its plain version); where `route_kernel_ok` refuses a CUDA
+    call, the caller takes `routing_mask`, counted as a plain call."""
+    if (not use_kernels or gate.device.type == "cpu"
+            or route_kernel_ok(gate.shape[-1], patterns.shape[0], gate.dtype)):
+        return True
+    _build.LAUNCHES["plain:fused_route_multiply"] += 1
+    return False
 
 
 def _step_patterns(iv: LayerIntervention, t: int) -> torch.Tensor:

@@ -8,8 +8,10 @@ is rebuilt. Nothing here runs at import time: the
 package imports and runs on a machine without `nvcc` or a GPU, where every
 op takes its plain PyTorch version.
 
-A failed build or a refused launch raises; no caller falls back to the plain
-version.
+A failed build or a refused launch raises; no wrapper falls back to the
+plain version. Where a kernel does not take a shape or a dtype, the model
+asks the kernel's predicate first and takes the plain version, and counts
+that call under `plain:<kernel>` in LAUNCHES.
 """
 from __future__ import annotations
 
@@ -33,10 +35,15 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Kernel launches made by the wrappers, by kernel name: each wrapper adds one
 # where it launches its kernel. A run resets the counts with
 # `reset_launch_counts()` and reads them after, to show which kernels ran.
-LAUNCHES = {"geglu_ff_fused": 0, "sd_self_attention": 0,
-            "sd_cross_attention": 0, "fused_route_multiply": 0,
-            "ln_qkv_fused": 0, "attn_out_residual_fused": 0,
-            "conv3x3_chain": 0, "winograd3x3_fused": 0}
+# The `plain:` keys count the calls on CUDA tensors that the model handed to
+# a kernel's plain version because the kernel's predicate said no.
+KERNELS = ("geglu_ff_fused", "sd_self_attention", "sd_cross_attention",
+           "fused_route_multiply", "ln_qkv_fused", "attn_out_residual_fused",
+           "conv3x3_chain", "winograd3x3_fused")
+PLAIN = tuple(f"plain:{k}" for k in ("geglu_ff_fused", "sd_self_attention",
+                                      "sd_cross_attention",
+                                      "fused_route_multiply"))
+LAUNCHES = dict.fromkeys(KERNELS + PLAIN, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,9 +54,10 @@ _SIGNATURES = {
     "dmoe_ff_route": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     "dmoe_ff_down": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     "dmoe_route_multiply": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
-    "dmoe_sd_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _LL, _P],
-    "dmoe_sd_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _LL,
-                                _P],
+    "dmoe_sd_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                               _I, _LL, _P],
+    "dmoe_sd_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                _I, _LL, _P],
     "dmoe_ln_qkv": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P],
     "dmoe_attn_out_residual": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "dmoe_conv3x3_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -28,13 +28,14 @@ import torch
 import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.ops import _build
-from diffusion_models_moe_tpu_torch.ops.sd_flash import sd_self_attention
+from diffusion_models_moe_tpu_torch.ops.sd_flash import self_attention
 
 
 def attn_absorb_ok(s: int, c: int, heads: int) -> bool:
     """Shapes the two kernels take: whole heads whose dim is a multiple of
     the 16-byte vector (8 bf16). Any sequence length. (The flash kernel
-    between them has its own head-dim list and raises on others.)"""
+    between them has its own predicate, `attn_kernel_ok`; where it says no
+    the plain attention runs between the two kernels.)"""
     d = c // heads
     return s >= 1 and c == d * heads and d % 8 == 0
 
@@ -175,7 +176,7 @@ def absorbed_self_attention(x: torch.Tensor, wq, wk, wv, wo, bo, heads: int,
     else:
         xn = ln_apply(x, g, b, eps).to(x.dtype)
         q, k, v = (_heads4(F.linear(xn, w), heads) for w in (wq, wk, wv))
-    o = sd_self_attention(q, k, v, sm_scale, use_kernels=use_kernels)
+    o = self_attention(q, k, v, sm_scale, use_kernels=use_kernels)
     if mode in ("1", "out"):
         return attn_out_residual_fused(o, wo, bo, x, use_kernels=use_kernels)
     return x + F.linear(o.reshape(x.shape), wo, bo)

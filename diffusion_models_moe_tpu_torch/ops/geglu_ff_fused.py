@@ -24,6 +24,16 @@ import torch
 from diffusion_models_moe_tpu_torch.ops import _build
 
 
+def fused_ff_ok(n: int, c: int, hidden: int, e: int = 0,
+                dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the kernels take an FF of N rows, C channels and H = hidden
+    neurons with `e` experts (0: no routing) in `dtype`: bf16, C % 32 == 0,
+    H % 64 == 0, at most 256 experts. The counterpart of JAX's `fused_ff_ok`,
+    asked by the model before `geglu_ff_fused` on a CUDA tensor."""
+    return (dtype == torch.bfloat16 and n >= 1 and c % 32 == 0
+            and hidden % 64 == 0 and 0 <= e <= 256)
+
+
 def reference_gate(x2d, w1, b1, relu, ln_scale, ln_bias, eps):
     """(h, ga) of the plain version in f32: LN (fast variance, rsqrt folded
     into the scale, output rounded to x2d.dtype), the dual projection and

@@ -23,6 +23,14 @@ from diffusion_models_moe_tpu_torch.ops import _build
 from diffusion_models_moe_tpu_torch.taps import routing_mask
 
 
+def route_kernel_ok(hidden: int, e: int,
+                    dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the kernel takes H = hidden neurons and `e` experts in
+    `dtype`: bf16, E <= 256, H % 64 == 0. Asked by the model before
+    `fused_route_multiply` on a CUDA tensor."""
+    return dtype == torch.bfloat16 and 1 <= e <= 256 and hidden % 64 == 0
+
+
 def route_multiply_reference(hidden: torch.Tensor, gate: torch.Tensor,
                              patterns: torch.Tensor, k: int) -> torch.Tensor:
     """Plain version: scores in f32 over the gate as given, threshold

@@ -32,7 +32,8 @@ GROUPS = (
     ("out projection + residual kernel (kernel 6)", ("attn_out_kernel",)),
     ("FF GEMM kernels (ff_up, ff_down)", ("ff_up_kernel", "ff_down_kernel")),
     ("FF routing kernel (ff_route)", ("route_kernel",)),
-    ("attention kernels (self, cross)", ("sd_attn_kernel",)),
+    ("self-attention kernel (kernel 2)", ("sd_self_attn_kernel",)),
+    ("cross-attention kernel (kernel 3)", ("sd_cross_attn_kernel",)),
     ("cuDNN convolutions and their layout transposes",
      ("cudnn", "fprop", "conv", "nchwToNhwc", "nhwcToNchw", "implicit_gemm")),
     ("GroupNorm, LayerNorm and the GroupNorm fold's reductions",

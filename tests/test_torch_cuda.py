@@ -10,6 +10,8 @@ use):
 Shapes are small and ragged (rows and tokens not multiples of the tiles) to
 reach the kernels' edge masking; `chip_smoke.py` covers the SD1.5 shapes.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -99,25 +101,89 @@ def test_geglu_ff_kernel_keeps_ties(gen):
     assert torch.equal(sel[:, 0], sel[:, 1])
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
-def test_self_attention_kernel_matches_plain(gen, d):
-    b, s, h = 2, 200, 3
-    q, k, v = (_rn(gen, b, s, h * d).view(b, s, h, d) for _ in range(3))
+def _heads(gen, b, s, h, d, strided):
+    """(B, S, H, D) as the model hands it over: a (B, S, H*D) projection
+    output viewed, or (strided) a column third of kernel 5's (B, S, 3C)."""
+    if not strided:
+        return _rn(gen, b, s, h * d).view(b, s, h, d)
+    t = _rn(gen, b, s, 3 * h * d)[..., h * d:2 * h * d]
+    return t.view(b, s, h, d)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("b,s,h,d", [(2, 200, 3, 40), (2, 200, 3, 64),
+                                     (2, 200, 3, 80), (2, 200, 3, 160),
+                                     (1, 77, 2, 40), (1, 1000, 2, 80),
+                                     (1, 4100, 2, 40), (4, 64, 8, 160)])
+def test_self_attention_kernel_matches_plain(gen, b, s, h, d, strided):
+    """Kernel 2 at ragged S (no multiple of the 64-row tiles or the key
+    tiles), at every instantiated head dim, on contiguous and strided
+    views."""
+    q, k, v = (_heads(gen, b, s, h, d, strided) for _ in range(3))
+    assert sd_flash.attn_kernel_ok(q, k)
+    _build.reset_launch_counts()
     o = sd_flash.sd_self_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sd_self_attention"] == 1
     ref = sd_flash.sd_self_attention(q, k, v, d ** -0.5, use_kernels=False)
     assert _rel(o, ref) < REL_TOL
 
 
-@pytest.mark.parametrize("d", [40, 80, 160])
-def test_cross_attention_kernel_matches_plain(gen, d):
-    b, s, h = 2, 200, 3
-    q = _rn(gen, b, s, h * d).view(b, s, h, d)
-    k, v = (_rn(gen, b, 77, h * d).view(b, 77, h, d) for _ in range(2))
-    for kv_valid in (77, 40):
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("b,s,h,d", [(2, 200, 3, 40), (2, 200, 3, 64),
+                                     (2, 200, 3, 80), (2, 200, 3, 160),
+                                     (1, 1000, 2, 80), (1, 4100, 2, 40)])
+def test_cross_attention_kernel_matches_plain(gen, b, s, h, d, strided):
+    """Kernel 3 at ragged S, every head dim, strided views, 77 keys and
+    fewer valid ones."""
+    q = _heads(gen, b, s, h, d, strided)
+    k, v = (_heads(gen, b, 77, h, d, strided) for _ in range(2))
+    for kv_valid in (77, 40, 1):
         o = sd_flash.sd_cross_attention(q, k, v, d ** -0.5, kv_valid)
         ref = sd_flash.sd_cross_attention(q, k, v, d ** -0.5, kv_valid,
                                           use_kernels=False)
         assert _rel(o, ref) < REL_TOL
+
+
+def test_attention_kernels_are_bit_equal_across_a_batch(gen):
+    """No row depends on another (batch, head) or on the launch plan: batch
+    element 0 alone equals batch element 0 of a batch of 4 (64-row self
+    blocks at batch 1, 128-row ones at batch 4; other cross runs)."""
+    for s, d in ((1024, 80), (256, 160)):
+        q, k, v = (_rn(gen, 4, s, 8 * d).view(4, s, 8, d) for _ in range(3))
+        kc, vc = (_rn(gen, 4, 77, 8 * d).view(4, 77, 8, d) for _ in range(2))
+        full = sd_flash.sd_self_attention(q, k, v, d ** -0.5)
+        one = sd_flash.sd_self_attention(q[:1], k[:1], v[:1], d ** -0.5)
+        assert torch.equal(full[:1], one)
+        full = sd_flash.sd_cross_attention(q, kc, vc, d ** -0.5, 77)
+        one = sd_flash.sd_cross_attention(q[:1], kc[:1], vc[:1], d ** -0.5, 77)
+        assert torch.equal(full[:1], one)
+
+
+@pytest.mark.parametrize("which", ["f32", "tiny"])
+def test_generate_off_the_kernels_takes_the_plain_versions(gen, which):
+    """Where the predicates say no (an f32 model; tiny_config's head dims 8
+    to 32) `generate` runs on the card through the plain versions: no
+    attention kernel launches and the plain counters count the calls."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config, tiny_config)
+    cfg = (tiny_config() if which == "tiny"
+           else dataclasses.replace(sd15_config(torch.float32), sample_size=16))
+    pipe = StableDiffusionPipeline(cfg, device="cuda")
+    pipe.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cond = torch.randint(0, cfg.text_encoder.vocab_size,
+                         (1, cfg.text_encoder.max_length), device="cuda")
+    _build.reset_launch_counts()
+    images, _ = pipe.generate(cond, torch.zeros_like(cond), seeds=[0],
+                              num_steps=2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(images).all()
+    assert all(_build.LAUNCHES[k] == 0 for k in _build.KERNELS)
+    calls = 16 * 3          # 16 attention layers, PNDM's 2 steps + warm-up
+    assert _build.LAUNCHES["plain:sd_self_attention"] == calls
+    assert _build.LAUNCHES["plain:sd_cross_attention"] == calls
+    if which == "f32":
+        assert _build.LAUNCHES["plain:geglu_ff_fused"] == calls
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):

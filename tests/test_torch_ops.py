@@ -84,7 +84,16 @@ def test_ff_plain_matches_jax_kernel(routed, relu, absorb):
     got = _port_ff(x, w1, b1, w2, b2, pat, k, relu,
                    g if absorb else None, bb if absorb else None)
     err = _rel_err(got, ref)
-    assert err < FF_RTOL, f"max |port - jax| / max |jax| = {err:.3e}"
+    msg = f"max |port - jax| / max |jax| = {err:.3e}"
+    if err >= FF_RTOL:
+        # which side moved: each against the plain version in float64
+        f64 = _port_ff(*(None if a is None else a.astype(np.float64)
+                         for a in (x, w1, b1, w2, b2, pat)), k, relu,
+                       *((g.astype(np.float64), bb.astype(np.float64))
+                         if absorb else (None, None)))
+        msg += (f"; against float64: jax {_rel_err(ref, f64):.3e}, port "
+                f"{_rel_err(got, f64):.3e}")
+    assert err < FF_RTOL, msg
 
 
 def test_ff_ties_keep_more_than_k_experts():

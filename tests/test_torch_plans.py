@@ -1,6 +1,10 @@
-"""The launch plans of the torch port's two convolution kernels, on the CPU.
+"""The launch plans of the torch port's convolution and attention kernels, on
+the CPU.
 
-`chain_plan` (conv chain) and `fused_plan` (fused Winograd) decide, in plain
+`attn_plan` (self- and cross-attention) decides how many query rows a block
+takes and how long a run of query tiles the cross kernel walks; it is held
+at the eight SD1.5 attention shapes and at ragged ones below. `chain_plan`
+(conv chain) and `fused_plan` (fused Winograd) decide, in plain
 Python, how a launch is cut into blocks: the pixel rectangle, the output
 channel tile and the share of the Cin depth each block takes, and whether the
 depth is split over several blocks whose f32 partial sums a second kernel
@@ -15,6 +19,7 @@ import numpy as np
 import pytest
 
 from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as chain
+from diffusion_models_moe_tpu_torch.ops import sd_flash
 from diffusion_models_moe_tpu_torch.ops import winograd_fused as wino
 
 H100_SMS = 132
@@ -150,3 +155,76 @@ def test_split_depth_keeps_every_split_non_empty():
             assert (split - 1) * per < chunks <= split * per
             if blocks > 66:
                 assert split == 1
+
+
+# (kind, B, H, S_q, S_kv, D): the eight SD1.5 attention shapes at UNet batch 4
+# and ragged ones (S no multiple of 64 or 128, few heads, D = 64)
+ATTN_SD15 = [(kind, 4, 8, s, s if kind == "self" else 77, d)
+             for kind in ("self", "cross")
+             for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
+ATTN_RAGGED = [(kind, b, h, s, s if kind == "self" else 77, d)
+               for kind in ("self", "cross")
+               for b, h, s, d in ((2, 3, 200, 40), (1, 2, 1000, 80),
+                                  (4, 8, 4100, 40), (1, 1, 77, 64),
+                                  (2, 3, 200, 160))]
+
+
+@pytest.mark.parametrize("shape", ATTN_SD15 + ATTN_RAGGED)
+def test_attn_plan_covers_every_query_and_key_once(shape):
+    """Blocks of `run` tiles of `rows` query rows cover every query row of a
+    (batch, head) once, no block is empty by the kernel's own count, and the
+    keys are covered once: in tiles of `bkv` (self) or in the one tile of
+    MAX_CROSS_KV that holds all valid keys (cross)."""
+    kind, b, h, s_q, s_kv, d = shape
+    plan = sd_flash.attn_plan(*shape, H100_SMS)
+    assert plan.rows == sd_flash.Q_TILE * plan.wgs and plan.wgs in (1, 2)
+    assert _covered_once(s_q, plan.rows * plan.run, plan.q_blocks)
+    tiles = -(-s_q // plan.rows)
+    for blk in range(plan.q_blocks):
+        assert min(plan.run, tiles - blk * plan.run) >= 1
+    if kind == "self":
+        assert plan.run == 1 and plan.bkv == (64 if d > 80 else 128)
+        assert _covered_once(s_kv, plan.bkv, -(-s_kv // plan.bkv))
+        # the deepest K/V ring that fits the budget, and at least two stages
+        assert 2 <= plan.stages <= sd_flash.MAX_STAGES
+        smem = sd_flash.self_smem(d, plan.wgs, plan.bkv, plan.stages)
+        assert smem <= sd_flash.SELF_SMEM_BUDGET
+        assert (plan.stages == sd_flash.MAX_STAGES or sd_flash.self_smem(
+            d, plan.wgs, plan.bkv, plan.stages + 1) > sd_flash.SELF_SMEM_BUDGET)
+    else:
+        assert plan.wgs == 1 and plan.bkv == sd_flash.MAX_CROSS_KV >= 77
+    assert plan.blocks(b, h) == b * h * plan.q_blocks
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 1000])
+def test_attn_plan_fills_the_card_and_is_a_function_of_its_arguments(sms):
+    """At every shape the grid has at least as many blocks as the card has
+    SMs or as there are 64-row query tiles, whichever is fewer (S = 64 at
+    batch 4 is 32 tiles in all); 128-row self blocks only where that grid
+    still fills the card; the cross kernel's runs keep the grid within
+    CROSS_BLOCKS_PER_SM blocks an SM unless every block has one tile; the
+    same arguments give the same plan."""
+    for shape in ATTN_SD15 + ATTN_RAGGED:
+        kind, b, h, s_q, _, _ = shape
+        plan = sd_flash.attn_plan(*shape, sms)
+        assert plan == sd_flash.attn_plan(*shape, sms)
+        tiles64 = b * h * -(-s_q // sd_flash.Q_TILE)
+        assert plan.blocks(b, h) >= min(sms, tiles64)
+        if kind == "self" and plan.wgs == 2:
+            assert plan.blocks(b, h) >= sms
+        if kind == "cross" and plan.run > 1:
+            assert plan.blocks(b, h) <= sd_flash.CROSS_BLOCKS_PER_SM * sms + b * h
+
+
+def test_attn_plans_on_the_h100():
+    """What the rule gives at 132 SMs and UNet batch 4: 128-row self blocks
+    at 64x64 and 32x32 latents, 64-row blocks at 16x16 and 8x8; the cross
+    kernel's blocks walk 8, 2, 1, 1 query tiles."""
+    got = [(k, s, p.wgs, p.run) for (k, _, _, s, _, _), p in
+           ((sh, sd_flash.attn_plan(*sh, H100_SMS)) for sh in ATTN_SD15)]
+    assert got == [("self", 4096, 2, 1), ("self", 1024, 2, 1),
+                   ("self", 256, 1, 1), ("self", 64, 1, 1),
+                   ("cross", 4096, 1, 8), ("cross", 1024, 1, 2),
+                   ("cross", 256, 1, 1), ("cross", 64, 1, 1)]
+    with pytest.raises(ValueError):
+        sd_flash.attn_plan("self", 4, 8, 64, 64, 8, H100_SMS)
