@@ -10,7 +10,11 @@ Run from the root of a checkout. Phases:
      and the build of the hand-written kernels from ops/csrc/;
   2. each kernel against its plain PyTorch version (f32 math on the same
      bf16 inputs) at the SD1.5 shapes of the main path, with errors and
-     CUDA-event times of both; the attention kernels also at ragged S, at
+     CUDA-event times of both; kernel 1 (and 2b: kernel 4) also timed from a
+     CUDA graph, cuBLAS on its two products alone as a yardstick, and the
+     sums over the 16 FFs of a UNet call (each of its launches apart comes
+     last, phase 9); the attention
+     kernels also at ragged S, at
      fewer valid keys, on the (B, S, 3C) column thirds of kernel 5, at head
      dim 64, with SDPA as the yardstick and the wrapper's host time;
   2b. the fused MoE routing kernel of the unfused FF path against its plain
@@ -67,7 +71,10 @@ Run from the root of a checkout. Phases:
      request 0 equal whatever shares its batch) and `deep_cache_interval=3`
      (full and shallow UNet calls counted through the FF kernel's launches),
      each with its latent error against the exact path, held below
-     APPROX_FACTOR of what two unrelated samples differ by on this card.
+     APPROX_FACTOR of what two unrelated samples differ by on this card;
+  9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
+     at phase 2's shapes, by torch.profiler: last, because launches stay
+     slower in a process whose card the profiler has traced.
 Every kernel's line carries its bound: the largest of its tensor-core
 operations over 989 TFLOP/s (bf16, dense), the bytes it must move over 3.35
 TB/s and, for attention, its exponentials over 16 a clock an SM at the
@@ -209,11 +216,41 @@ def labels_for(ff_dims, seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------- phase 2
+# the launches of kernel 1 by the kernels' names (csrc/geglu_ff.cu)
+FF_LAUNCHES = (("ln", ("ln_rows_kernel",)),
+               ("ff_up", ("ff_up_kernel",)),
+               ("routing", ("route_scores_kernel", "route_select_kernel",
+                            "route_mask_kernel")),
+               ("ff_down", ("ff_down_kernel", "split_finish_kernel")))
+
+
+def launch_ms(fn, groups, iters: int = 20) -> dict:
+    """Device ms a call of fn() by group of kernel names, from torch.profiler
+    over `iters` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys((g for g, _ in groups), 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for g, keys in groups:
+            if any(k in ev.key for k in keys):
+                out[g] += ev.self_device_time_total / 1e3 / iters
+    return out
+
+
 def check_ff(gen: torch.Generator) -> dict:
+    from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
     from diffusion_models_moe_tpu_torch.taps import patterns_from_labels
     dev, bf16 = DEV, torch.bfloat16
-    shapes = []
+    shapes, floors, kernels = [], [], []
 
     def rn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -242,14 +279,27 @@ def check_ff(gen: torch.Generator) -> dict:
         rows = (sel_k == sel_p).all(dim=1)
         row_agree = rows.float().mean().item()
         abs_e, rel = rel_err(y[rows], y_plain[rows])
-        ms = cuda_ms(lambda: ffm.geglu_ff_fused(*args, **ln), 20)
+        del y_plain, ga
+        # this shape's tensors bound now: phase 9 calls it again
+        kern = lambda a=args, kw=ln: ffm.geglu_ff_fused(*a, **kw)  # noqa: E731
+        ms = graph_ms(kern)
+        call_ms = cuda_ms(kern, 20)
+        hus = host_us(kern)
         plain_ms = cuda_ms(
             lambda: ffm.geglu_ff_fused(*args, **ln, use_kernels=False), 5)
+        # cuBLAS on the two products alone, a yardstick used nowhere in the
+        # package: no one library call computes the kernel
+        prod = rn(n, hdim)
+        cublas_up = graph_ms(lambda: torch.matmul(x, w1.t()))
+        cublas_down = graph_ms(lambda: torch.matmul(prod, w2.t()))
+        del prod
+        plan = ffm.ff_plan(n, c, hdim, e, _build.sm_count(x.device))
         print(f"ff    C={c:4d} N={n:5d} E={e:3d} k={k:2d}: routing decisions "
               f"agree {decision_agree:.6f}, rows agree {row_agree:.6f}; on "
               f"agreeing rows max_abs_err {abs_e:.6g} rel {rel:.3e} "
-              f"(tol {FF_REL_TOL:g}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"(tol {FF_REL_TOL:g}); kernel {ms:.4f} ms (back-to-back calls "
+              f"{call_ms:.4f}), plain {plain_ms:.4f} ms; host {hus:.1f} us a "
+              "call", flush=True)
         check(decision_agree >= FF_DECISION_AGREEMENT,
               f"ff C={c}: routing decisions agree {decision_agree} < "
               f"{FF_DECISION_AGREEMENT}")
@@ -260,17 +310,66 @@ def check_ff(gen: torch.Generator) -> dict:
         # x and y, W1, W2, biases, patterns (bf16) and the f32 LN pair
         flops = 4 * n * c * hdim + 4 * n * hdim * e + 2 * n * hdim * c
         nbytes = 2 * (2 * n * c + 3 * hdim * c + 2 * hdim + c + e * hdim) + 8 * c
+        # the split design's own floor: xn written and read, ga, bf16(h ga)
+        # and prod each written and read
+        floor = bound(flops, nbytes + 4 * n * c + 12 * n * hdim)
+        bd = bound(flops, nbytes)
+        print(f"      plan: ff_up {plan.up_tiles} tiles on {plan.up_ctas} "
+              f"persistent blocks, {plan.up_wgs} warpgroups; routing scores "
+              f"{plan.route.score_blocks} blocks, split {plan.route.split}, "
+              f"mask {plan.route.mask_blocks} blocks; ff_down "
+              f"{plan.down_blocks} blocks, split {plan.down_split}; cuBLAS x W1^T "
+              f"{cublas_up:.4f} + prod W2^T {cublas_down:.4f} ms; bound "
+              f"{bd['bound_ms']:.4f} ms by {bd['binds']}, split-design floor "
+              f"{floor['bound_ms']:.4f} ms by {floor['binds']}", flush=True)
         shapes.append(dict(shape=f"N={n},C={c},E={e},k={k}", max_abs_err=abs_e,
-                           rel_err=rel, ms=ms, plain_ms=plain_ms,
-                           library_ms=None, **bound(flops, nbytes),
+                           rel_err=rel, ms=ms, call_ms=call_ms, host_us=hus,
+                           plain_ms=plain_ms, library_ms=None,
+                           cublas_products_ms=cublas_up + cublas_down, **bd,
                            decision_agreement=decision_agree,
                            row_agreement=row_agree))
-    return shapes
+        # the floor is worked out, not measured: printed, kept off the
+        # kernels line
+        floors.append(floor)
+        kernels.append(kern)
+    sums = {key: per_call(shapes, LEVEL_BLOCKS, key)
+            for key in ("ms", "call_ms", "cublas_products_ms", "bound_ms",
+                        "plain_ms")}
+    sums["split_floor_ms"] = per_call(floors, LEVEL_BLOCKS, "bound_ms")
+    print(f"ff: the 16 launches of a UNet call at batch {2 * BATCH} sum to "
+          f"{sums['ms']:.3f} ms in the kernels (back-to-back calls "
+          f"{sums['call_ms']:.3f}); cuBLAS on the two products alone "
+          f"{sums['cublas_products_ms']:.3f}; bound {sums['bound_ms']:.3f}, "
+          f"split-design floor {sums['split_floor_ms']:.3f}; plain "
+          f"{sums['plain_ms']:.3f} ms", flush=True)
+    return shapes, kernels
+
+
+def ff_launch_times(shapes: list, kernels: list) -> None:
+    """Phase 9: each launch of kernel 1 apart by the profiler at phase 2's
+    shapes, into their rows. Last, after every wall: once torch.profiler has
+    traced the card, the process's launches stay slower."""
+    for row, kern in zip(shapes, kernels):
+        per_launch = launch_ms(kern, FF_LAUNCHES)
+        row.update(ln_ms=per_launch["ln"], up_ms=per_launch["ff_up"],
+                   route_ms=per_launch["routing"],
+                   down_ms=per_launch["ff_down"])
+        print(f"ff    {row['shape']}: launches (profiler, ms a call): LN "
+              f"{row['ln_ms']:.4f}, ff_up {row['up_ms']:.4f}, routing "
+              f"{row['route_ms']:.4f}, ff_down {row['down_ms']:.4f}",
+              flush=True)
+    sums = {key: per_call(shapes, LEVEL_BLOCKS, key)
+            for key in ("ln_ms", "up_ms", "route_ms", "down_ms")}
+    print(f"ff: kernel 1's launches over the 16 FFs of a UNet call: LN "
+          f"{sums['ln_ms']:.3f}, ff_up {sums['up_ms']:.3f}, routing "
+          f"{sums['route_ms']:.3f}, ff_down {sums['down_ms']:.3f} ms",
+          flush=True)
 
 
 def check_routing(gen: torch.Generator) -> list:
     """Phase 2b: the routing kernel against its plain version on the gate
     and hidden the FF's projection makes at each SD1.5 FF shape."""
+    from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
     from diffusion_models_moe_tpu_torch.ops import routing_kernel as rk
     from diffusion_models_moe_tpu_torch.taps import (patterns_from_labels,
@@ -286,7 +385,10 @@ def check_routing(gen: torch.Generator) -> list:
               * c ** -0.5).to(bf16)
         b1 = (torch.randn((2 * hdim,), generator=gen, device=dev) * 0.1).to(bf16)
         h, ga = ffm.reference_gate(x, w1, b1, False, None, None, 1e-5)
-        hidden, gate = h.to(bf16), ga.to(bf16)
+        # hidden in place as the first half of the FF's (N, 2H) projection
+        hidden = torch.cat([h, ga], dim=1).to(bf16)[:, :hdim]
+        gate = ga.to(bf16)
+        del h, ga
         lab = np.random.RandomState(c).permutation(np.arange(hdim) % e)
         pat = patterns_from_labels(lab, e).to(dev, bf16)
         out = rk.fused_route_multiply(hidden, gate, pat, k)
@@ -298,26 +400,36 @@ def check_routing(gen: torch.Generator) -> list:
         rows = (sel_k == sel_p).all(dim=1)
         row_agree = rows.float().mean().item()
         abs_e, rel = rel_err(out[rows], plain[rows])
-        ms = cuda_ms(lambda: rk.fused_route_multiply(hidden, gate, pat, k), 20)
+        kern = lambda: rk.fused_route_multiply(hidden, gate, pat, k)  # noqa: E731
+        ms = graph_ms(kern)
+        call_ms = cuda_ms(kern, 20)
+        hus = host_us(kern)
         plain_ms = cuda_ms(lambda: rk.fused_route_multiply(
             hidden, gate, pat, k, use_kernels=False), 5)
+        plan = rk.route_plan(n, hdim, e, _build.sm_count(x.device))
+        # hidden, gate in and the product out (bf16), the patterns once; the
+        # split design reads the gate twice (scores, mask)
+        bd = bound(4 * n * hdim * e, 2 * (3 * n * hdim + e * hdim))
+        floor = bound(4 * n * hdim * e, 2 * (4 * n * hdim + e * hdim))
         print(f"route C={c:4d} N={n:5d} E={e:3d} k={k:2d}: routing decisions "
               f"agree {decision_agree:.6f}, rows agree {row_agree:.6f}; on "
               f"agreeing rows max_abs_err {abs_e:.6g} rel {rel:.3e} "
-              f"(tol {FF_REL_TOL:g}); kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"(tol {FF_REL_TOL:g}); kernel {ms:.4f} ms (back-to-back calls "
+              f"{call_ms:.4f}), plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x "
+              f"the kernel); host {hus:.1f} us a call; bound {bd['bound_ms']:.4f} ms, split-design floor "
+              f"{floor['bound_ms']:.4f}; scores {plan.score_blocks} blocks "
+              f"(split {plan.split}), mask {plan.mask_blocks} blocks",
+              flush=True)
         check(decision_agree >= FF_DECISION_AGREEMENT,
               f"route C={c}: routing decisions agree {decision_agree} < "
               f"{FF_DECISION_AGREEMENT}")
         check(row_agree >= FF_ROW_AGREEMENT,
               f"route C={c}: rows agree {row_agree} < {FF_ROW_AGREEMENT}")
         check(rel <= FF_REL_TOL, f"route C={c}: rel err {rel} > {FF_REL_TOL}")
-        # hidden, gate in and the product out (bf16), the patterns once
         shapes.append(dict(shape=f"N={n},H={hdim},E={e},k={k}",
                            max_abs_err=abs_e, rel_err=rel, ms=ms,
-                           plain_ms=plain_ms, library_ms=None,
-                           **bound(4 * n * hdim * e,
-                                   2 * (3 * n * hdim + e * hdim)),
+                           call_ms=call_ms, host_us=hus, plain_ms=plain_ms,
+                           library_ms=None, **bd,
                            decision_agreement=decision_agree,
                            row_agreement=row_agree))
     return shapes
@@ -1316,7 +1428,7 @@ def main() -> None:
         phase_t0 = time.perf_counter()
 
     gen = torch.Generator(device=DEV).manual_seed(0)
-    ff = check_ff(gen)
+    ff, ff_kernels = check_ff(gen)
     phase_done("2 (fused FF)")
     route = check_routing(gen)
     phase_done("2b (routing kernel)")
@@ -1342,6 +1454,8 @@ def main() -> None:
     wino_launches = run_remaining_modes(pipe, ivs, cond, uncond, modes_off,
                                         card)
     phase_done("8 (Winograd, int8 and DeepCache serving modes)")
+    ff_launch_times(ff, ff_kernels)
+    phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
         "serving": launches, "attribution": attribution_launches,
         "wanda_erasure": wanda_launches,

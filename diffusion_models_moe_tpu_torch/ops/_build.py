@@ -50,10 +50,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "dmoe_ff_up": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "dmoe_ff_route": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "dmoe_ff_down": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "dmoe_route_multiply": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dmoe_ff_front": [_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "dmoe_ff_down": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "dmoe_route_multiply": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P],
     "dmoe_sd_self_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                                _I, _LL, _P],
     "dmoe_sd_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -156,6 +157,20 @@ def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of the CUDA device (the wrappers plan their
     grids against it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def scratch(device: torch.device, sizes) -> tuple[torch.Tensor, list[int]]:
+    """One uninitialised device buffer carved into pieces of `sizes` bytes,
+    each on a 1024-byte boundary: (the buffer, the pieces' addresses). One
+    allocation where a launcher needs several scratch tensors; the caller
+    keeps the buffer until its launches are queued (the caching allocator
+    reuses it only for later work on the same stream)."""
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // 1024) * 1024
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + off for off in offsets]
 
 
 def stream_ptr(device: torch.device) -> int:

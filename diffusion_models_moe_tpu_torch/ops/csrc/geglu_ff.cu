@@ -1,448 +1,979 @@
-// Fused GEGLU-MoE feed-forward for Hopper, in three hand-written launches,
-// and the fused MoE routing kernel of the unfused FF path.
+// Fused GEGLU-MoE feed-forward for Hopper, and the fused MoE routing kernel of
+// the unfused FF path, on wgmma, TMA and mbarrier rings.
 //
 // Replaces the Pallas TPU kernels diffusion_models_moe_tpu/ops/geglu_ff_fused.py
 // :_kernel (pallas_call at :194) and diffusion_models_moe_tpu/ops/
-// routing_kernel.py:_routing_kernel (pallas_call at :106). The first keeps
-// W1 (C, 2H) and W2 (H, C) resident in VMEM and runs the whole FF per row block. On the H100 W1 alone
-// is 26 MB at C = 1280 against 227 KB of shared memory per SM, so the work is
-// split where a row's data must be complete:
+// routing_kernel.py:_routing_kernel (pallas_call at :106). The first keeps W1
+// (C, 2H) and W2 (H, C) resident in VMEM and runs the whole FF per row block.
+// On the H100 W1 alone is 26 MB at C = 1280 against 227 KB of shared memory
+// an SM, so the work is split where a row's data must be complete:
 //
-//   1. ff_up_kernel     LayerNorm prologue (f32, fast variance, rsqrt folded
-//                       into the scale as flax does) on the A-tile load, then
-//                       the dual GEMM h = xn W1[:H]^T, g = xn W1[H:]^T with a
-//                       GELU epilogue. Routed: writes ga (model dtype, for the
-//                       score) and h*ga (f32). Unrouted: writes bf16(h*ga).
-//   2. route_kernel     per 32-row block: expert scores S = ga P^T (f32
-//                       accumulation), exact threshold selection s >= kth (an
-//                       expert is kept when fewer than k experts score strictly
-//                       higher: ties kept), neuron mask m = sel P, and
-//                       prod = bf16(h*ga*m); both products on the tensor cores.
-//   3. ff_down_kernel   y = prod W2^T + b2, rounded to the model dtype, plus
-//                       the residual x added in the model dtype.
+//   0. ln_rows_kernel   (with LN) one warp a row, the row in registers:
+//                       mean and variance in f32 (fast variance),
+//                       xn = (x - mu) * (rsqrt * g) + b rounded to bf16, as
+//                       the TPU kernel rounds it before its products. Once a
+//                       row, not once a column block.
+//   1. ff_up_kernel     h = xn W1[:H]^T, g = xn W1[H:]^T: a dual GEMM on
+//                       tiles of one or two consumer warpgroups of 64 rows x
+//                       128 columns of h and of g, dealt to one persistent
+//                       block an SM; a producer warp keeps a 3-4 stage TMA
+//                       ring of the x tile and the two W1 tiles (128-byte
+//                       swizzle) in flight across tiles, and wgmma
+//                       m64n128k16 takes both from shared memory. The
+//                       epilogue adds b1 and applies exact GELU (erff) or
+//                       ReLU in f32 and writes bf16(h*ga) (routed, also ga
+//                       in bf16 for the scores) through a swizzled staging
+//                       tile and TMA stores, which run under the next
+//                       tile's products.
+//   2. routing stage    (routed) scores, selection, mask; see below.
+//   3. ff_down_kernel   y = prod W2^T + b2 (f32) rounded to bf16, + the
+//                       residual x in bf16: the same ring and warpgroups, 160
+//                       output channels a block (wgmma m64n160k16).
+//                       Where the grid is small (N = 1024 and 256 at H =
+//                       5120) the H depth is split over grid z; the f32 parts
+//                       are added in the order z = 0, 1, ... by
+//                       wg::split_finish_kernel (b2 added in f32 before the
+//                       rounding), so a repeat is bit-equal.
 //
-// The routing kernel (dmoe_route_multiply) is route_kernel of launch 2 on the
-// FF path that keeps hidden and gate apart (taps, neuron masks, out-weight
-// masks): it reads hidden and the activated gate as bf16 (N, H) and writes
-// bf16(hidden*gate) * mask, as the TPU routing kernel rounds it. It is bound
-// like launch 2: by the reads of hidden and gate and the write of the
-// product, and at E = 256 by streaming P twice per 32-row block.
+// The routing stage is shared with the routing kernel (dmoe_route_multiply):
 //
-// The rounding points are the JAX kernel's: ga and prod are cast to the model
-// dtype before their products, the residual is added in the model dtype.
-// GEMMs are bf16 WMMA (mma.sync) tiles with f32 accumulation, single-buffered
-// through shared memory: simple first, not yet fast (no TMA, no wgmma). The
-// GEMMs are compute-bound at SD widths; the routing pass is bound by the reads
-// of ga and h*ga and, at E = 256, by streaming P (2.6 MB, from L2) twice per
-// 32-row block.
+//   a. route_scores_kernel  S = bf16(gate) P^T in f32: a GEMM of N x E x H,
+//                           64 rows and all E <= 256 experts a block (NE
+//                           products of 64 experts), the H depth split over
+//                           grid y where the rows alone give too few blocks;
+//                           the parts are written apart, never added by
+//                           atomics.
+//   b. route_select_kernel  8 or 32 lanes a row: the parts added in split order,
+//                           the E scores in registers (8 a lane), the k-th
+//                           largest exactly by a radix select on their bits,
+//                           and an expert kept iff fewer than k experts
+//                           score strictly higher (ties kept); sel (N, E)
+//                           0/1 bf16.
+//   c. route_mask_kernel    m = sel P by wgmma with sel from registers and
+//                           the P tile as the MN-major operand, then
+//                           prod = bf16(hidden*gate*m): 128 rows (two
+//                           warpgroups on each P tile) and a run of
+//                           64-column tiles a block, P and the hidden/gate
+//                           tiles through one TMA ring (P from L2, once a
+//                           block), the products out by TMA stores; enough
+//                           blocks to fill the card.
+//
+// Rounding. JAX rounds ga to the model dtype for the score and writes
+// bf16(h*ga*m). ff_up writes bf16(h*ga) and the mask kernel bf16(bf16(h*ga)
+// * m), which equals bf16(h*ga*m) bit for bit when m is 0, 1 or 2 (zero or
+// a power of two). Every pattern the model builds gives such an m: one 1 a
+// column from taps.patterns_from_labels, zero or one after expert_remove
+// zeroes rows. A 0/1 pattern with a column of three or more ones (m an
+// integer up to E, bf16(h*ga) * m exact in f32) is rounded twice there, so
+// its product may differ from bf16(h*ga*m) by one bf16 unit in the last
+// place; the kernel takes it so, with no f32 copy of h*ga and no look at P
+// on the host. The routing kernel rounds as the TPU's does:
+// bf16(bf16(hidden*gate) * bf16(m)).
+//
+// What a row's result depends on. The depth splits of ff_down and of the
+// scores are chosen from N (ops/geglu_ff_fused.py:ff_plan,
+// ops/routing_kernel.py:route_plan), and the f32 sums are added in another
+// order with another split, so a row's bits may depend on N; at one N they do
+// not depend on the other rows (the serving engine's batch-of-one and
+// co-batched requests run at one N).
+//
+// What binds (builds with one piece taken out, on an NVIDIA H100 80GB HBM3
+// at 700 W). The work of ff_up and ff_down is tensor-core bound at SD1.5
+// widths (2 C and 1 C operations a byte of the (N, H) intermediate). ff_up's
+// products alone run at about cuBLAS's rate for x W1^T; its epilogue, the
+// erff of the exact GELU above all, adds about half again at C = 320, where
+// the depth is short: the two consumer warpgroups share a tile, so the
+// epilogue does not overlap their products (only the loads and the TMA
+// stores overlap it). The routing stage is bound by the bytes of ga and h*ga
+// read and prod written (6 bytes an element of (N, H); the routing kernel
+// 8: the gate is read by the scores and by the mask pass) at N = 16384, and
+// by its launches' latency below.
 //
 // Inference only: there is no backward.
-#include "common.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
-constexpr int G_BM = 64;            // rows per block
-constexpr int G_BN = 64;            // output columns per block
-constexpr int G_BK = 32;            // depth per shared-memory tile
-constexpr int G_LDS = G_BK + 8;     // bf16 row stride of the A/B tiles
-constexpr int G_LDC = G_BN + 4;     // f32 row stride of the epilogue staging
-constexpr int G_THREADS = 128;      // 4 warps, each a 32x32 quarter of the tile
+constexpr int BK = 64;              // depth a stage: one 128-byte swizzled row
+constexpr int ROWS_WG = 64;         // rows of a consumer warpgroup
+constexpr int UP_BN = 128;          // h and g columns an ff_up block
+constexpr int DOWN_BN = 160;        // output channels an ff_down block
+constexpr int TILE64 = 64 * 128;    // bytes of a 64 x 64 bf16 tile
+constexpr int R_THREADS = 160;      // scores: a consumer warpgroup + a producer warp
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// Loads 8 consecutive bf16 of row `gr` (zeros past the last row).
-__device__ __forceinline__ uint4 load8(const bf16* base, int gr, int n, size_t ld,
-                                       int col) {
-  if (gr >= n) return zero_u4();
-  return *reinterpret_cast<const uint4*>(base + (size_t)gr * ld + col);
+__device__ __forceinline__ __nv_bfloat162 pack2(float a, float b) {
+  return __floats2bfloat162_rn(a, b);
 }
 
-template <bool LN, bool ROUTE, bool RELU>
-__global__ void __launch_bounds__(G_THREADS) ff_up_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w1,
-    const bf16* __restrict__ b1, const float* __restrict__ ln_g,
-    const float* __restrict__ ln_b, float eps, int n, int c, int hdim,
-    bf16* __restrict__ ga_out, float* __restrict__ hg_out,
-    bf16* __restrict__ prod_out) {
-  constexpr int TILE_BYTES = (G_BM + 2 * G_BN) * G_LDS * 2;
-  constexpr int STAGE_BYTES = 2 * G_BM * G_LDC * 4;
-  __shared__ __align__(128) unsigned char smem[cmax(TILE_BYTES, STAGE_BYTES)];
-  __shared__ float s_mu[G_BM], s_rs[G_BM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bh = As + G_BM * G_LDS;
-  bf16* Bg = Bh + G_BN * G_LDS;
+// A 2-D map (inner, outer) with rows `row_bytes` apart, in boxes of 64 inner
+// x `box_outer` outer in the 128-byte swizzle.
+bool map_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+            uint64_t row_bytes, uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint64_t strides[1] = {row_bytes};
+  const uint32_t box[2] = {64, box_outer};
+  return wg::encode_bf16_map(map, base, 2, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.y * G_BM;
-  const int col0 = blockIdx.x * G_BN;  // column inside [0, hdim)
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, int smem, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  done = err == cudaSuccess;
+  return err;
+}
 
-  if (LN) {
-    // per-row statistics, one warp per row
-    for (int r = warp; r < G_BM; r += G_THREADS / 32) {
-      const int gr = row0 + r;
-      float s = 0.f, ss = 0.f;
-      if (gr < n) {
-        const bf16* xr = x + (size_t)gr * c;
-        for (int j = lane; j < c; j += 32) {
-          const float v = bf2f(xr[j]);
-          s += v;
-          ss += v * v;
-        }
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      if (lane == 0) {
-        const float mu = s / (float)c;
-        const float var = fmaxf(ss / (float)c - mu * mu, 0.f);
-        s_mu[r] = mu;
-        s_rs[r] = 1.0f / sqrtf(var + eps);
+// ------------------------------------------------------------- LayerNorm
+// V > 0: the row's V x 256 values stay in registers between the two passes
+// (C <= 256 V); V = 0: any C, read twice.
+template <int V>
+__global__ void __launch_bounds__(256) ln_rows_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ b, float eps, int n, int c,
+    bf16* __restrict__ xn) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= n) return;
+  const bf16* xr = x + (size_t)row * c;
+  bf16* out = xn + (size_t)row * c;
+  float s = 0.f, ss = 0.f;
+  alignas(16) bf16 t[V > 0 ? V : 1][8];
+  if (V > 0) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int col = (32 * v + lane) * 8;
+      *reinterpret_cast<uint4*>(t[v]) =
+          col < c ? *reinterpret_cast<const uint4*>(xr + col) : zero_u4();
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float f = bf2f(t[v][q]);
+        s += f;
+        ss += f * f;
       }
     }
-    __syncthreads();
+  } else {
+    for (int col = lane * 8; col < c; col += 256) {
+      *reinterpret_cast<uint4*>(t[0]) = *reinterpret_cast<const uint4*>(xr + col);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float f = bf2f(t[0][q]);
+        s += f;
+        ss += f * f;
+      }
+    }
   }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_h[2][2], acc_g[2][2];
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = s / (float)c;
+  const float var = fmaxf(ss / (float)c - mu * mu, 0.f);
+  const float rs = 1.0f / sqrtf(var + eps);
+  auto finish = [&](bf16 (&u)[8], int col) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int q = 0; q < 8; ++q)
+      u[q] = f2bf((bf2f(u[q]) - mu) * (rs * g[col + q]) + b[col + q]);
+    *reinterpret_cast<uint4*>(out + col) = *reinterpret_cast<const uint4*>(u);
+  };
+  if (V > 0) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc_h[i][j], 0.f);
-      wmma::fill_fragment(acc_g[i][j], 0.f);
+    for (int v = 0; v < V; ++v) {
+      const int col = (32 * v + lane) * 8;
+      if (col < c) finish(t[v], col);
     }
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  for (int k0 = 0; k0 < c; k0 += G_BK) {
-    for (int i = tid; i < G_BM * (G_BK / 8); i += G_THREADS) {
-      const int r = i / (G_BK / 8), ch = (i % (G_BK / 8)) * 8;
-      alignas(16) bf16 tmp[8];
-      *reinterpret_cast<uint4*>(tmp) = load8(x, row0 + r, n, c, k0 + ch);
-      if (LN && row0 + r < n) {
-        const float mu = s_mu[r], rs = s_rs[r];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int cc = k0 + ch + q;
-          const float mul = rs * ln_g[cc];
-          tmp[q] = f2bf((bf2f(tmp[q]) - mu) * mul + ln_b[cc]);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * G_LDS + ch) =
-          *reinterpret_cast<const uint4*>(tmp);
-    }
-    for (int i = tid; i < G_BN * (G_BK / 8); i += G_THREADS) {
-      const int r = i / (G_BK / 8), ch = (i % (G_BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bh + r * G_LDS + ch) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)(col0 + r) * c + k0 + ch);
-      *reinterpret_cast<uint4*>(Bg + r * G_LDS + ch) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)(hdim + col0 + r) * c +
-                                          k0 + ch);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < G_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bh[2], bg[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * G_LDS + kk, G_LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(bh[j], Bh + (wn + 16 * j) * G_LDS + kk, G_LDS);
-        wmma::load_matrix_sync(bg[j], Bg + (wn + 16 * j) * G_LDS + kk, G_LDS);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::mma_sync(acc_h[i][j], a[i], bh[j], acc_h[i][j]);
-          wmma::mma_sync(acc_g[i][j], a[i], bg[j], acc_g[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-  // epilogue through shared memory (the tiles are dead now)
-  float* Ch = reinterpret_cast<float*>(smem);
-  float* Cg = Ch + G_BM * G_LDC;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int off = (wm + 16 * i) * G_LDC + wn + 16 * j;
-      wmma::store_matrix_sync(Ch + off, acc_h[i][j], G_LDC, wmma::mem_row_major);
-      wmma::store_matrix_sync(Cg + off, acc_g[i][j], G_LDC, wmma::mem_row_major);
-    }
-  __syncthreads();
-  for (int i = tid; i < G_BM * G_BN; i += G_THREADS) {
-    const int r = i / G_BN, cc = i % G_BN, gr = row0 + r;
-    if (gr >= n) continue;
-    const int j = col0 + cc;
-    const float h = Ch[r * G_LDC + cc] + bf2f(b1[j]);
-    const float g = Cg[r * G_LDC + cc] + bf2f(b1[hdim + j]);
-    const float ga = RELU ? fmaxf(g, 0.f) : gelu_exact(g);
-    const size_t o = (size_t)gr * hdim + j;
-    if (ROUTE) {
-      ga_out[o] = f2bf(ga);
-      hg_out[o] = h * ga;
-    } else {
-      prod_out[o] = f2bf(h * ga);
+  } else {
+    for (int col = lane * 8; col < c; col += 256) {
+      *reinterpret_cast<uint4*>(t[0]) = *reinterpret_cast<const uint4*>(xr + col);
+      finish(t[0], col);
     }
   }
 }
 
-constexpr int R_BM = 32;            // rows per block
-constexpr int R_BK = 64;            // hidden columns per pattern tile
-constexpr int R_LDT = R_BK + 8;     // bf16 row stride of the ga and P tiles
-constexpr int R_LDM = R_BK + 4;     // f32 row stride of the mask tile
-constexpr int R_THREADS = 256;      // 8 warps
-constexpr int R_MAX_E = 256;
+// The byte offset of (row r, bf16 column col) in a 64 x 64 tile of 128-byte
+// rows in the TMA's 128-byte swizzle.
+__device__ __forceinline__ int swz(int r, int col) {
+  return r * 128 + ((((col >> 3) ^ (r & 7))) << 4) + (col & 7) * 2;
+}
 
-struct RouteLayout {
-  int ep, lds, ldsel;
-  size_t a, p, s, sel, m, total;
+// ----------------------------------------------------------------- ff_up
+template <int NWG, bool ROUTE>
+struct UpCfg {
+  static constexpr int A_BYTES = NWG * ROWS_WG * 128;
+  static constexpr int B_BYTES = UP_BN * 128;
+  static constexpr int STAGE = A_BYTES + 2 * B_BYTES;
+  // the epilogue's staging: a warpgroup's 64 x 128 tile of each output
+  // (h*ga; routed also ga) as two 64 x 64 boxes in the 128-byte swizzle
+  static constexpr int OUTS = ROUTE ? 2 : 1;
+  static constexpr int STAGING = NWG * OUTS * 2 * TILE64;
+  static constexpr int FIT = (232448 - STAGING - 2048) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int SMEM = STAGES * STAGE + STAGING + 2048;
 };
 
-__host__ __device__ inline size_t round128(size_t b) {
-  return (b + 127) & ~size_t(127);
-}
+// Persistent: block b takes tiles b, b + gridDim.x, ... of 64 NWG rows x 128
+// columns (column tiles fastest), so the producer loads the next tile's
+// chunks while the consumers run this tile's epilogue, and the epilogue's
+// TMA stores run under the next tile's products.
+template <int NWG, bool ROUTE, bool RELU>
+__global__ void __launch_bounds__(UpCfg<NWG, ROUTE>::THREADS, 1) ff_up_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap wmap,
+    const __grid_constant__ CUtensorMap hgmap,
+    const __grid_constant__ CUtensorMap gamap, const bf16* __restrict__ b1,
+    int n, int c, int hdim) {
+  using Cfg = UpCfg<NWG, ROUTE>;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::smem_base_1024(smem_raw);
+  unsigned char* staging = smem + STAGES * Cfg::STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + Cfg::STAGING);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = tid >> 7;            // 0: producer; 1..NWG: consumers
+  const int nchunks = (c + BK - 1) / BK;
+  const int col_tiles = (hdim + UP_BN - 1) / UP_BN;
+  const int tiles = (n + NWG * ROWS_WG - 1) / (NWG * ROWS_WG) * col_tiles;
 
-__host__ __device__ inline RouteLayout route_layout(int e) {
-  RouteLayout L;
-  L.ep = (e + 15) / 16 * 16;  // experts padded to the MMA width
-  L.lds = L.ep + 4;
-  L.ldsel = L.ep + 8;
-  size_t off = 0;
-  L.a = off; off += round128((size_t)R_BM * R_LDT * 2);
-  L.p = off; off += round128((size_t)L.ep * R_LDT * 2);
-  L.s = off; off += round128((size_t)R_BM * L.lds * 4);
-  L.sel = off; off += round128((size_t)R_BM * L.ldsel * 2);
-  L.m = off; off += round128((size_t)R_BM * R_LDM * 4);
-  L.total = off;
-  return L;
-}
-
-// P[:, h0:h0+R_BK] into shared memory as (ep, R_BK); rows past e are zero.
-__device__ __forceinline__ void load_pattern_tile(bf16* Ps, const bf16* pat,
-                                                  int e, int ep, int hdim,
-                                                  int h0, int tid) {
-  for (int i = tid; i < ep * (R_BK / 8); i += R_THREADS) {
-    const int r = i / (R_BK / 8), ch = (i % (R_BK / 8)) * 8;
-    *reinterpret_cast<uint4*>(Ps + r * R_LDT + ch) = load8(pat, r, e, hdim, h0 + ch);
-  }
-}
-
-// hidden * gate of one element, in f32. Launch 2 of the fused FF hands in
-// hg = h*ga already formed in f32 from the unrounded gate; the routing
-// kernel hands in hidden as bf16 and multiplies by the bf16 gate (the
-// product of two bf16 values is exact in f32).
-__device__ __forceinline__ float hidden_times_gate(const float* hg,
-                                                   const bf16*) {
-  return *hg;
-}
-__device__ __forceinline__ float hidden_times_gate(const bf16* hidden,
-                                                   const bf16* ga) {
-  return bf2f(*hidden) * bf2f(*ga);
-}
-
-// Routing as two small GEMMs on the tensor cores: scores S = ga P^T (bf16
-// products of 0/1 patterns are exact, sums in f32), the selection per row in
-// shared memory, then the neuron mask m = sel P (small integers, exact) with
-// the product epilogue prod = bf16(hidden*gate*m). Rows of hg lie ldh
-// elements apart (hidden may be the first half of the (N, 2H) projection).
-template <typename HT>
-__global__ void __launch_bounds__(R_THREADS) route_kernel(
-    const bf16* __restrict__ ga, const HT* __restrict__ hg, int ldh,
-    const bf16* __restrict__ pat, int n, int hdim, int e, int k,
-    bf16* __restrict__ prod) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RouteLayout L = route_layout(e);
-  bf16* As = reinterpret_cast<bf16*>(smem + L.a);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L.p);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-  bf16* Sel = reinterpret_cast<bf16*>(smem + L.sel);
-  float* Ms = reinterpret_cast<float*>(smem + L.m);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row0 = blockIdx.x * R_BM;
-  const int nf = L.ep / 16;  // expert column fragments; warp w owns w, w+8
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int h0 = 0; h0 < hdim; h0 += R_BK) {
-    for (int i = tid; i < R_BM * (R_BK / 8); i += R_THREADS) {
-      const int r = i / (R_BK / 8), ch = (i % (R_BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(As + r * R_LDT + ch) =
-          load8(ga, row0 + r, n, hdim, h0 + ch);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(full + s, 1);
+      wg::mbar_init(empty + s, 4 * NWG);
     }
-    load_pattern_tile(Ps, pat, e, L.ep, hdim, h0, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < R_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + 16 * i * R_LDT + kk, R_LDT);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int f = warp + 8 * j;
-        if (f >= nf) continue;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, Ps + 16 * f * R_LDT + kk, R_LDT);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (group == 0) {
+    wg::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0 && lane == 0) {
+      wg::Ring ring;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = tile / col_tiles * NWG * ROWS_WG;
+        const int col0 = tile % col_tiles * UP_BN;
+        for (int ci = 0; ci < nchunks; ++ci) {
+          wg::mbar_wait(empty + ring.stage, ring.phase ^ 1);
+          unsigned char* st = smem + ring.stage * Cfg::STAGE;
+          uint64_t* bar = full + ring.stage;
+          wg::mbar_expect_tx(bar, Cfg::STAGE);
+          wg::tma_load_2d(st, &amap, bar, ci * BK, row0);
+          wg::tma_load_2d(st + Cfg::A_BYTES, &wmap, bar, ci * BK, col0);
+          wg::tma_load_2d(st + Cfg::A_BYTES + Cfg::B_BYTES, &wmap, bar,
+                          ci * BK, hdim + col0);
+          ring.advance(STAGES);
+        }
       }
     }
-    __syncthreads();
+    return;
+  }
+
+  // ------------------------------------------------------ the consumers
+  wg::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wgi = group - 1;
+  const bool leader = (tid & 127) == 0;          // issues the WG's stores
+  unsigned char* stage_out = staging + wgi * Cfg::OUTS * 2 * TILE64;
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  wg::Ring ring;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile / col_tiles * NWG * ROWS_WG;
+    const int col0 = tile % col_tiles * UP_BN;
+    // the epilogue's biases, loaded under the main loop
+    __nv_bfloat162 bias_h[UP_BN / 8], bias_g[UP_BN / 8];
+#pragma unroll
+    for (int j = 0; j < UP_BN / 8; ++j) {
+      const int col = min(col0 + 8 * j + 2 * t, hdim - 2);
+      bias_h[j] = *reinterpret_cast<const __nv_bfloat162*>(b1 + col);
+      bias_g[j] = *reinterpret_cast<const __nv_bfloat162*>(b1 + hdim + col);
+    }
+    float acc_h[64], acc_g[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc_h[i] = 0.f;
+      acc_g[i] = 0.f;
+    }
+    int prev = 0;
+    for (int ci = 0; ci < nchunks; ++ci) {
+      wg::mbar_wait(full + ring.stage, ring.phase);
+      const unsigned char* st = smem + ring.stage * Cfg::STAGE;
+      const uint64_t ad = wg::kmajor_desc<128>(st + wgi * ROWS_WG * 128);
+      const uint64_t hd = wg::kmajor_desc<128>(st + Cfg::A_BYTES);
+      const uint64_t gd = wg::kmajor_desc<128>(st + Cfg::A_BYTES + Cfg::B_BYTES);
+      wg::fence_regs(acc_h);
+      wg::fence_regs(acc_g);
+      wg::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wg::wgmma_ss(acc_h, ad + 2 * ks, hd + 2 * ks, true);
+        wg::wgmma_ss(acc_g, ad + 2 * ks, gd + 2 * ks, true);
+      }
+      wg::wgmma_commit();
+      if (ci > 0) {
+        wg::wgmma_wait<1>();
+        if (lane == 0) wg::mbar_arrive(empty + prev);
+      }
+      prev = ring.stage;
+      ring.advance(STAGES);
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_regs(acc_h);
+    wg::fence_regs(acc_g);
+    if (lane == 0) wg::mbar_arrive(empty + prev);
+
+    // the epilogue: the previous tile's stores have read the staging
+    if (leader) wg::bulk_wait_read();
+    wg::named_sync(2 + wgi, 128);
+    // this thread: rows 16 w + g and + 8 of its warpgroup's 64, columns
+    // 8 j + 2 t + {0, 1} of the tile's 128
+#pragma unroll
+    for (int j = 0; j < UP_BN / 8; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      if (col < hdim) {
+        const __nv_bfloat162 bh = bias_h[j], bg = bias_g[j];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * w + g + 8 * half;
+          const float h0 = acc_h[4 * j + 2 * half] + bf2f(bh.x);
+          const float h1 = acc_h[4 * j + 2 * half + 1] + bf2f(bh.y);
+          const float g0 = acc_g[4 * j + 2 * half] + bf2f(bg.x);
+          const float g1 = acc_g[4 * j + 2 * half + 1] + bf2f(bg.y);
+          const float a0 = RELU ? fmaxf(g0, 0.f) : gelu_exact(g0);
+          const float a1 = RELU ? fmaxf(g1, 0.f) : gelu_exact(g1);
+          const int off = (j >> 3) * TILE64 + swz(r, 8 * (j & 7) + 2 * t);
+          *reinterpret_cast<__nv_bfloat162*>(stage_out + off) = pack2(h0 * a0, h1 * a1);
+          if (ROUTE)
+            *reinterpret_cast<__nv_bfloat162*>(stage_out + 2 * TILE64 + off) =
+                pack2(a0, a1);
+        }
+      }
+    }
+    wg::fence_proxy_async();
+    wg::named_sync(2 + wgi, 128);
+    if (leader) {
+      const int r0 = row0 + wgi * ROWS_WG;
+#pragma unroll
+      for (int box = 0; box < 2; ++box) {
+        if (col0 + 64 * box < hdim) {
+          wg::tma_store_2d(&hgmap, stage_out + box * TILE64, col0 + 64 * box, r0);
+          if (ROUTE)
+            wg::tma_store_2d(&gamap, stage_out + (2 + box) * TILE64,
+                             col0 + 64 * box, r0);
+        }
+      }
+      wg::bulk_commit();
+    }
+  }
+  if (leader) wg::bulk_wait();
+}
+
+// --------------------------------------------------------------- ff_down
+template <int NWG>
+struct DownCfg {
+  static constexpr int A_BYTES = NWG * ROWS_WG * 128;
+  static constexpr int B_BYTES = DOWN_BN * 128;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int STAGES = NWG == 2 ? 5 : 6;
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int SMEM = STAGES * STAGE + 2048;
+};
+
+// The epilogue of the block's 160 output channels from registers (this
+// thread: rows r0 and r0 + 8, channels col + 8 j + {0, 1}): the biases and
+// residuals are all loaded first, so that their loads are in flight
+// together.
+template <bool SPLIT, bool RESID>
+__device__ __forceinline__ void down_store(const float (&acc)[80], int r0,
+                                           int col, int n, int c,
+                                           const bf16* __restrict__ b2,
+                                           const bf16* __restrict__ x,
+                                           bf16* __restrict__ y,
+                                           float* __restrict__ part) {
+  constexpr int J = DOWN_BN / 8;
+  if (SPLIT) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half, cc = col + 8 * j;
+        if (row < n && cc < c)
+          *reinterpret_cast<float2*>(part + (size_t)row * c + cc) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    return;
+  }
+  __nv_bfloat162 bb[J], xx[J][2];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int cc = min(col + 8 * j, c - 2);
+    bb[j] = *reinterpret_cast<const __nv_bfloat162*>(b2 + cc);
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      if (RESID)
+        xx[j][half] = *reinterpret_cast<const __nv_bfloat162*>(
+            x + (size_t)min(r0 + 8 * half, n - 1) * c + cc);
   }
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int f = warp + 8 * j;
-    if (f >= nf) continue;
+  for (int j = 0; j < J; ++j) {
+    const int cc = col + 8 * j;
+    if (cc < c) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::store_matrix_sync(Ss + 16 * i * L.lds + 16 * f, acc[i][j], L.lds,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // exact threshold selection: kept iff fewer than k experts score higher
-  for (int pr = tid; pr < R_BM * L.ep; pr += R_THREADS) {
-    const int r = pr / L.ep, ei = pr % L.ep;
-    float keep = 0.f;
-    if (ei < e) {
-      const float s = Ss[r * L.lds + ei];
-      int beats = 0;
-      for (int e2 = 0; e2 < e; ++e2) beats += Ss[r * L.lds + e2] > s;
-      keep = beats < k ? 1.f : 0.f;
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        if (row < n) {
+          bf16 o0 = f2bf(acc[4 * j + 2 * half] + bf2f(bb[j].x));
+          bf16 o1 = f2bf(acc[4 * j + 2 * half + 1] + bf2f(bb[j].y));
+          if (RESID) {
+            o0 = f2bf(bf2f(xx[j][half].x) + bf2f(o0));
+            o1 = f2bf(bf2f(xx[j][half].y) + bf2f(o1));
+          }
+          __nv_bfloat162 out;
+          out.x = o0;
+          out.y = o1;
+          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * c + cc) = out;
+        }
+      }
     }
-    Sel[r * L.ldsel + ei] = f2bf(keep);
-  }
-  __syncthreads();
-
-  // neuron mask m = sel P, 64 hidden columns at a time, and the product
-  const int fi = warp >> 2, fj = warp & 3;  // the warp's 16x16 piece of 32x64
-  for (int h0 = 0; h0 < hdim; h0 += R_BK) {
-    load_pattern_tile(Ps, pat, e, L.ep, hdim, h0, tid);
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> macc;
-    wmma::fill_fragment(macc, 0.f);
-    for (int kk = 0; kk < L.ep; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, Sel + 16 * fi * L.ldsel + kk, L.ldsel);
-      wmma::load_matrix_sync(b, Ps + kk * R_LDT + 16 * fj, R_LDT);
-      wmma::mma_sync(macc, a, b, macc);
-    }
-    wmma::store_matrix_sync(Ms + 16 * fi * R_LDM + 16 * fj, macc, R_LDM,
-                            wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < R_BM * R_BK; i += R_THREADS) {
-      const int r = i / R_BK, j = i % R_BK, gr = row0 + r;
-      if (gr >= n) continue;
-      const size_t o = (size_t)gr * hdim + h0 + j;
-      const float hgv = hidden_times_gate(hg + (size_t)gr * ldh + h0 + j, ga + o);
-      prod[o] = f2bf(hgv * Ms[r * R_LDM + j]);
-    }
-    __syncthreads();  // Ps and Ms are rewritten by the next tile
   }
 }
 
-template <bool RESID>
-__global__ void __launch_bounds__(G_THREADS) ff_down_kernel(
-    const bf16* __restrict__ prod, const bf16* __restrict__ w2,
-    const bf16* __restrict__ b2, const bf16* __restrict__ x, int n, int c,
-    int hdim, bf16* __restrict__ y) {
-  constexpr int TILE_BYTES = (G_BM + G_BN) * G_LDS * 2;
-  constexpr int STAGE_BYTES = G_BM * G_LDC * 4;
-  __shared__ __align__(128) unsigned char smem[cmax(TILE_BYTES, STAGE_BYTES)];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + G_BM * G_LDS;
+template <int NWG, bool SPLIT, bool RESID>
+__global__ void __launch_bounds__(DownCfg<NWG>::THREADS, 1) ff_down_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ b2,
+    const bf16* __restrict__ x, int n, int c, int hdim, int per,
+    bf16* __restrict__ y, float* __restrict__ partial) {
+  using Cfg = DownCfg<NWG>;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::smem_base_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Cfg::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = tid >> 7;
+  const int row0 = blockIdx.y * NWG * ROWS_WG, col0 = blockIdx.x * DOWN_BN;
+  const int chunk0 = blockIdx.z * per;
+  const int nc = min(per, hdim / BK - chunk0);   // >= 1 by the plan
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row0 = blockIdx.y * G_BM;
-  const int col0 = blockIdx.x * G_BN;  // output column inside [0, c)
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < hdim; k0 += G_BK) {
-    for (int i = tid; i < G_BM * (G_BK / 8); i += G_THREADS) {
-      const int r = i / (G_BK / 8), ch = (i % (G_BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(As + r * G_LDS + ch) =
-          load8(prod, row0 + r, n, hdim, k0 + ch);
-      *reinterpret_cast<uint4*>(Bs + r * G_LDS + ch) =
-          load8(w2, col0 + r, c, hdim, k0 + ch);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(full + s, 1);
+      wg::mbar_init(empty + s, 4 * NWG);
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < G_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * G_LDS + kk, G_LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn + 16 * j) * G_LDS + kk, G_LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    wg::mbar_fence_init();
   }
-
-  float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * G_LDC + wn + 16 * j, acc[i][j],
-                              G_LDC, wmma::mem_row_major);
   __syncthreads();
-  for (int i = tid; i < G_BM * G_BN; i += G_THREADS) {
-    const int r = i / G_BN, cc = i % G_BN, gr = row0 + r, gc = col0 + cc;
-    if (gr >= n || gc >= c) continue;
-    const size_t o = (size_t)gr * c + gc;
-    bf16 out = f2bf(Cs[r * G_LDC + cc] + bf2f(b2[gc]));
-    if (RESID) out = f2bf(bf2f(x[o]) + bf2f(out));
-    y[o] = out;
+
+  if (group == 0) {
+    wg::setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == 0 && lane == 0) {
+      wg::Ring ring;
+      for (int ci = 0; ci < nc; ++ci) {
+        wg::mbar_wait(empty + ring.stage, ring.phase ^ 1);
+        unsigned char* st = smem + ring.stage * Cfg::STAGE;
+        uint64_t* bar = full + ring.stage;
+        wg::mbar_expect_tx(bar, Cfg::STAGE);
+        wg::tma_load_2d(st, &amap, bar, (chunk0 + ci) * BK, row0);
+        wg::tma_load_2d(st + Cfg::A_BYTES, &wmap, bar, (chunk0 + ci) * BK, col0);
+        ring.advance(STAGES);
+      }
+    }
+    return;
   }
+
+  wg::setmaxnreg_inc<CONSUMER_REGS>();
+  const int wgi = group - 1;
+  float acc[80];
+#pragma unroll
+  for (int i = 0; i < 80; ++i) acc[i] = 0.f;
+  wg::Ring ring;
+  int prev = 0;
+  for (int ci = 0; ci < nc; ++ci) {
+    wg::mbar_wait(full + ring.stage, ring.phase);
+    const unsigned char* st = smem + ring.stage * Cfg::STAGE;
+    const uint64_t ad = wg::kmajor_desc<128>(st + wgi * ROWS_WG * 128);
+    const uint64_t bd = wg::kmajor_desc<128>(st + Cfg::A_BYTES);
+    wg::fence_regs(acc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg::wgmma_ss(acc, ad + 2 * ks, bd + 2 * ks, true);
+    wg::wgmma_commit();
+    if (ci > 0) {
+      wg::wgmma_wait<1>();
+      if (lane == 0) wg::mbar_arrive(empty + prev);
+    }
+    prev = ring.stage;
+    ring.advance(STAGES);
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_regs(acc);
+
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + wgi * ROWS_WG + 16 * w + g;
+  float* part = SPLIT ? partial + (size_t)blockIdx.z * n * c : nullptr;
+  down_store<SPLIT, RESID>(acc, r0, col0 + 2 * t, n, c, b2, x, y, part);
 }
 
-template <bool LN, bool ROUTE>
-cudaError_t launch_up(bool relu, dim3 grid, cudaStream_t st, const bf16* x,
-                      const bf16* w1, const bf16* b1, const float* g,
-                      const float* b, float eps, int n, int c, int hdim,
-                      bf16* ga, float* hg, bf16* prod) {
-  if (relu)
-    ff_up_kernel<LN, ROUTE, true><<<grid, G_THREADS, 0, st>>>(
-        x, w1, b1, g, b, eps, n, c, hdim, ga, hg, prod);
-  else
-    ff_up_kernel<LN, ROUTE, false><<<grid, G_THREADS, 0, st>>>(
-        x, w1, b1, g, b, eps, n, c, hdim, ga, hg, prod);
+// ------------------------------------------------------- routing: scores
+template <int NE>
+struct ScoreCfg {
+  static constexpr int STAGE = TILE64 * (1 + NE);
+  static constexpr int STAGES = 4;
+  static constexpr int SMEM = STAGES * STAGE + 2048;
+};
+
+// partial[s] (N, epad) f32 = gate[:, depth chunks of split s] P^T over the
+// same chunks; 64 rows a block (grid x), split s = grid y.
+template <int NE>
+__global__ void __launch_bounds__(R_THREADS) route_scores_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap pmap, int n, int nchunks, int per,
+    float* __restrict__ partial) {
+  constexpr int EPAD = 64 * NE;
+  using Cfg = ScoreCfg<NE>;
+  constexpr int STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::smem_base_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Cfg::STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * ROWS_WG;
+  const int chunk0 = blockIdx.y * per;
+  const int nc = min(per, nchunks - chunk0);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(full + s, 1);
+      wg::mbar_init(empty + s, 4);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    if (lane == 0) {
+      wg::Ring ring;
+      for (int ci = 0; ci < nc; ++ci) {
+        wg::mbar_wait(empty + ring.stage, ring.phase ^ 1);
+        unsigned char* st = smem + ring.stage * Cfg::STAGE;
+        uint64_t* bar = full + ring.stage;
+        const int k0 = (chunk0 + ci) * BK;
+        wg::mbar_expect_tx(bar, Cfg::STAGE);
+        wg::tma_load_2d(st, &amap, bar, k0, row0);
+#pragma unroll
+        for (int et = 0; et < NE; ++et)
+          wg::tma_load_2d(st + TILE64 * (1 + et), &pmap, bar, k0, 64 * et);
+        ring.advance(STAGES);
+      }
+    }
+    return;
+  }
+
+  float acc[NE][32];
+#pragma unroll
+  for (int et = 0; et < NE; ++et)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[et][i] = 0.f;
+  wg::Ring ring;
+  int prev = 0;
+  for (int ci = 0; ci < nc; ++ci) {
+    wg::mbar_wait(full + ring.stage, ring.phase);
+    const unsigned char* st = smem + ring.stage * Cfg::STAGE;
+    const uint64_t ad = wg::kmajor_desc<128>(st);
+#pragma unroll
+    for (int et = 0; et < NE; ++et) wg::fence_regs(acc[et]);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int et = 0; et < NE; ++et)
+        wg::wgmma_ss(acc[et], ad + 2 * ks,
+                     wg::kmajor_desc<128>(st + TILE64 * (1 + et)) + 2 * ks, true);
+    wg::wgmma_commit();
+    if (ci > 0) {
+      wg::wgmma_wait<1>();
+      if (lane == 0) wg::mbar_arrive(empty + prev);
+    }
+    prev = ring.stage;
+    ring.advance(STAGES);
+  }
+  wg::wgmma_wait<0>();
+#pragma unroll
+  for (int et = 0; et < NE; ++et) wg::fence_regs(acc[et]);
+
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + 16 * warp + g;
+  float* part = partial + (size_t)blockIdx.y * n * EPAD;
+#pragma unroll
+  for (int et = 0; et < NE; ++et)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + 8 * half;
+        if (row < n)
+          *reinterpret_cast<float2*>(part + (size_t)row * EPAD + 64 * et +
+                                     8 * j + 2 * t) =
+              make_float2(acc[et][4 * j + 2 * half],
+                          acc[et][4 * j + 2 * half + 1]);
+      }
+}
+
+// ---------------------------------------------------- routing: selection
+// A score's 32-bit key in the order of the floats (-0 taken as +0).
+__device__ __forceinline__ uint32_t order_key(float f) {
+  const uint32_t u = __float_as_uint(f + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// L lanes a row (8 at E <= 64, else 32; 32 / L rows a warp),
+// NQ = EPAD / L scores a lane: score = the split parts added in order; then
+// the k-th largest score exactly, by a radix select on the keys from the top
+// bit down (T: the largest key that at least k keys reach, 32 steps of a
+// count summed over the row's lanes); expert e is kept iff e < E and its key
+// reaches T, i.e. fewer than k experts score strictly higher (ties kept).
+// sel (N, EPAD) 0/1 bf16, zero past E.
+template <int EPAD>
+__global__ void __launch_bounds__(256) route_select_kernel(
+    const float* __restrict__ partial, int nsplit, int n, int e, int k,
+    bf16* __restrict__ sel) {
+  constexpr int L = EPAD == 64 ? 8 : 32;
+  constexpr int NQ = EPAD / L;
+  const int lane = threadIdx.x & 31, sub = lane % L;
+  const int row0 = (blockIdx.x * 8 + (threadIdx.x >> 5)) * (32 / L);
+  if (row0 >= n) return;                      // the whole warp
+  const int row = row0 + lane / L;
+  const bool live = row < n;
+  float s[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) s[q] = 0.f;
+  if (live) {
+    const float* p = partial + (size_t)row * EPAD + sub;
+    const size_t plane = (size_t)n * EPAD;
+#pragma unroll 4
+    for (int sp = 0; sp < nsplit; ++sp)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) s[q] += p[sp * plane + L * q];
+  }
+  uint32_t key[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+    key[q] = live && sub + L * q < e ? order_key(s[q]) : 0u;
+  uint32_t kth = 0;
+#pragma unroll 4
+  for (int b = 31; b >= 0; --b) {
+    const uint32_t cand = kth | (1u << b);
+    int c = 0;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) c += key[q] >= cand;
+    if (L == 32) {
+      c = __reduce_add_sync(0xffffffffu, c);
+    } else {
+#pragma unroll
+      for (int o = L / 2; o > 0; o >>= 1) c += __shfl_xor_sync(0xffffffffu, c, o);
+    }
+    if (c >= k) kth = cand;
+  }
+  if (!live) return;
+  bf16* out = sel + (size_t)row * EPAD + sub;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+    out[L * q] = f2bf(sub + L * q < e && key[q] >= kth ? 1.f : 0.f);
+}
+
+// --------------------------------------------------------- routing: mask
+template <int NE, bool HID>
+struct MaskCfg {
+  static constexpr int ROWS = 2 * ROWS_WG;         // two consumer warpgroups
+  static constexpr int THREADS = 2 * 128 + 32;     // and a producer warp
+  static constexpr int P_BYTES = NE * TILE64;
+  static constexpr int D_BYTES = (HID ? 2 : 1) * 2 * TILE64;
+  static constexpr int STAGE = P_BYTES + D_BYTES;
+  static constexpr int PITCH = 64 * NE + 8;        // bf16 of a sel row
+  // the selection rows, then (once in registers) the products' staging:
+  // a warpgroup's 64 x 64 tile for each warpgroup
+  static constexpr int SEL_BYTES = (ROWS * PITCH * 2 + 1023) / 1024 * 1024;
+  static constexpr int OUT_BYTES = 2 * TILE64;
+  static constexpr int SHARED = SEL_BYTES > OUT_BYTES ? SEL_BYTES : OUT_BYTES;
+  // as many stages (at most 4) as leave two blocks an SM at E <= 64
+  // (routing_kernel.py:mask_blocks_per_sm), one block otherwise: at E = 128
+  // two blocks of two stages waited on their loads
+  static constexpr int BUDGET = NE == 1 ? 115712 : 232448;
+  static constexpr int FIT = (BUDGET - SHARED - 2048) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static_assert(STAGES >= 2, "the ring needs two stages");
+  static constexpr int SMEM = STAGES * STAGE + SHARED + 2048;
+};
+
+// m = sel P and out = bf16(hidden * gate * m) over 128 rows (grid x) and a
+// run of `per` 64-column tiles (grid y): each P tile serves both consumer
+// warpgroups. HID: the routing kernel (hidden and gate tiles,
+// bf16(bf16(hidden * gate) * bf16(m))); else the FF's stage (the h*ga tile,
+// bf16(bf16(h*ga) * m)).
+template <int NE, bool HID>
+__global__ void __launch_bounds__(MaskCfg<NE, HID>::THREADS) route_mask_kernel(
+    const __grid_constant__ CUtensorMap pmap,
+    const __grid_constant__ CUtensorMap dmap0,
+    const __grid_constant__ CUtensorMap dmap1,
+    const __grid_constant__ CUtensorMap omap, const bf16* __restrict__ sel,
+    int n, int hdim, int per) {
+  using Cfg = MaskCfg<NE, HID>;
+  constexpr int STAGES = Cfg::STAGES, PITCH = Cfg::PITCH, EPAD = 64 * NE;
+  constexpr int DTILE = 2 * TILE64;               // a data tile of 128 rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = wg::smem_base_1024(smem_raw);
+  unsigned char* shared = smem + STAGES * Cfg::STAGE;
+  bf16* sel_s = reinterpret_cast<bf16*>(shared);
+  uint64_t* full = reinterpret_cast<uint64_t*>(shared + Cfg::SHARED);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * Cfg::ROWS;
+  const int tile0 = blockIdx.y * per;
+  const int nt = min(per, hdim / 64 - tile0);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(full + s, 1);
+      wg::mbar_init(empty + s, 8);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    if (lane == 0) {
+      wg::Ring ring;
+      for (int i = 0; i < nt; ++i) {
+        wg::mbar_wait(empty + ring.stage, ring.phase ^ 1);
+        unsigned char* st = smem + ring.stage * Cfg::STAGE;
+        uint64_t* bar = full + ring.stage;
+        const int col = (tile0 + i) * 64;
+        wg::mbar_expect_tx(bar, Cfg::STAGE);
+#pragma unroll
+        for (int et = 0; et < NE; ++et)
+          wg::tma_load_2d(st + TILE64 * et, &pmap, bar, col, 64 * et);
+        wg::tma_load_2d(st + Cfg::P_BYTES, &dmap0, bar, col, row0);
+        if (HID) wg::tma_load_2d(st + Cfg::P_BYTES + DTILE, &dmap1, bar, col, row0);
+        ring.advance(STAGES);
+      }
+    }
+    return;
+  }
+
+  // the block's selection rows into shared memory, then into A fragments
+  for (int v = tid; v < Cfg::ROWS * (EPAD / 8); v += 256) {
+    const int r = v / (EPAD / 8), cv = (v % (EPAD / 8)) * 8;
+    const uint4 val = row0 + r < n ? *reinterpret_cast<const uint4*>(
+                                         sel + (size_t)(row0 + r) * EPAD + cv)
+                                   : zero_u4();
+    *reinterpret_cast<uint4*>(sel_s + r * PITCH + cv) = val;
+  }
+  wg::named_sync(1, 256);
+  const int wgi = tid >> 7, w = warp & 3;
+  uint32_t a[4 * NE][4];
+  const uint32_t a_base = wg::smem_u32(
+      sel_s + (64 * wgi + 16 * w + (lane & 15)) * PITCH + (lane >> 4) * 8);
+#pragma unroll
+  for (int ks = 0; ks < 4 * NE; ++ks) wg::ldsm_x4(a[ks], a_base + ks * 32);
+  wg::named_sync(1, 256);          // the selection area becomes the staging
+
+  const bool leader = (tid & 127) == 0;
+  const int g = lane >> 2, t = lane & 3;
+  wg::Ring ring;
+  for (int i = 0; i < nt; ++i) {
+    const int col0 = (tile0 + i) * 64;
+    wg::mbar_wait(full + ring.stage, ring.phase);
+    const unsigned char* st = smem + ring.stage * Cfg::STAGE;
+    float acc[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+    wg::fence_regs(acc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int et = 0; et < NE; ++et)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wg::wgmma_rs_mn(acc, a[4 * et + ks],
+                        wg::mnmajor_desc<128>(st + TILE64 * et + ks * 16 * 128,
+                                              TILE64));
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+    wg::fence_regs(acc);
+
+    // the product into this warpgroup's staging tile (once the store of
+    // the tile before has read it), the stage back to the producer, the
+    // staging tile out by TMA
+    const unsigned char* d0 = st + Cfg::P_BYTES + wgi * TILE64;
+    unsigned char* ob = shared + wgi * TILE64;
+    if (leader) wg::bulk_wait_read();
+    wg::named_sync(2 + wgi, 128);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * w + g + 8 * half, row = row0 + 64 * wgi + r;
+        if (row < n) {
+          const int cl = 8 * j + 2 * t;
+          const int off = swz(r, cl);
+          const float m0 = acc[4 * j + 2 * half], m1 = acc[4 * j + 2 * half + 1];
+          const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(d0 + off);
+          float v0, v1;
+          if (HID) {
+            const __nv_bfloat162 gv =
+                *reinterpret_cast<const __nv_bfloat162*>(d0 + DTILE + off);
+            v0 = bf2f(f2bf(bf2f(hv.x) * bf2f(gv.x))) * bf2f(f2bf(m0));
+            v1 = bf2f(f2bf(bf2f(hv.y) * bf2f(gv.y))) * bf2f(f2bf(m1));
+          } else {
+            v0 = bf2f(hv.x) * m0;
+            v1 = bf2f(hv.y) * m1;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(ob + off) = pack2(v0, v1);
+        }
+      }
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(empty + ring.stage);
+    wg::fence_proxy_async();
+    wg::named_sync(2 + wgi, 128);
+    if (leader) {
+      wg::tma_store_2d(&omap, ob, col0, row0 + 64 * wgi);
+      wg::bulk_commit();
+    }
+    ring.advance(STAGES);
+  }
+  if (leader) wg::bulk_wait();
+}
+
+// ----------------------------------------------------------- launchers
+template <int NE>
+cudaError_t launch_scores(const CUtensorMap& amap, const CUtensorMap& pmap,
+                          int n, int hdim, int e, int k, int split, int per,
+                          float* partial, bf16* sel, cudaStream_t st) {
+  static bool done = false;
+  auto kernel = route_scores_kernel<NE>;
+  cudaError_t err = configure(kernel, ScoreCfg<NE>::SMEM, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + ROWS_WG - 1) / ROWS_WG, split);
+  kernel<<<grid, R_THREADS, ScoreCfg<NE>::SMEM, st>>>(amap, pmap, n, hdim / BK,
+                                                      per, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int rows = NE == 1 ? 32 : 8;      // a block's (8 warps)
+  route_select_kernel<64 * NE><<<(n + rows - 1) / rows, 256, 0, st>>>(
+      partial, split, n, e, k, sel);
   return cudaGetLastError();
 }
 
-template <typename HT>
-int launch_route(const bf16* ga, const HT* hg, int ldh, const void* pat, int n,
-                 int hdim, int e, int k, void* prod, void* stream) {
-  const RouteLayout L = route_layout(e);
-  cudaError_t err = cudaFuncSetAttribute(
-      route_kernel<HT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + R_BM - 1) / R_BM);
-  route_kernel<HT><<<grid, R_THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
-      ga, hg, ldh, static_cast<const bf16*>(pat), n, hdim, e, k,
-      static_cast<bf16*>(prod));
-  return static_cast<int>(cudaGetLastError());
+template <int NE, bool HID>
+cudaError_t launch_mask(const CUtensorMap& pmap, const CUtensorMap& d0,
+                        const CUtensorMap& d1, const CUtensorMap& omap,
+                        const bf16* sel, int n, int hdim, int per,
+                        cudaStream_t st) {
+  static bool done = false;
+  auto kernel = route_mask_kernel<NE, HID>;
+  constexpr int smem = MaskCfg<NE, HID>::SMEM;
+  cudaError_t err = configure(kernel, smem, done);
+  if (err != cudaSuccess) return err;
+  const int tiles = hdim / 64, rows = MaskCfg<NE, HID>::ROWS;
+  const dim3 grid((n + rows - 1) / rows, (tiles + per - 1) / per);
+  kernel<<<grid, MaskCfg<NE, HID>::THREADS, smem, st>>>(pmap, d0, d1, omap, sel,
+                                                        n, hdim, per);
+  return cudaGetLastError();
+}
+
+// The routing stage: scores, selection, mask. `data` is h*ga (FF) or
+// hidden (routing kernel, rows ld apart) with `gate` beside it.
+struct RouteArgs {
+  const bf16 *score_in, *data, *gate, *pat;
+  int ld, n, hdim, e, k, split, per, mask_per;
+  float* partial;
+  bf16 *sel, *out;
+  cudaStream_t st;
+};
+
+template <bool HID>
+cudaError_t route_stage(const RouteArgs& r) {
+  const int ne = (r.e + 63) / 64;
+  CUtensorMap amap, pmap, d0, d1, omap;
+  const uint64_t row = (uint64_t)r.hdim * 2;
+  if (!map_2d(&amap, r.score_in, r.hdim, r.n, row, 64) ||
+      !map_2d(&pmap, r.pat, r.hdim, r.e, row, 64) ||
+      !map_2d(&d0, r.data, r.hdim, r.n, (uint64_t)r.ld * 2, 128) ||
+      !map_2d(&d1, r.gate, r.hdim, r.n, row, 128) ||
+      !map_2d(&omap, r.out, r.hdim, r.n, row, 64))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (ne) {
+    case 1: err = launch_scores<1>(amap, pmap, r.n, r.hdim, r.e, r.k, r.split, r.per, r.partial, r.sel, r.st); break;
+    case 2: err = launch_scores<2>(amap, pmap, r.n, r.hdim, r.e, r.k, r.split, r.per, r.partial, r.sel, r.st); break;
+    case 3: err = launch_scores<3>(amap, pmap, r.n, r.hdim, r.e, r.k, r.split, r.per, r.partial, r.sel, r.st); break;
+    case 4: err = launch_scores<4>(amap, pmap, r.n, r.hdim, r.e, r.k, r.split, r.per, r.partial, r.sel, r.st); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  switch (ne) {
+    case 1: return launch_mask<1, HID>(pmap, d0, d1, omap, r.sel, r.n, r.hdim, r.mask_per, r.st);
+    case 2: return launch_mask<2, HID>(pmap, d0, d1, omap, r.sel, r.n, r.hdim, r.mask_per, r.st);
+    case 3: return launch_mask<3, HID>(pmap, d0, d1, omap, r.sel, r.n, r.hdim, r.mask_per, r.st);
+    default: return launch_mask<4, HID>(pmap, d0, d1, omap, r.sel, r.n, r.hdim, r.mask_per, r.st);
+  }
+}
+
+struct UpArgs {
+  CUtensorMap amap, wmap, hgmap, gamap;
+  const bf16* b1;
+  int n, c, hdim, ctas;
+  cudaStream_t st;
+};
+
+template <int NWG, bool ROUTE, bool RELU>
+cudaError_t launch_up(const UpArgs& a) {
+  using Cfg = UpCfg<NWG, ROUTE>;
+  static bool done = false;
+  auto kernel = ff_up_kernel<NWG, ROUTE, RELU>;
+  cudaError_t err = configure(kernel, Cfg::SMEM, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.ctas, Cfg::THREADS, Cfg::SMEM, a.st>>>(
+      a.amap, a.wmap, a.hgmap, a.gamap, a.b1, a.n, a.c, a.hdim);
+  return cudaGetLastError();
+}
+
+template <int NWG>
+cudaError_t dispatch_up(bool route, bool relu, const UpArgs& a) {
+  if (route)
+    return relu ? launch_up<NWG, true, true>(a) : launch_up<NWG, true, false>(a);
+  return relu ? launch_up<NWG, false, true>(a) : launch_up<NWG, false, false>(a);
+}
+
+template <int NWG, bool SPLIT, bool RESID>
+cudaError_t launch_down(const CUtensorMap& amap, const CUtensorMap& wmap,
+                        const bf16* b2, const bf16* x, int n, int c, int hdim,
+                        int split, int per, bf16* y, float* partial,
+                        cudaStream_t st) {
+  static bool done = false;
+  auto kernel = ff_down_kernel<NWG, SPLIT, RESID>;
+  cudaError_t err = configure(kernel, DownCfg<NWG>::SMEM, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((c + DOWN_BN - 1) / DOWN_BN,
+                  (n + NWG * ROWS_WG - 1) / (NWG * ROWS_WG), split);
+  kernel<<<grid, DownCfg<NWG>::THREADS, DownCfg<NWG>::SMEM, st>>>(
+      amap, wmap, b2, x, n, c, hdim, per, y, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !SPLIT) return err;
+  // y = bf16(sum of the parts + b2) (+ x in bf16), as the unsplit epilogue
+  wg::launch_split_finish(partial, split, n, 1, c, b2, 0, x, y, st, true);
+  return cudaGetLastError();
+}
+
+template <int NWG>
+cudaError_t dispatch_down(bool split, bool resid, const CUtensorMap& amap,
+                          const CUtensorMap& wmap, const bf16* b2,
+                          const bf16* x, int n, int c, int hdim, int nsplit,
+                          int per, bf16* y, float* partial, cudaStream_t st) {
+  if (split)
+    return resid ? launch_down<NWG, true, true>(amap, wmap, b2, x, n, c, hdim, nsplit, per, y, partial, st)
+                 : launch_down<NWG, true, false>(amap, wmap, b2, x, n, c, hdim, nsplit, per, y, partial, st);
+  return resid ? launch_down<NWG, false, true>(amap, wmap, b2, x, n, c, hdim, nsplit, per, y, partial, st)
+               : launch_down<NWG, false, false>(amap, wmap, b2, x, n, c, hdim, nsplit, per, y, partial, st);
 }
 
 }  // namespace
@@ -453,72 +984,107 @@ const char* dmoe_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch 1. x (n, c), w1 (2*hdim, c), b1 (2*hdim) bf16; ln_g/ln_b (c) f32 or
-// null. Requires c % 32 == 0 and hdim % 64 == 0 (checked by the wrapper).
-// route != 0 writes ga (n, hdim) bf16 and hg (n, hdim) f32; otherwise prod.
-int dmoe_ff_up(const void* x, const void* w1, const void* b1, const void* ln_g,
-               const void* ln_b, float eps, int n, int c, int hdim, int relu,
-               int route, void* ga, void* hg, void* prod, void* stream) {
-  const dim3 grid(hdim / G_BN, (n + G_BM - 1) / G_BM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto X = static_cast<const bf16*>(x);
-  auto W = static_cast<const bf16*>(w1);
-  auto B = static_cast<const bf16*>(b1);
-  auto G = static_cast<const float*>(ln_g);
-  auto Bb = static_cast<const float*>(ln_b);
-  auto GA = static_cast<bf16*>(ga);
-  auto HG = static_cast<float*>(hg);
-  auto P = static_cast<bf16*>(prod);
-  cudaError_t err;
+// Launches 0-2 of the fused FF: the LN pass (ln_g, ln_b (c) f32, or both
+// null: no LN), ff_up and, with pat (e, hdim) bf16 (e <= 256, 1 <= k <= e),
+// the routing stage; the result, prod (n, hdim) bf16, is what ff_down
+// reads. x (n, c), w1 (2 hdim, c), b1 (2 hdim) bf16; c % 32 == 0 and
+// hdim % 64 == 0 (checked by the wrapper). Scratch: xn (n, c) bf16 with LN;
+// routed, ga and hg (n, hdim) bf16, partial (split, n, epad) f32 and sel
+// (n, epad) bf16, epad = 64 ceil(e / 64). The plan is the wrapper's
+// (geglu_ff_fused.py:ff_plan): up_wgs consumer warpgroups and up_ctas
+// persistent blocks of ff_up, the scores' depth split into `split` parts of
+// `per` 64-deep chunks, `mask_per` 64-column tiles a mask block.
+int dmoe_ff_front(const void* x, const void* w1, const void* b1,
+                  const void* ln_g, const void* ln_b, float eps,
+                  const void* pat, int e, int k, int n, int c, int hdim,
+                  int relu, int up_wgs, int up_ctas, int split, int per,
+                  int mask_per, void* xn, void* ga, void* hg, void* partial,
+                  void* sel, void* prod,
+                  void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* a = static_cast<const bf16*>(x);
   if (ln_g != nullptr) {
-    err = route ? launch_up<true, true>(relu, grid, st, X, W, B, G, Bb, eps, n, c,
-                                        hdim, GA, HG, P)
-                : launch_up<true, false>(relu, grid, st, X, W, B, G, Bb, eps, n,
-                                         c, hdim, GA, HG, P);
-  } else {
-    err = route ? launch_up<false, true>(relu, grid, st, X, W, B, G, Bb, eps, n,
-                                         c, hdim, GA, HG, P)
-                : launch_up<false, false>(relu, grid, st, X, W, B, G, Bb, eps, n,
-                                          c, hdim, GA, HG, P);
+    const auto G = static_cast<const float*>(ln_g);
+    const auto Bb = static_cast<const float*>(ln_b);
+    const auto XN = static_cast<bf16*>(xn);
+    const int blocks = (n + 7) / 8;
+    switch ((c + 255) / 256) {
+      case 1: ln_rows_kernel<1><<<blocks, 256, 0, st>>>(a, G, Bb, eps, n, c, XN); break;
+      case 2: ln_rows_kernel<2><<<blocks, 256, 0, st>>>(a, G, Bb, eps, n, c, XN); break;
+      case 3: ln_rows_kernel<3><<<blocks, 256, 0, st>>>(a, G, Bb, eps, n, c, XN); break;
+      case 4: ln_rows_kernel<4><<<blocks, 256, 0, st>>>(a, G, Bb, eps, n, c, XN); break;
+      case 5: ln_rows_kernel<5><<<blocks, 256, 0, st>>>(a, G, Bb, eps, n, c, XN); break;
+      default: ln_rows_kernel<0><<<blocks, 256, 0, st>>>(a, G, Bb, eps, n, c, XN); break;
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    a = static_cast<const bf16*>(xn);
   }
-  return static_cast<int>(err);
+  const bool route = pat != nullptr;
+  bf16* up_out = static_cast<bf16*>(route ? hg : prod);
+  UpArgs u;
+  const uint64_t hrow = (uint64_t)hdim * 2;
+  if (!map_2d(&u.amap, a, c, n, (uint64_t)c * 2, up_wgs * ROWS_WG) ||
+      !map_2d(&u.wmap, w1, c, 2 * (uint64_t)hdim, (uint64_t)c * 2, UP_BN) ||
+      !map_2d(&u.hgmap, up_out, hdim, n, hrow, ROWS_WG) ||
+      !map_2d(&u.gamap, route ? ga : up_out, hdim, n, hrow, ROWS_WG))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto P = static_cast<const bf16*>(pat);
+  const auto GA = static_cast<bf16*>(ga);
+  u.b1 = static_cast<const bf16*>(b1);
+  u.n = n;
+  u.c = c;
+  u.hdim = hdim;
+  u.ctas = up_ctas;
+  u.st = st;
+  cudaError_t err = up_wgs == 2 ? dispatch_up<2>(route, relu != 0, u)
+                                : dispatch_up<1>(route, relu != 0, u);
+  if (err != cudaSuccess || !route) return static_cast<int>(err);
+  const RouteArgs r{GA, up_out, GA, P, hdim, n, hdim, e, k, split, per, mask_per,
+                    static_cast<float*>(partial), static_cast<bf16*>(sel),
+                    static_cast<bf16*>(prod), st};
+  return static_cast<int>(route_stage<false>(r));
 }
 
-// Launch 2. pat (e, hdim) bf16 0/1 with e <= 256, 1 <= k <= e; hdim % 64 == 0.
-int dmoe_ff_route(const void* ga, const void* hg, const void* pat, int n,
-                  int hdim, int e, int k, void* prod, void* stream) {
-  return launch_route(static_cast<const bf16*>(ga),
-                      static_cast<const float*>(hg), hdim, pat, n, hdim, e, k,
-                      prod, stream);
-}
-
-// The routing kernel: out = bf16(hidden * gate) * topk_mask. hidden (n, hdim)
-// bf16 with rows ld_hidden elements apart; gate (n, hdim) bf16, activated,
-// contiguous; pat (e, hdim) bf16 0/1 with e <= 256, 1 <= k <= e;
-// hdim % 64 == 0.
+// The routing kernel: out = bf16(bf16(hidden * gate) * topk_mask). hidden
+// (n, hdim) bf16 with rows ld_hidden elements apart (ld_hidden % 8 == 0);
+// gate (n, hdim) bf16, activated, contiguous; pat (e, hdim) bf16 with
+// e <= 256, 1 <= k <= e; hdim % 64 == 0. Scratch and plan as the FF's
+// routing stage (routing_kernel.py:route_plan).
 int dmoe_route_multiply(const void* hidden, int ld_hidden, const void* gate,
                         const void* pat, int n, int hdim, int e, int k,
-                        void* out, void* stream) {
-  return launch_route(static_cast<const bf16*>(gate),
-                      static_cast<const bf16*>(hidden), ld_hidden, pat, n,
-                      hdim, e, k, out, stream);
+                        int split, int per, int mask_per, void* partial,
+                        void* sel, void* out, void* stream) {
+  const RouteArgs r{static_cast<const bf16*>(gate),
+                    static_cast<const bf16*>(hidden),
+                    static_cast<const bf16*>(gate),
+                    static_cast<const bf16*>(pat), ld_hidden, n, hdim, e, k,
+                    split, per, mask_per, static_cast<float*>(partial),
+                    static_cast<bf16*>(sel),
+                    static_cast<bf16*>(out), static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(route_stage<true>(r));
 }
 
-// Launch 3. prod (n, hdim), w2 (c, hdim), b2 (c), x (n, c) or null; hdim % 32 == 0.
+// Launch 3. prod (n, hdim), w2 (c, hdim), b2 (c) bf16, x (n, c) or null (no
+// residual). The plan: wgs consumer warpgroups, the hdim depth split into
+// `split` parts of `per` 64-deep chunks; with split > 1, partial is an f32
+// scratch of (split, n, c).
 int dmoe_ff_down(const void* prod, const void* w2, const void* b2,
-                 const void* x, int n, int c, int hdim, void* y, void* stream) {
-  const dim3 grid((c + G_BN - 1) / G_BN, (n + G_BM - 1) / G_BM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto P = static_cast<const bf16*>(prod);
-  auto W = static_cast<const bf16*>(w2);
-  auto B = static_cast<const bf16*>(b2);
-  auto X = static_cast<const bf16*>(x);
-  auto Y = static_cast<bf16*>(y);
-  if (x != nullptr)
-    ff_down_kernel<true><<<grid, G_THREADS, 0, st>>>(P, W, B, X, n, c, hdim, Y);
-  else
-    ff_down_kernel<false><<<grid, G_THREADS, 0, st>>>(P, W, B, X, n, c, hdim, Y);
-  return static_cast<int>(cudaGetLastError());
+                 const void* x, int n, int c, int hdim, int wgs, int split,
+                 int per, void* partial, void* y, void* stream) {
+  CUtensorMap amap, wmap;
+  if (!map_2d(&amap, prod, hdim, n, (uint64_t)hdim * 2, wgs * ROWS_WG) ||
+      !map_2d(&wmap, w2, hdim, c, (uint64_t)hdim * 2, DOWN_BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto B2 = static_cast<const bf16*>(b2);
+  const auto X = static_cast<const bf16*>(x);
+  const auto Y = static_cast<bf16*>(y);
+  const auto PART = static_cast<float*>(partial);
+  const cudaError_t err =
+      wgs == 2 ? dispatch_down<2>(split > 1, x != nullptr, amap, wmap, B2, X, n, c, hdim, split, per, Y, PART, st)
+               : dispatch_down<1>(split > 1, x != nullptr, amap, wmap, B2, X, n, c, hdim, split, per, Y, PART, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -65,9 +65,6 @@
 // row's inputs, whatever the batch. Inference only: there is no backward.
 #include <math.h>
 
-#include <cstring>
-#include <mutex>
-
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -484,55 +481,17 @@ sd_cross_attn_kernel(const __grid_constant__ Maps maps, int sq, int kv_valid,
 }
 
 // (B, S, H, D) through element strides (batch, seq, head) as a 4-D map
-// (D, H, S, B) with boxes of cw x 1 x rows x 1. A map depends on nothing
-// else, and the caching allocator hands a UNet call the same buffers step
-// after step, so the last A_MAP_CACHE maps are kept and a repeat costs a
-// comparison instead of an encode (the launchers' host time).
-constexpr int A_MAP_CACHE = 64;
-
-struct MapKey {
-  const void* base;
-  uint64_t dims[4], strides[3];
-  uint32_t cw, rows, swizzle;
-  bool operator==(const MapKey& o) const {
-    return std::memcmp(this, &o, sizeof(MapKey)) == 0;
-  }
-};
-
+// (D, H, S, B) with boxes of cw x 1 x rows x 1 (wg::encode_bf16_map keeps
+// the maps encoded before).
 bool encode_bshd(CUtensorMap* map, const void* base, int batch, int seq,
                  int heads, int d, const long long* st, int cw, int rows,
                  CUtensorMapSwizzle swizzle) {
-  MapKey key;
-  std::memset(&key, 0, sizeof(key));   // padding included: keys compare whole
-  key.base = base;
-  key.dims[0] = d;
-  key.dims[1] = heads;
-  key.dims[2] = seq;
-  key.dims[3] = batch;
-  key.strides[0] = (uint64_t)st[2] * 2;
-  key.strides[1] = (uint64_t)st[1] * 2;
-  key.strides[2] = (uint64_t)st[0] * 2;
-  key.cw = cw;
-  key.rows = rows;
-  key.swizzle = swizzle;
-  static std::mutex lock;
-  static MapKey keys[A_MAP_CACHE];
-  static CUtensorMap maps[A_MAP_CACHE];
-  static int used = 0, next = 0;
-  std::lock_guard<std::mutex> guard(lock);
-  for (int i = 0; i < used; ++i)
-    if (keys[i] == key) {
-      *map = maps[i];
-      return true;
-    }
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)heads, (uint64_t)seq,
+                            (uint64_t)batch};
+  const uint64_t strides[3] = {(uint64_t)st[2] * 2, (uint64_t)st[1] * 2,
+                               (uint64_t)st[0] * 2};
   const uint32_t box[4] = {(uint32_t)cw, 1, (uint32_t)rows, 1};
-  if (!wg::encode_bf16_map(map, base, 4, key.dims, key.strides, box, swizzle))
-    return false;
-  std::memcpy(&keys[next], &key, sizeof(MapKey));   // padding too
-  maps[next] = *map;
-  next = (next + 1) % A_MAP_CACHE;
-  used = used < A_MAP_CACHE ? used + 1 : used;
-  return true;
+  return wg::encode_bf16_map(map, base, 4, dims, strides, box, swizzle);
 }
 
 template <typename Kernel>

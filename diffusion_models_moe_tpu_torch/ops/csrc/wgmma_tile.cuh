@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the convolution kernels (conv_chain.cu,
-// winograd.cu) and the attention kernels (sd_attention.cu): mbarriers, named
+// winograd.cu), the attention kernels (sd_attention.cu) and the fused FF and
+// routing kernels (geglu_ff.cu): mbarriers, named
 // barriers, TMA tensor maps, loads and stores, the warpgroup matrix product
 // (wgmma) with its fences, shared-memory matrix descriptors (K-major and
 // MN-major), register rebalancing between warpgroups, and the fixed-order
-// reduction that finishes a convolution whose depth was split over several
-// blocks.
+// reduction that finishes a convolution or the FF's output product whose
+// depth was split over several blocks.
 //
 // The kernels are warp-specialised: a producer warpgroup fills rings of
 // shared-memory tiles (one thread issues TMA loads that complete on an
@@ -16,11 +17,15 @@
 //
 // Tensor maps are encoded on the host in the launchers, through the entry
 // point of cuTensorMapEncodeTiled that the CUDA runtime hands out (no link
-// against libcuda), and passed by value as __grid_constant__ kernel
-// parameters.
+// against libcuda), kept by their arguments for the next launch, and passed
+// by value as __grid_constant__ kernel parameters.
 #pragma once
 
 #include <cuda.h>
+
+#include <cstring>
+#include <mutex>
+#include <unordered_map>
 
 #include "common.cuh"
 
@@ -86,8 +91,17 @@ struct Ring {
 };
 
 // ------------------------------------------------------------------ TMA
-// one box of a 3-D / 4-D tensor map into shared memory, completing on `bar`;
-// coordinates innermost first, signed, zeros outside the tensor
+// one box of a 2-D / 3-D / 4-D tensor map into shared memory, completing on
+// `bar`; coordinates innermost first, signed, zeros outside the tensor
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -109,9 +123,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// one box of shared memory into a 4-D tensor map (coordinates innermost
-// first; what falls outside the tensor is not written), as one bulk group of
-// the issuing thread
+// one box of shared memory into a 2-D / 4-D tensor map (coordinates
+// innermost first; what falls outside the tensor is not written), as one
+// bulk group of the issuing thread
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2, int c3) {
@@ -119,6 +133,14 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -145,7 +167,35 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
 
 // Host side: a bf16 tensor map of `rank` dimensions (innermost first; its
 // elements contiguous), `strides` in bytes for dimensions 1.., each a
-// multiple of 16. Returns false if the encoding is refused.
+// multiple of 16. Returns false if the encoding is refused. A map is a pure
+// function of these arguments, and the caching allocator hands a UNet call
+// the same buffers step after step, so the maps encoded before are kept by
+// their arguments and a repeat costs a hash and a comparison instead of an
+// encode (the launchers' host time); the table is emptied when it reaches
+// MAP_CACHE entries.
+struct MapKey {
+  const void* base;
+  uint64_t dims[5], strides[4];
+  uint32_t box[5], rank, swizzle, pad;
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    const unsigned char* p = reinterpret_cast<const unsigned char*>(&k);
+    uint64_t h = 1469598103934665603ull;                 // FNV-1a
+    for (size_t i = 0; i < sizeof(MapKey); ++i) h = (h ^ p[i]) * 1099511628211ull;
+    return static_cast<size_t>(h);
+  }
+};
+struct MapKeyEq {
+  bool operator()(const MapKey& a, const MapKey& b) const {
+    return std::memcmp(&a, &b, sizeof(MapKey)) == 0;
+  }
+};
+struct MapBits {
+  uint64_t w[sizeof(CUtensorMap) / 8];
+};
+constexpr size_t MAP_CACHE = 4096;
+
 inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
                             const uint32_t* box, CUtensorMapSwizzle swizzle) {
@@ -154,7 +204,25 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
       const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
       CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
       CUtensorMapFloatOOBfill);
+  MapKey key;
+  std::memset(&key, 0, sizeof(key));   // padding included: keys compare whole
+  key.base = base;
+  key.rank = static_cast<uint32_t>(rank);
+  key.swizzle = static_cast<uint32_t>(swizzle);
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i > 0) key.strides[i - 1] = strides[i - 1];
+  }
+  static std::mutex lock;
+  static std::unordered_map<MapKey, MapBits, MapKeyHash, MapKeyEq> cache;
   static Encode encode = nullptr;
+  std::lock_guard<std::mutex> guard(lock);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    std::memcpy(map, &hit->second, sizeof(CUtensorMap));
+    return true;
+  }
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -172,11 +240,17 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     estrides[i] = 1;
     if (i > 0) gstrides[i - 1] = strides[i - 1];
   }
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(base), gdims, gstrides, gbox, estrides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+             const_cast<void*>(base), gdims, gstrides, gbox, estrides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (cache.size() >= MAP_CACHE) cache.clear();
+  MapBits bits;
+  std::memcpy(&bits, map, sizeof(CUtensorMap));
+  cache.emplace(key, bits);
+  return true;
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -342,7 +416,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
 
 // The attention kernels' products. wgmma_ss: d (64 x N f32) = [d +] a (64 x
 // 16 bf16) * b^T (N x 16 bf16), both K-major through descriptors, N = 128,
-// 80 or 64 by the size of d. wgmma_rs_mn: d (64 x N f32) += a (64 x 16 bf16 in
+// 80 or 64 by the size of d (160 below). wgmma_rs_mn: d (64 x N f32) += a (64 x 16 bf16 in
 // registers, the layout of wgmma_m64n160k16_rs) * b (16 x N bf16, MN-major
 // through its descriptor), N = 40, 64, 80 or 160 by the size of d. The thread
 // layout of d is that of the 160-wide product above.
@@ -519,6 +593,48 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a_desc,
   wgmma_m64n64k16_ss(d, a_desc, b_desc, accumulate);
 }
 
+// d (64 x 160 f32) = [d +] a (64 x 16 bf16) * b^T (160 x 16 bf16), both
+// K-major through descriptors (the fused FF's output projection).
+__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t a_desc,
+                                         uint64_t b_desc, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate ? 1 : 0));
+}
+
 // The dynamic shared memory of a block, from its first multiple of 1024
 // bytes (swizzled tiles start on multiples of their 8-row group); launchers
 // ask for 1024 bytes more than they lay out.
@@ -530,13 +646,15 @@ __device__ __forceinline__ unsigned char* smem_base_1024(unsigned char* raw) {
 // ------------------------------------------------- finishing a split depth
 // y = round(sum over s of partial[s]) (+ add) (+ resid): the f32 partial sums
 // of `nsplit` blocks, each (m, cout) with m = batch * hw pixels in
-// channels-last order, added in the order s = 0, 1, ... whatever order the
-// blocks ran in, then the epilogue in the kernels' rounding order: the sum
-// to bf16, + add in bf16 (row pixel / hw of `add`, or its only row when
-// add_stride is 0), + resid in bf16. One thread takes 8 channels.
+// channels-last order (or m rows), added in the order s = 0, 1, ...
+// whatever order the blocks ran in, then the epilogue in the kernels'
+// rounding order: the sum to bf16, + add in bf16 (row pixel / hw of `add`,
+// or its only row when add_stride is 0; with add_f32, added to the f32 sum
+// before the rounding instead), + resid in bf16. One thread takes 8
+// channels.
 static __global__ void __launch_bounds__(256) split_finish_kernel(
     const float* __restrict__ partial, int nsplit, int m, int hw, int cout,
-    const bf16* __restrict__ add, int add_stride,
+    const bf16* __restrict__ add, int add_stride, int add_f32,
     const bf16* __restrict__ resid, bf16* __restrict__ y) {
   const int groups = cout >> 3;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -563,8 +681,13 @@ static __global__ void __launch_bounds__(256) split_finish_kernel(
     *reinterpret_cast<uint4*>(r8) = *reinterpret_cast<const uint4*>(resid + off);
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
-    bf16 v = f2bf(acc[q]);
-    if (add != nullptr) v = f2bf(bf2f(v) + bf2f(a8[q]));
+    bf16 v;
+    if (add != nullptr && add_f32) {
+      v = f2bf(acc[q] + bf2f(a8[q]));
+    } else {
+      v = f2bf(acc[q]);
+      if (add != nullptr) v = f2bf(bf2f(v) + bf2f(a8[q]));
+    }
     if (resid != nullptr) v = f2bf(bf2f(v) + bf2f(r8[q]));
     out[q] = v;
   }
@@ -574,11 +697,11 @@ static __global__ void __launch_bounds__(256) split_finish_kernel(
 inline void launch_split_finish(const float* partial, int nsplit, int m, int hw,
                                 int cout, const bf16* add, int add_stride,
                                 const bf16* resid, bf16* y,
-                                cudaStream_t stream) {
+                                cudaStream_t stream, bool add_f32 = false) {
   const long long items = (long long)m * (cout / 8);
   split_finish_kernel<<<static_cast<unsigned>((items + 255) / 256), 256, 0,
                         stream>>>(partial, nsplit, m, hw, cout, add, add_stride,
-                                  resid, y);
+                                  add_f32 ? 1 : 0, resid, y);
 }
 
 // The epilogue's value for two neighbouring channels from registers, in the

@@ -1,13 +1,16 @@
 """Where a serving generate's device time goes, with the serving modes off,
-with the exact-tier modes on, and with the fused Winograd convs.
+with the exact-tier modes on, with the fused Winograd convs, and with W8A8
+int8.
 
 Runs the moefied SD1.5 text-to-image path at full width in bf16 (seeded
 random weights, MoE top-k 0.3 over 20-neuron experts on all 16 FFs, CFG 7.5)
-for 10 PNDM steps under `torch.profiler`, once with every mode off, once with
-`attn_absorb` and `conv_chain` on and once with `conv_winograd="fused"` (the
-UNet's and the VAE decoder's), and prints for each the unprofiled
-wall time, the summed device time of all kernels, and the device time by
-kernel group. Needs one CUDA card:
+for 10 PNDM steps under `torch.profiler`, once with every mode off (leg
+`off`), once with `attn_absorb` and `conv_chain` on (`exact`), once with
+`conv_winograd="fused"` (`fused`, the UNet's and the VAE decoder's) and once
+with `quant_int8` (`int8`: every routed FF through the routing kernel), and
+prints for each the unprofiled wall time (every leg's before any trace),
+the summed device time of all kernels, and the device time by kernel group.
+Needs one CUDA card:
 
     python3 profile_torch_modes.py
 
@@ -26,12 +29,15 @@ import torch
 GROUPS = (
     ("conv chain kernel (kernel 7)", ("conv_chain_kernel",)),
     ("fused Winograd kernel (kernel 8)", ("winograd_kernel",)),
-    ("fixed-order finish of a split depth (kernels 7, 8)",
+    ("fixed-order finish of a split depth (kernels 1, 7, 8)",
      ("split_finish_kernel",)),
     ("LN + qkv kernel (kernel 5)", ("ln_qkv_kernel",)),
     ("out projection + residual kernel (kernel 6)", ("attn_out_kernel",)),
-    ("FF GEMM kernels (ff_up, ff_down)", ("ff_up_kernel", "ff_down_kernel")),
-    ("FF routing kernel (ff_route)", ("route_kernel",)),
+    ("FF LN pass and GEMM kernels (kernel 1: ln_rows, ff_up, ff_down)",
+     ("ln_rows_kernel", "ff_up_kernel", "ff_down_kernel")),
+    ("FF routing stage (kernels 1 and 4: route_scores, route_select, "
+     "route_mask)", ("route_scores_kernel", "route_select_kernel",
+                     "route_mask_kernel")),
     ("self-attention kernel (kernel 2)", ("sd_self_attn_kernel",)),
     ("cross-attention kernel (kernel 3)", ("sd_cross_attn_kernel",)),
     ("cuDNN convolutions and their layout transposes",
@@ -40,6 +46,8 @@ GROUPS = (
      ("norm", "RowwiseMoments", "var_mean", "welford", "reduce_kernel")),
     ("cuBLAS GEMMs", ("gemm", "gemv", "cublas", "nvjet", "cutlass")),
 )
+LEGS = {"off": {}, "exact": dict(attn_absorb="1", conv_chain=True),
+        "fused": dict(conv_winograd="fused"), "int8": dict(quant_int8=True)}
 TOP = 12        # kernels listed by name, so that the grouping can be checked
 BATCH = 2
 STEPS = 10
@@ -53,9 +61,9 @@ def group_of(name: str) -> str:
     return "elementwise, copies, other"
 
 
-def profile(modes: dict) -> dict:
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+def leg(modes: dict):
+    """A warmed-up 10-step generate of the moefied pipeline with `modes`:
+    returns the function that runs it and waits for the card."""
     from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
                                                 build_moe_interventions,
                                                 sd15_config)
@@ -78,11 +86,21 @@ def profile(modes: dict) -> dict:
         torch.cuda.synchronize()
 
     run()                                           # warm-up
+    return run
+
+
+def walls_ms(run) -> list:
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
         run()
         walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def profile(modes: dict, run, walls: list) -> dict:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    steps = STEPS
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -120,9 +138,12 @@ def main() -> None:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    results = [profile({}),
-               profile(dict(attn_absorb="1", conv_chain=True)),
-               profile(dict(conv_winograd="fused"))]
+    # every leg's walls before any trace: once torch.profiler has traced the
+    # card, the process's launches stay slower
+    runs = [leg(modes) for modes in LEGS.values()]
+    walls = [walls_ms(run) for run in runs]
+    results = [profile(modes, run, w)
+               for modes, run, w in zip(LEGS.values(), runs, walls)]
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "results": results}))
 

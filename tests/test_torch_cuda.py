@@ -99,6 +99,109 @@ def test_geglu_ff_kernel_keeps_ties(gen):
     sel = ffm.kernel_selection(x, w1, b1, pat, k)
     assert (sel.sum(1) > k).any()
     assert torch.equal(sel[:, 0], sel[:, 1])
+    # kernel 4 on the same gate keeps the same tied experts
+    h, ga = ffm.reference_gate(x, w1, b1, False, None, None, 1e-5)
+    out = routing_kernel.fused_route_multiply(h.bfloat16(), ga.bfloat16(),
+                                              pat, k)
+    sel4 = ((out != 0).float() @ pat.float().t() > 0).float()
+    assert (sel4.sum(1) > k).any()
+    assert torch.equal(sel4[:, 0], sel4[:, 1])
+
+
+# (C, H, E) of the SD1.5 FFs (20-neuron experts) and ragged row counts
+FF_SD15 = [(320, 1280, 64), (640, 2560, 128), (1280, 5120, 256)]
+
+
+def _ff_weights(gen, c, hdim, e, seed=0):
+    w1, b1 = _rn(gen, 2 * hdim, c, scale=c ** -0.5), _rn(gen, 2 * hdim, scale=0.1)
+    w2, b2 = _rn(gen, c, hdim, scale=hdim ** -0.5), _rn(gen, c, scale=0.1)
+    ln = dict(ln_scale=_rn(gen, c, scale=0.1, dtype=torch.float32) + 1,
+              ln_bias=_rn(gen, c, scale=0.1, dtype=torch.float32))
+    lab = np.random.RandomState(seed).permutation(np.arange(hdim) % e)
+    pat = patterns_from_labels(lab, e).to("cuda", torch.bfloat16)
+    return w1, b1, w2, b2, ln, pat
+
+
+def _ff_agrees(x, w1, b1, w2, b2, pat, k, relu=False, **ln):
+    """Kernel 1 against its plain version: routing decisions and rows agree
+    as chip_smoke.py requires, and the outputs agree on agreeing rows."""
+    y = ffm.geglu_ff_fused(x, w1, b1, w2, b2, pat, k, relu, **ln)
+    y_plain = ffm.geglu_ff_fused(x, w1, b1, w2, b2, pat, k, relu, **ln,
+                                 use_kernels=False)
+    g, b = ln.get("ln_scale"), ln.get("ln_bias")
+    sel_k = ffm.kernel_selection(x, w1, b1, pat, k, relu, g, b)
+    _, ga = ffm.reference_gate(x, w1, b1, relu, g, b, 1e-5)
+    sel_p = ffm.reference_selection(ga, pat, k, torch.bfloat16)
+    assert (sel_k == sel_p).float().mean().item() >= DECISION_AGREEMENT
+    rows = (sel_k == sel_p).all(dim=1)
+    assert rows.float().mean().item() >= ROW_AGREEMENT
+    assert _rel(y[rows], y_plain[rows]) < REL_TOL
+    return y
+
+
+@pytest.mark.parametrize("n", [77, 1000, 4100])
+@pytest.mark.parametrize("c,hdim,e", FF_SD15)
+def test_geglu_ff_kernel_at_sd15_widths_and_ragged_rows(gen, c, hdim, e, n):
+    """Kernel 1 routed with LN (the main path) at every SD1.5 FF width, with
+    row counts no multiple of any tile."""
+    w1, b1, w2, b2, ln, pat = _ff_weights(gen, c, hdim, e)
+    y = _ff_agrees(_rn(gen, n, c), w1, b1, w2, b2, pat, int(0.3 * e), **ln)
+    assert torch.isfinite(y.float()).all()
+
+
+@pytest.mark.parametrize("edit", ["expert_remove", "two_ones", "three_ones"])
+def test_geglu_ff_kernel_on_edited_patterns(gen, edit):
+    """Pattern rows zeroed as expert_remove zeroes them (those experts score
+    0 and still compete), columns with two ones (m up to 2: bf16(h*ga) * m
+    is exact) and with three (m up to 3: rounded twice, within one bf16
+    unit of bf16(h*ga*m))."""
+    n, c, hdim, e = 1000, 64, 256, 12
+    w1, b1, w2, b2, ln, pat = _ff_weights(gen, c, hdim, e)
+    pat = pat.clone()
+    if edit == "expert_remove":
+        pat[[1, 5, 9]] = 0
+    else:
+        cols = torch.arange(0, hdim, 3, device="cuda")
+        lab = pat.argmax(0)
+        for shift in range(1, 2 if edit == "two_ones" else 3):
+            pat[(lab[cols] + shift) % e, cols] = 1
+    x, k = _rn(gen, n, c), 4
+    g, b = ln["ln_scale"], ln["ln_bias"]
+    y = ffm.geglu_ff_fused(x, w1, b1, w2, b2, pat, k, **ln)
+    y_plain = ffm.geglu_ff_fused(x, w1, b1, w2, b2, pat, k, **ln,
+                                 use_kernels=False)
+    # a neuron may belong to several experts, so rows agree where the
+    # kernel's masked product is nonzero exactly where the plain one is
+    plan = ffm.ff_plan(n, c, hdim, e, _build.sm_count(x.device))
+    prod, _ = ffm._launch_front(x, w1, b1, pat, k, False, g, b, 1e-5, plan)
+    h, ga = ffm.reference_gate(x, w1, b1, False, g, b, 1e-5)
+    m = ffm.reference_selection(ga, pat, k, torch.bfloat16) @ pat.float()
+    rows = ((prod != 0) == ((h * ga * m).bfloat16() != 0)).all(dim=1)
+    assert rows.float().mean().item() >= ROW_AGREEMENT
+    assert _rel(y[rows], y_plain[rows]) < REL_TOL
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_geglu_ff_split_plans_are_bit_equal_on_a_repeat(gen, n):
+    """At C = 1280 and these N the plan splits the depth of ff_down and of
+    the routing scores; the parts are added in a fixed order, so a repeat
+    gives the same bits, and a row's result does not depend on the other
+    rows at one N (request 0 alone equals request 0 co-batched)."""
+    c, hdim, e = FF_SD15[2]
+    plan = ffm.ff_plan(n, c, hdim, e, _build.sm_count(torch.device("cuda")))
+    assert plan.down_split > 1 and plan.route.split > 1
+    w1, b1, w2, b2, ln, pat = _ff_weights(gen, c, hdim, e)
+    x = _rn(gen, n, c)
+    args = (w1, b1, w2, b2, pat, int(0.3 * e))
+    y = ffm.geglu_ff_fused(x, *args, **ln)
+    assert torch.equal(y, ffm.geglu_ff_fused(x, *args, **ln))
+    other = x.clone()
+    other[1:] = _rn(gen, n - 1, c)
+    assert torch.equal(ffm.geglu_ff_fused(other, *args, **ln)[0], y[0])
+    hidden, gate, rpat = _route_inputs(gen, n, e, hdim)
+    out = routing_kernel.fused_route_multiply(hidden, gate, rpat, 76)
+    assert torch.equal(out, routing_kernel.fused_route_multiply(
+        hidden, gate, rpat, 76))
 
 
 def _heads(gen, b, s, h, d, strided):
@@ -405,6 +508,40 @@ def test_routing_kernel_matches_plain(gen, e):
     rows = (sel_k == sel_p).all(dim=1)
     assert rows.float().mean().item() >= ROW_AGREEMENT
     assert _rel(out[rows], plain[rows]) < REL_TOL
+
+
+@pytest.mark.parametrize("n", [77, 1000, 4100])
+@pytest.mark.parametrize("c,hdim,e", FF_SD15)
+def test_routing_kernel_at_sd15_widths_and_ragged_rows(gen, c, hdim, e, n):
+    """Kernel 4 at every SD1.5 FF width with ragged N, hidden read in place
+    as the first half of the (N, 2H) projection, and with rows of the
+    patterns zeroed as expert_remove zeroes them."""
+    k = int(0.3 * e)
+    hidden, gate, pat = _route_inputs(gen, n, e, hdim)
+    hidden = torch.cat([hidden, gate], dim=1)[:, :hdim]
+    for p in (pat, pat * (torch.arange(e, device="cuda") % 7 != 3)[:, None]):
+        p = p.to(torch.bfloat16).contiguous()
+        out = routing_kernel.fused_route_multiply(hidden, gate, p, k)
+        plain = routing_kernel.fused_route_multiply(hidden, gate, p, k,
+                                                    use_kernels=False)
+        sel_k = ((out != 0).float() @ p.float().t() > 0).float()
+        _, sel_p = routing_mask(gate, p, k)
+        # zeroed experts have no neuron: compare the experts that have one
+        live = p.float().sum(1) > 0
+        agree = (sel_k == sel_p)[:, live]
+        assert agree.float().mean().item() >= DECISION_AGREEMENT
+        rows = agree.all(dim=1)
+        assert rows.float().mean().item() >= ROW_AGREEMENT
+        assert _rel(out[rows], plain[rows]) < REL_TOL
+
+
+def test_routing_kernel_refuses_a_misaligned_row_stride(gen):
+    """hidden's rows must lie a multiple of 8 elements apart (the TMA's
+    16-byte strides)."""
+    hidden, gate, pat = _route_inputs(gen, 64, 16, 320)
+    wide = torch.cat([hidden, hidden[:, :4]], dim=1)[:, :320]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        routing_kernel.fused_route_multiply(wide, gate, pat, 4)
 
 
 def test_tapped_routed_unet_call_runs_the_routing_kernel(gen):

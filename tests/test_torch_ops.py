@@ -115,6 +115,54 @@ def test_ff_ties_keep_more_than_k_experts():
     assert ((s >= kth).sum(1) > k).any()
 
 
+def _edit_patterns(patterns: np.ndarray, edit: str) -> np.ndarray:
+    """expert_remove: rows of three experts zeroed, as the model's
+    `_step_patterns` zeroes them; two_ones: every third column also in the
+    next expert's pattern."""
+    pat = patterns.copy()
+    if edit == "expert_remove":
+        pat[[1, 5, 9]] = 0.0
+    else:
+        cols = np.arange(0, pat.shape[1], 3)
+        pat[(pat[:, cols].argmax(0) + 1) % pat.shape[0], cols] = 1.0
+    return pat
+
+
+@pytest.mark.parametrize("edit", ["expert_remove", "two_ones"])
+def test_ff_plain_matches_jax_kernel_on_edited_patterns(edit):
+    """Zeroed expert rows (they score 0 and still compete) and columns with
+    two ones (a neuron in two experts, mask values up to 2), as the kernel
+    takes them, against the JAX kernel in interpret mode."""
+    x, w1, b1, w2, b2, g, bb, patterns = _ff_inputs(4)
+    pat, k = _edit_patterns(patterns, edit), 5
+    ref = jax_geglu_ff_fused(jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1),
+                             jnp.asarray(w2), jnp.asarray(b2), jnp.asarray(pat),
+                             k, False, interpret=True, ln_scale=jnp.asarray(g),
+                             ln_bias=jnp.asarray(bb))
+    got = _port_ff(x, w1, b1, w2, b2, pat, k, False, g, bb)
+    assert _rel_err(got, ref) < FF_RTOL
+
+
+def test_masked_product_rounds_the_same_for_mask_values_up_to_two():
+    """The FF kernel writes bf16(h*ga) once and the masked product as
+    bf16(bf16(h*ga) * m): that equals bf16(h*ga*m) bit for bit where the
+    neuron mask m is 0, 1 or 2 (zero or a power of two), as every pattern
+    the model builds gives it. For a column of three or more ones (m up to
+    E = 256) it is rounded twice, and stays within one bf16 unit in the last
+    place of bf16(h*ga*m)."""
+    rng = np.random.RandomState(0)
+    v = torch.from_numpy((rng.randn(100_000) * rng.lognormal(0, 3, 100_000))
+                         .astype(np.float32))
+    for m in (0.0, 1.0, 2.0):
+        assert torch.equal((v.bfloat16() * m).view(torch.int16),
+                           (v * m).bfloat16().view(torch.int16))
+    assert not torch.equal(v.bfloat16() * 3.0, (v * 3.0).bfloat16())
+    for m in (3.0, 5.0, 7.0, 255.0, 256.0):
+        twice = (v.bfloat16().float() * m).bfloat16().float()
+        once = (v * m).bfloat16().float()
+        assert ((twice - once).abs() <= once.abs() * 2.0 ** -7).all()
+
+
 def test_ff_cpu_wrapper_is_the_plain_version():
     """On CPU tensors the wrapper runs the plain version and launches nothing."""
     x, w1, b1, w2, b2, g, bb, patterns = _ff_inputs(2)

@@ -1,5 +1,11 @@
-"""The launch plans of the torch port's convolution and attention kernels, on
-the CPU.
+"""The launch plans of the torch port's convolution, attention, fused FF and
+routing kernels, on the CPU.
+
+`ff_plan` (fused FF) and `route_plan` (the routing stage of the fused FF
+and the routing kernel) decide the warpgroups a block of the two GEMMs, the
+row, column and expert tiles, and the depth splits of ff_down and of the
+expert scores; they are held at the four SD1.5 FF shapes and at ragged ones
+below.
 
 `attn_plan` (self- and cross-attention) decides how many query rows a block
 takes and how long a run of query tiles the cross kernel walks; it is held
@@ -19,6 +25,8 @@ import numpy as np
 import pytest
 
 from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as chain
+from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
+from diffusion_models_moe_tpu_torch.ops import routing_kernel as rk
 from diffusion_models_moe_tpu_torch.ops import sd_flash
 from diffusion_models_moe_tpu_torch.ops import winograd_fused as wino
 
@@ -228,3 +236,98 @@ def test_attn_plans_on_the_h100():
                    ("cross", 256, 1, 1), ("cross", 64, 1, 1)]
     with pytest.raises(ValueError):
         sd_flash.attn_plan("self", 4, 8, 64, 64, 8, H100_SMS)
+
+
+# (N, C, H, E) of the four SD1.5 FFs at UNet batch 4 (20-neuron experts) and
+# ragged ones (N no multiple of any tile, E under a product, C no multiple
+# of the 160-channel tile, H no multiple of the 128-column tile)
+FF_SD15 = [(4 * t, c, 4 * c, 4 * c // 20)
+           for t, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))]
+FF_RAGGED = [(77, 64, 256, 12), (1000, 64, 256, 12), (4100, 320, 1280, 64),
+             (3000, 96, 448, 100), (1, 32, 64, 1), (300, 1280, 5120, 256)]
+
+
+@pytest.mark.parametrize("shape", FF_SD15 + FF_RAGGED)
+def test_ff_plan_covers_every_tile_and_depth_chunk_once(shape):
+    """Every launch of kernel 1 and its routing stage covers every row,
+    column and depth chunk exactly once, with no empty part."""
+    n, c, hdim, e = shape
+    plan = ffm.ff_plan(n, c, hdim, e, H100_SMS)
+    assert plan.up_wgs in (1, 2) and plan.down_wgs in (1, 2)
+    assert _covered_once(n, ffm.WG_ROWS * plan.up_wgs, plan.up_row_tiles)
+    assert _covered_once(hdim, ffm.UP_COLS, plan.up_col_tiles)
+    assert plan.up_ctas == min(plan.up_tiles, H100_SMS)
+    assert _covered_once(n, ffm.WG_ROWS * plan.down_wgs, plan.down_row_tiles)
+    assert _covered_once(c, ffm.DOWN_COLS, plan.down_col_tiles)
+    assert _depth_once(hdim, rk.DEPTH_CHUNK, plan.down_chunks, plan.down_split,
+                       plan.down_chunks_per_split)
+    r = plan.route
+    assert r == rk.route_plan(n, hdim, e, H100_SMS)
+    assert _covered_once(n, rk.ROWS, r.row_tiles)
+    assert _covered_once(e, rk.EXPERT_TILE, r.e_tiles) and r.epad <= 256
+    assert _depth_once(hdim, rk.DEPTH_CHUNK, r.chunks, r.split,
+                       r.chunks_per_split)
+    assert _covered_once(n, rk.MASK_ROWS, r.mask_row_tiles)
+    assert _depth_once(hdim, rk.MASK_TILE, r.col_tiles, r.groups,
+                       r.tiles_per_group)
+    assert ffm.ff_plan(n, c, hdim, 0, H100_SMS).route is None
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 1000])
+def test_ff_and_route_plans_split_only_where_the_rows_leave_sms_idle(sms):
+    """A depth split (ff_down, the scores) only where the unsplit grid gives
+    at most half the SMs a block, and then one that reaches the SMs as far as
+    the depth allows (ff_down within one wave); the mask kernel's runs of
+    column tiles as short as rounds of the blocks the SMs hold allow. The
+    same arguments give the same plan, also after the cache is emptied."""
+    for n, c, hdim, e in FF_SD15 + FF_RAGGED:
+        plan = ffm.ff_plan(n, c, hdim, e, sms)
+        ffm.ff_plan.cache_clear()
+        rk.route_plan.cache_clear()
+        assert plan == ffm.ff_plan(n, c, hdim, e, sms)
+        unsplit = plan.down_row_tiles * plan.down_col_tiles
+        if 2 * unsplit > sms:
+            assert plan.down_split == 1
+        else:
+            # one block an SM: the split grid stays within one wave
+            assert plan.down_split >= 2 or plan.down_chunks == 1
+            assert plan.down_blocks <= sms
+        r = plan.route
+        if 2 * r.row_tiles > sms:
+            assert r.split == 1
+        else:
+            assert r.score_blocks >= min(sms, r.row_tiles * r.chunks)
+        # the mask: no other run a block gives fewer rounds x (tiles +
+        # set-up)
+        slots, setup = sms * rk.mask_blocks_per_sm(e), rk.MASK_BLOCK_COST
+        cost = -(-r.mask_blocks // slots) * (r.tiles_per_group + setup)
+        for per in range(1, r.col_tiles + 1):
+            blocks = r.mask_row_tiles * -(-r.col_tiles // per)
+            assert -(-blocks // slots) * (per + setup) >= cost
+
+
+def test_ff_plans_on_the_h100_fill_the_card():
+    """At the four SD1.5 FF shapes: ff_up's tiles and the scores' blocks
+    give every SM of the H100 work (the scores' depth split wherever the
+    64-row tiles are at most half the SMs); ff_down, whose block fills an
+    SM's shared memory, and the mask pass run one round of blocks; ff_down's
+    depth is split at the two small levels (N = 1024 and 256, H = 5120) and
+    nowhere else."""
+    for n, c, hdim, e in FF_SD15:
+        plan = ffm.ff_plan(n, c, hdim, e, H100_SMS)
+        assert plan.up_tiles >= H100_SMS and plan.up_ctas == H100_SMS
+        # ff_down: one wave of 128 blocks of two warpgroups at the three
+        # smaller levels (split at N = 1024 and 256), two at N = 16384
+        assert plan.down_blocks == (256 if n == 16384 else 128)
+        assert plan.route.score_blocks >= H100_SMS
+        # the mask pass: one round of blocks, 80 of two column tiles at
+        # N = 256 (its set-up is worth more than a second round of one-tile
+        # blocks), 128 of 10 or 5 at N = 4096 and 1024, 256 of 10 (two an
+        # SM) at N = 16384
+        assert plan.route.mask_blocks == {16384: 256, 4096: 128, 1024: 128,
+                                          256: 80}[n]
+        assert plan.route.mask_blocks <= (
+            H100_SMS * rk.mask_blocks_per_sm(e))
+        assert (plan.down_split > 1) == (n <= 1024)
+        assert (plan.route.split > 1) == (2 * n <= rk.ROWS * H100_SMS)
+        assert plan.up_wgs == (1 if n == 256 else 2)

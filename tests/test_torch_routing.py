@@ -62,6 +62,30 @@ def test_plain_version_matches_jax_kernel(e, tie):
         assert (sel_got.sum(1) == k).all()
 
 
+@pytest.mark.parametrize("edit", ["expert_remove", "two_ones"])
+def test_plain_version_matches_jax_kernel_on_edited_patterns(edit):
+    """Pattern rows zeroed as expert_remove zeroes them (those experts
+    score 0 and still compete) and columns with two ones (mask values up to
+    2), against the JAX kernel in interpret mode."""
+    n, e, k = 203, 16, 4
+    hidden, gate, labels = _inputs(7, n, e)
+    pat = patterns_from_labels(labels, e)
+    if edit == "expert_remove":
+        pat[[1, 5, 9]] = 0.0
+    else:
+        cols = torch.arange(0, pat.shape[1], 3)
+        pat[(pat[:, cols].argmax(0) + 1) % e, cols] = 1.0
+    ref = np.asarray(jax_fused_route_multiply(
+        jnp.asarray(hidden), jnp.asarray(gate), jnp.asarray(pat.numpy()), k,
+        interpret=True))
+    got = route_multiply_reference(torch.from_numpy(hidden),
+                                   torch.from_numpy(gate), pat, k).numpy()
+    assert float(np.max(np.abs(got - ref)) / np.max(np.abs(ref))) <= RTOL
+    if edit == "two_ones":
+        assert np.abs(got / np.where(hidden * gate == 0, 1, hidden * gate)
+                      ).max() == pytest.approx(2.0)
+
+
 def test_cpu_wrapper_is_the_plain_version():
     """On CPU tensors the wrapper runs the plain version and launches
     nothing."""
