@@ -20,7 +20,9 @@ Run from the root of a checkout. Phases:
   2b. the fused MoE routing kernel of the unfused FF path against its plain
      version at the four SD1.5 FF shapes, with errors and times;
   2c. the absorbed-attention kernels (LN + qkv projection, out projection +
-     residual) at the four SD1.5 self-attention shapes and the conv-chain
+     residual) at the four SD1.5 self-attention shapes (from CUDA graphs
+     and by events, with the wrappers' host time, each shape's plan and
+     cuBLAS on the products alone as a yardstick) and the conv-chain
      kernel at the 14 SD1.5 resblock conv shapes (with the time embedding,
      with and without a residual), against their plain versions; for the
      conv chain also the time of the unfused sequence it replaces
@@ -593,7 +595,13 @@ def check_attention(gen: torch.Generator) -> tuple[list, list]:
 def check_absorb(gen: torch.Generator) -> tuple[list, list]:
     """Phase 2c: the absorbed-attention kernels (LN + q/k/v projection, out
     projection + bias + residual) against their plain versions at the four
-    SD1.5 self-attention shapes, on the same bf16 inputs."""
+    SD1.5 self-attention shapes, on the same bf16 inputs; device times from
+    CUDA graphs and by events, the wrappers' host microseconds, each
+    shape's plan, and cuBLAS on the products alone as a yardstick (not a
+    library call for the same function: `F.linear` of the pre-normalised x
+    against [Wq Wk Wv], concatenated once outside the timing, for kernel 5;
+    `F.linear(o, Wo, bo)` without the residual for kernel 6)."""
+    from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import attn_absorb_fused as ab
     dev, bf16 = DEV, torch.bfloat16
     b, heads = 2 * BATCH, 8
@@ -610,6 +618,9 @@ def check_absorb(gen: torch.Generator) -> tuple[list, list]:
         g = rn(c, scale=0.1, dtype=torch.float32) + 1.0
         bb = rn(c, scale=0.1, dtype=torch.float32)
         o = rn(b, s, heads, d)
+        xn = ab.ln_apply(x, g, bb).to(bf16)
+        wqkv = torch.cat([wq, wk, wv])
+        o2d = o.view(b, s, c)
 
         def qkv(uk):
             return torch.cat([t.reshape(b, s, c) for t in ab.ln_qkv_fused(
@@ -624,24 +635,50 @@ def check_absorb(gen: torch.Generator) -> tuple[list, list]:
                        2 * (n * c + 3 * c * c + 3 * n * c) + 8 * c)
         # (N, C) x (C, C); o and the residual in, y out, Wo and the bias once
         bd_out = bound(2 * n * c * c, 2 * (3 * n * c + c * c + c))
-        for name, fn, bd, rows in (("ln_qkv", qkv, bd_qkv, qkv_shapes),
-                                   ("attn_out", out, bd_out, out_shapes)):
+        for name, fn, call, cublas, bd, rows in (
+                ("ln_qkv", qkv, lambda: ab.ln_qkv_fused(
+                    x, wq, wk, wv, heads, g, bb),
+                 lambda: F.linear(xn, wqkv), bd_qkv, qkv_shapes),
+                ("attn_out", out, lambda: out(True),
+                 lambda: F.linear(o2d, wo, bo), bd_out, out_shapes)):
             y, y_plain = fn(True), fn(False)
             torch.cuda.synchronize()
             abs_e, rel = rel_err(y, y_plain)
-            ms = cuda_ms(lambda: fn(True), 20)
+            del y, y_plain
+            ms = graph_ms(call)
+            call_ms = cuda_ms(call, 20)
+            hus = host_us(call)
+            cublas_ms = graph_ms(cublas)
             plain_ms = cuda_ms(lambda: fn(False), 5)
+            plan = ab.absorb_plan("qkv" if name == "ln_qkv" else "out", n, c,
+                                  _build.sm_count(x.device))
+            cut = (f"run {plan.run} of {plan.col_tiles} column tiles, "
+                   f"{plan.stages}-stage ring" if name == "ln_qkv" else
+                   f"split {plan.split} x {plan.chunks_per_split} chunks")
             print(f"{name:8s} S={s:4d} C={c:4d} D={d:3d}: max_abs_err "
                   f"{abs_e:.6g} rel {rel:.3e} (tol {ATTN_REL_TOL:g}); kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}", flush=True)
+                  f"{ms:.4f} ms (back-to-back calls {call_ms:.4f}), cuBLAS on "
+                  f"the product alone {cublas_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+                  f"{bd['bound_by']}; host {hus:.1f} us a call; "
+                  f"{plan.blocks} blocks of {plan.wgs} warpgroups, {cut}",
+                  flush=True)
             check(rel <= ATTN_REL_TOL, f"{name} S={s} C={c}: rel err {rel}")
             rows.append(dict(shape=f"B={b},S={s},C={c},H={heads},D={d}",
                              max_abs_err=abs_e, rel_err=rel, ms=ms,
-                             plain_ms=plain_ms, library_ms=None, **bd))
+                             call_ms=call_ms, host_us=hus,
+                             cublas_product_ms=cublas_ms, plain_ms=plain_ms,
+                             library_ms=None, blocks=plan.blocks, wgs=plan.wgs,
+                             run=plan.run, split=plan.split, **bd))
     for name, rows in (("ln_qkv", qkv_shapes), ("attn_out", out_shapes)):
+        sums = {k: per_call(rows, LEVEL_BLOCKS, k)
+                for k in ("ms", "call_ms", "cublas_product_ms", "bound_ms",
+                          "plain_ms")}
         print(f"{name}: the 16 launches of a UNet call at batch {b} sum to "
-              f"{per_call(rows, LEVEL_BLOCKS, 'ms'):.3f} ms", flush=True)
+              f"{sums['ms']:.3f} ms in the kernel (back-to-back calls "
+              f"{sums['call_ms']:.3f}); cuBLAS on the products alone "
+              f"{sums['cublas_product_ms']:.3f}; bound {sums['bound_ms']:.3f}; "
+              f"plain {sums['plain_ms']:.3f} ms", flush=True)
     return qkv_shapes, out_shapes
 
 

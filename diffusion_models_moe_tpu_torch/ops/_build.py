@@ -59,8 +59,10 @@ _SIGNATURES = {
                                _I, _LL, _P],
     "dmoe_sd_cross_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                 _I, _LL, _P],
-    "dmoe_ln_qkv": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P],
-    "dmoe_attn_out_residual": [_P, _LL, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dmoe_ln_qkv": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P,
+                    _P],
+    "dmoe_attn_out_residual": [_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _P, _P, _P],
     "dmoe_conv3x3_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _P, _P, _P],
     "dmoe_winograd3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,

@@ -27,7 +27,9 @@
 //                       tile's products.
 //   2. routing stage    (routed) scores, selection, mask; see below.
 //   3. ff_down_kernel   y = prod W2^T + b2 (f32) rounded to bf16, + the
-//                       residual x in bf16: the same ring and warpgroups, 160
+//                       residual x in bf16: the output GEMM of
+//                       down_gemm.cuh, which kernel 6 (attn_absorb.cu)
+//                       shares: the same ring and warpgroups, 160
 //                       output channels a block (wgmma m64n160k16).
 //                       Where the grid is small (N = 1024 and 256 at H =
 //                       5120) the H depth is split over grid z; the f32 parts
@@ -90,41 +92,16 @@
 // by its launches' latency below.
 //
 // Inference only: there is no backward.
-#include "wgmma_tile.cuh"
+#include "down_gemm.cuh"
 
 namespace {
 
-constexpr int BK = 64;              // depth a stage: one 128-byte swizzled row
-constexpr int ROWS_WG = 64;         // rows of a consumer warpgroup
 constexpr int UP_BN = 128;          // h and g columns an ff_up block
-constexpr int DOWN_BN = 160;        // output channels an ff_down block
 constexpr int TILE64 = 64 * 128;    // bytes of a 64 x 64 bf16 tile
 constexpr int R_THREADS = 160;      // scores: a consumer warpgroup + a producer warp
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
 
 __device__ __forceinline__ __nv_bfloat162 pack2(float a, float b) {
   return __floats2bfloat162_rn(a, b);
-}
-
-// A 2-D map (inner, outer) with rows `row_bytes` apart, in boxes of 64 inner
-// x `box_outer` outer in the 128-byte swizzle.
-bool map_2d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
-            uint64_t row_bytes, uint32_t box_outer) {
-  const uint64_t dims[2] = {inner, outer};
-  const uint64_t strides[1] = {row_bytes};
-  const uint32_t box[2] = {64, box_outer};
-  return wg::encode_bf16_map(map, base, 2, dims, strides, box,
-                             CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, int smem, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  done = err == cudaSuccess;
-  return err;
 }
 
 // ------------------------------------------------------------- LayerNorm
@@ -367,151 +344,15 @@ __global__ void __launch_bounds__(UpCfg<NWG, ROUTE>::THREADS, 1) ff_up_kernel(
 }
 
 // --------------------------------------------------------------- ff_down
-template <int NWG>
-struct DownCfg {
-  static constexpr int A_BYTES = NWG * ROWS_WG * 128;
-  static constexpr int B_BYTES = DOWN_BN * 128;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int STAGES = NWG == 2 ? 5 : 6;
-  static constexpr int THREADS = 128 * (NWG + 1);
-  static constexpr int SMEM = STAGES * STAGE + 2048;
-};
-
-// The epilogue of the block's 160 output channels from registers (this
-// thread: rows r0 and r0 + 8, channels col + 8 j + {0, 1}): the biases and
-// residuals are all loaded first, so that their loads are in flight
-// together.
-template <bool SPLIT, bool RESID>
-__device__ __forceinline__ void down_store(const float (&acc)[80], int r0,
-                                           int col, int n, int c,
-                                           const bf16* __restrict__ b2,
-                                           const bf16* __restrict__ x,
-                                           bf16* __restrict__ y,
-                                           float* __restrict__ part) {
-  constexpr int J = DOWN_BN / 8;
-  if (SPLIT) {
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + 8 * half, cc = col + 8 * j;
-        if (row < n && cc < c)
-          *reinterpret_cast<float2*>(part + (size_t)row * c + cc) =
-              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-      }
-    return;
-  }
-  __nv_bfloat162 bb[J], xx[J][2];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int cc = min(col + 8 * j, c - 2);
-    bb[j] = *reinterpret_cast<const __nv_bfloat162*>(b2 + cc);
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      if (RESID)
-        xx[j][half] = *reinterpret_cast<const __nv_bfloat162*>(
-            x + (size_t)min(r0 + 8 * half, n - 1) * c + cc);
-  }
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int cc = col + 8 * j;
-    if (cc < c) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + 8 * half;
-        if (row < n) {
-          bf16 o0 = f2bf(acc[4 * j + 2 * half] + bf2f(bb[j].x));
-          bf16 o1 = f2bf(acc[4 * j + 2 * half + 1] + bf2f(bb[j].y));
-          if (RESID) {
-            o0 = f2bf(bf2f(xx[j][half].x) + bf2f(o0));
-            o1 = f2bf(bf2f(xx[j][half].y) + bf2f(o1));
-          }
-          __nv_bfloat162 out;
-          out.x = o0;
-          out.y = o1;
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * c + cc) = out;
-        }
-      }
-    }
-  }
-}
-
+// y = prod W2^T + b2 (+ x): the shared output GEMM of down_gemm.cuh.
 template <int NWG, bool SPLIT, bool RESID>
 __global__ void __launch_bounds__(DownCfg<NWG>::THREADS, 1) ff_down_kernel(
     const __grid_constant__ CUtensorMap amap,
     const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ b2,
-    const bf16* __restrict__ x, int n, int c, int hdim, int per,
+    const bf16* __restrict__ x, int n, int c, int nchunks, int per,
     bf16* __restrict__ y, float* __restrict__ partial) {
-  using Cfg = DownCfg<NWG>;
-  constexpr int STAGES = Cfg::STAGES;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = wg::smem_base_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * Cfg::STAGE);
-  uint64_t* empty = full + STAGES;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int group = tid >> 7;
-  const int row0 = blockIdx.y * NWG * ROWS_WG, col0 = blockIdx.x * DOWN_BN;
-  const int chunk0 = blockIdx.z * per;
-  const int nc = min(per, hdim / BK - chunk0);   // >= 1 by the plan
-
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      wg::mbar_init(full + s, 1);
-      wg::mbar_init(empty + s, 4 * NWG);
-    }
-    wg::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (group == 0) {
-    wg::setmaxnreg_dec<PRODUCER_REGS>();
-    if (warp == 0 && lane == 0) {
-      wg::Ring ring;
-      for (int ci = 0; ci < nc; ++ci) {
-        wg::mbar_wait(empty + ring.stage, ring.phase ^ 1);
-        unsigned char* st = smem + ring.stage * Cfg::STAGE;
-        uint64_t* bar = full + ring.stage;
-        wg::mbar_expect_tx(bar, Cfg::STAGE);
-        wg::tma_load_2d(st, &amap, bar, (chunk0 + ci) * BK, row0);
-        wg::tma_load_2d(st + Cfg::A_BYTES, &wmap, bar, (chunk0 + ci) * BK, col0);
-        ring.advance(STAGES);
-      }
-    }
-    return;
-  }
-
-  wg::setmaxnreg_inc<CONSUMER_REGS>();
-  const int wgi = group - 1;
-  float acc[80];
-#pragma unroll
-  for (int i = 0; i < 80; ++i) acc[i] = 0.f;
-  wg::Ring ring;
-  int prev = 0;
-  for (int ci = 0; ci < nc; ++ci) {
-    wg::mbar_wait(full + ring.stage, ring.phase);
-    const unsigned char* st = smem + ring.stage * Cfg::STAGE;
-    const uint64_t ad = wg::kmajor_desc<128>(st + wgi * ROWS_WG * 128);
-    const uint64_t bd = wg::kmajor_desc<128>(st + Cfg::A_BYTES);
-    wg::fence_regs(acc);
-    wg::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wg::wgmma_ss(acc, ad + 2 * ks, bd + 2 * ks, true);
-    wg::wgmma_commit();
-    if (ci > 0) {
-      wg::wgmma_wait<1>();
-      if (lane == 0) wg::mbar_arrive(empty + prev);
-    }
-    prev = ring.stage;
-    ring.advance(STAGES);
-  }
-  wg::wgmma_wait<0>();
-  wg::fence_regs(acc);
-
-  const int w = warp & 3, g = lane >> 2, t = lane & 3;
-  const int r0 = row0 + wgi * ROWS_WG + 16 * w + g;
-  float* part = SPLIT ? partial + (size_t)blockIdx.z * n * c : nullptr;
-  down_store<SPLIT, RESID>(acc, r0, col0 + 2 * t, n, c, b2, x, y, part);
+  down_gemm<NWG, SPLIT, RESID>(amap, wmap, b2, x, n, c, nchunks, per, y,
+                               partial);
 }
 
 // ------------------------------------------------------- routing: scores
@@ -950,18 +791,9 @@ cudaError_t launch_down(const CUtensorMap& amap, const CUtensorMap& wmap,
                         int split, int per, bf16* y, float* partial,
                         cudaStream_t st) {
   static bool done = false;
-  auto kernel = ff_down_kernel<NWG, SPLIT, RESID>;
-  cudaError_t err = configure(kernel, DownCfg<NWG>::SMEM, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((c + DOWN_BN - 1) / DOWN_BN,
-                  (n + NWG * ROWS_WG - 1) / (NWG * ROWS_WG), split);
-  kernel<<<grid, DownCfg<NWG>::THREADS, DownCfg<NWG>::SMEM, st>>>(
-      amap, wmap, b2, x, n, c, hdim, per, y, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !SPLIT) return err;
-  // y = bf16(sum of the parts + b2) (+ x in bf16), as the unsplit epilogue
-  wg::launch_split_finish(partial, split, n, 1, c, b2, 0, x, y, st, true);
-  return cudaGetLastError();
+  return launch_down_gemm<NWG, SPLIT>(ff_down_kernel<NWG, SPLIT, RESID>, done,
+                                      amap, wmap, b2, x, n, c, hdim / BK,
+                                      split, per, y, partial, st);
 }
 
 template <int NWG>

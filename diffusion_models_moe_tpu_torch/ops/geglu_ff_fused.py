@@ -32,7 +32,8 @@ from diffusion_models_moe_tpu_torch.ops import _build
 from diffusion_models_moe_tpu_torch.ops.routing_kernel import (
     DEPTH_CHUNK, RoutePlan, route_plan, route_scratch_bytes)
 
-# the kernels' tiling (csrc/geglu_ff.cu: ROWS_WG, UP_BN, DOWN_BN, BK)
+# the kernels' tiling (csrc/geglu_ff.cu: UP_BN; csrc/down_gemm.cuh: ROWS_WG,
+# DOWN_BN, BK)
 WG_ROWS = 64        # rows of a consumer warpgroup
 UP_COLS = 128       # h and g columns an ff_up block
 DOWN_COLS = 160     # output channels an ff_down block
@@ -81,23 +82,34 @@ def ff_plan(n: int, c: int, hdim: int, e: int, sms: int) -> FFPlan:
     card), so a row's output may differ in its last bits between two N, and
     at one N does not depend on the other rows."""
     # ff_up: two consumer warpgroups a tile (128 rows) where that still
-    # gives every SM a tile; ff_down: two wherever there are more than 64
-    # rows, and the depth split where the blocks leave half the SMs idle
+    # gives every SM a tile; ff_down: see down_cut
     up_cols = -(-hdim // UP_COLS)
     up_wgs = 2 if -(-n // (2 * WG_ROWS)) * up_cols >= sms else 1
-    down_cols = -(-c // DOWN_COLS)
-    down_wgs = 2 if n > WG_ROWS else 1
-    down_rows = -(-n // (WG_ROWS * down_wgs))
     chunks = hdim // DEPTH_CHUNK
-    blocks, split, per = down_rows * down_cols, 1, chunks
-    if 2 * blocks <= sms:
-        # a block fills an SM's shared memory: split to one wave at most
-        per = -(-chunks // (sms // blocks))
-        split = -(-chunks // per)
+    down_wgs, down_rows, down_cols, split, per = down_cut(n, c, chunks, sms)
     route = route_plan(n, hdim, e, sms) if e else None
     up_rows = -(-n // (WG_ROWS * up_wgs))
     return FFPlan(up_wgs, up_rows, up_cols, min(up_rows * up_cols, sms), route,
                   down_wgs, down_rows, down_cols, chunks, split, per)
+
+
+def down_cut(n: int, c: int, chunks: int,
+             sms: int) -> tuple[int, int, int, int, int]:
+    """How the output GEMM of `csrc/down_gemm.cuh` (ff_down here, kernel 6's
+    out projection in `attn_absorb_fused.absorb_plan`) is cut for N rows, C
+    output channels and a depth of `chunks` chunks of DEPTH_CHUNK on `sms`
+    SMs: (warpgroups a block, row tiles, column tiles of DOWN_COLS, depth
+    parts, chunks a part). Two warpgroups wherever there are more than 64
+    rows; the depth split only where the blocks leave half the SMs idle,
+    and then to one wave at most (a block fills an SM's shared memory)."""
+    cols = -(-c // DOWN_COLS)
+    wgs = 2 if n > WG_ROWS else 1
+    rows = -(-n // (WG_ROWS * wgs))
+    blocks, split, per = rows * cols, 1, chunks
+    if 2 * blocks <= sms:
+        per = -(-chunks // (sms // blocks))
+        split = -(-chunks // per)
+    return wgs, rows, cols, split, per
 
 
 def fused_ff_ok(n: int, c: int, hidden: int, e: int = 0,

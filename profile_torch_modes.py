@@ -29,7 +29,7 @@ import torch
 GROUPS = (
     ("conv chain kernel (kernel 7)", ("conv_chain_kernel",)),
     ("fused Winograd kernel (kernel 8)", ("winograd_kernel",)),
-    ("fixed-order finish of a split depth (kernels 1, 7, 8)",
+    ("fixed-order finish of a split depth (kernels 1, 6, 7, 8)",
      ("split_finish_kernel",)),
     ("LN + qkv kernel (kernel 5)", ("ln_qkv_kernel",)),
     ("out projection + residual kernel (kernel 6)", ("attn_out_kernel",)),

@@ -375,6 +375,86 @@ def test_absorbed_self_attention_kernels_match_plain(gen, mode):
     assert _rel(got, ref) < REL_TOL
 
 
+# (B, S, C): the four SD1.5 self-attentions at UNet batch 4, 8 heads
+ABSORB_SD15 = [(4, 4096, 320), (4, 1024, 640), (4, 256, 1280), (4, 64, 1280)]
+
+
+def _absorb_inputs(gen, b, s, c):
+    x = _rn(gen, b, s, c)
+    w = [_rn(gen, c, c, scale=c ** -0.5) for _ in range(4)]
+    ln = (_rn(gen, c, scale=0.1, dtype=torch.float32) + 1,
+          _rn(gen, c, scale=0.1, dtype=torch.float32))
+    return x, w, _rn(gen, c, scale=0.1), ln
+
+
+@pytest.mark.parametrize("kind", ["qkv", "out"])
+@pytest.mark.parametrize("shape", ABSORB_SD15)
+def test_absorb_kernels_at_sd15_shapes(gen, shape, kind):
+    """Kernels 5 and 6 at the four SD1.5 shapes (kernel 6's depth split at
+    S = 256 and 64, kernel 5's shared-out column tiles at C = 640 and 1280):
+    within REL_TOL of the plain versions, bit-equal on a repeat, and a row's
+    result independent of the other rows at one N."""
+    b, s, c = shape
+    heads = 8
+    plan = absorb.absorb_plan(kind, b * s, c,
+                              _build.sm_count(torch.device("cuda")))
+    if kind == "out":
+        assert (plan.split > 1) == (s <= 256)
+    else:
+        assert (plan.run < plan.col_tiles) == (c > 320)
+    x, (wq, wk, wv, wo), bo, ln = _absorb_inputs(gen, b, s, c)
+    o = _rn(gen, b, s, heads, c // heads)
+    if kind == "qkv":
+        def run(inp, uk=True):
+            return torch.cat([t.reshape(b, s, c) for t in absorb.ln_qkv_fused(
+                inp, wq, wk, wv, heads, *ln, use_kernels=uk)], dim=-1)
+        other = x.clone()
+    else:
+        def run(inp, uk=True):
+            return absorb.attn_out_residual_fused(inp, wo, bo, x,
+                                                  use_kernels=uk)
+        other = o.clone()
+    inp = x if kind == "qkv" else o
+    got = run(inp)
+    assert _rel(got, run(inp, False)) < REL_TOL
+    assert torch.equal(got, run(inp))
+    other[1:] = _rn(gen, *other[1:].shape)
+    assert torch.equal(run(other)[0], got[0])
+
+
+def test_attn_out_residual_takes_only_head_dense_o(gen):
+    """Kernel 6 reads o through one row stride: the plain attention's
+    output (an einsum's permuted view, heads S*D apart) and a slice of the
+    sequence (rows unevenly spaced) are refused; the absorbed sub-block
+    hands the plain attention's output over contiguous, so a head dim that
+    kernel 2 refuses (D = 48) still runs kernels 5 and 6."""
+    b, s, c, heads = 1, 77, 96, 2
+    d = c // heads
+    q, k, v = (_rn(gen, b, s, heads, d) for _ in range(3))
+    o = sd_flash.sd_self_attention_reference(q, k, v, d ** -0.5)
+    assert absorb.row_stride(o) is None
+    w, bias, resid = _rn(gen, c, c, scale=c ** -0.5), _rn(gen, c), _rn(gen, b, s, c)
+    with pytest.raises(ValueError, match="row_stride"):
+        absorb.attn_out_residual_fused(o, w, bias, resid)
+    long = _rn(gen, 2, 100, heads, d)
+    with pytest.raises(ValueError, match="row_stride"):
+        absorb.attn_out_residual_fused(long[:, :s], w, bias,
+                                       _rn(gen, 2, s, c))
+    got = absorb.attn_out_residual_fused(o.contiguous(), w, bias, resid)
+    ref = absorb.attn_out_residual_fused(o, w, bias, resid, use_kernels=False)
+    assert _rel(got, ref) < REL_TOL
+    x, (wq, wk, wv, wo), bo, ln = _absorb_inputs(gen, b, s, c)
+    args = (x, wq, wk, wv, wo, bo, heads, d ** -0.5, (*ln, 1e-5), "1")
+    _build.reset_launch_counts()
+    got = absorb.absorbed_self_attention(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["plain:sd_self_attention"] == 1
+    assert _build.LAUNCHES["ln_qkv_fused"] == 1
+    assert _build.LAUNCHES["attn_out_residual_fused"] == 1
+    assert _rel(got, absorb.absorbed_self_attention(
+        *args, use_kernels=False)) < REL_TOL
+
+
 @pytest.mark.parametrize("prologue,res", [(True, True), (True, False),
                                           (False, True), (False, False)])
 @pytest.mark.parametrize("shape,split", [

@@ -1,5 +1,5 @@
-"""The launch plans of the torch port's convolution, attention, fused FF and
-routing kernels, on the CPU.
+"""The launch plans of the torch port's convolution, attention, fused FF,
+routing and absorbed-attention projection kernels, on the CPU.
 
 `ff_plan` (fused FF) and `route_plan` (the routing stage of the fused FF
 and the routing kernel) decide the warpgroups a block of the two GEMMs, the
@@ -20,10 +20,17 @@ every SD1.5 shape `chip_smoke.py` runs and at the ragged shapes of
 channel and every input channel (with all 9 taps, or all 16 positions)
 exactly once, a block's pixels lie in one image, and the plan is a function
 of (B, H, W, Cin, Cout, SM count) alone.
+
+`absorb_plan` (LN + q/k/v projection, out projection + residual) decides the
+warpgroups and row panels of both kernels, kernel 5's runs of 160-column
+tiles and weight ring, and kernel 6's depth split; it is held at the four
+SD1.5 self-attention shapes and at the ragged ones of
+`tests/test_torch_cuda.py`.
 """
 import numpy as np
 import pytest
 
+from diffusion_models_moe_tpu_torch.ops import attn_absorb_fused as ab
 from diffusion_models_moe_tpu_torch.ops import conv_chain_fused as chain
 from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
 from diffusion_models_moe_tpu_torch.ops import routing_kernel as rk
@@ -331,3 +338,107 @@ def test_ff_plans_on_the_h100_fill_the_card():
         assert (plan.down_split > 1) == (n <= 1024)
         assert (plan.route.split > 1) == (2 * n <= rk.ROWS * H100_SMS)
         assert plan.up_wgs == (1 if n == 256 else 2)
+
+
+# (N, C) of the four SD1.5 self-attentions at UNet batch 4 and ragged ones
+# (the GPU tests' N = 600, 77, 2000 at C = 320, 96, 1280; one row; a
+# panel's worth plus one; the widest two-warpgroup C)
+ABSORB_SD15 = [(4 * s, c) for s, c in ((4096, 320), (1024, 640), (256, 1280),
+                                       (64, 1280))]
+ABSORB_RAGGED = [(600, 320), (77, 96), (2000, 1280), (400, 320), (1, 8),
+                 (65, 1280), (300, 448), (129, 512)]
+
+
+@pytest.mark.parametrize("kind", ["qkv", "out"])
+@pytest.mark.parametrize("shape", ABSORB_SD15 + ABSORB_RAGGED)
+def test_absorb_plan_covers_every_row_column_and_depth_chunk_once(shape,
+                                                                  kind):
+    """Every row, every output column (in each of q, k and v for kernel 5)
+    and every 64-deep chunk of C is covered once, no run of column tiles or
+    depth part is empty by the kernels' own counts, and kernel 5's block
+    fits the shared memory of an SM with a ring of two stages or more."""
+    n, c = shape
+    plan = ab.absorb_plan(kind, n, c, H100_SMS)
+    assert plan.kind == kind and plan.wgs in (1, 2)
+    assert _covered_once(n, plan.rows, plan.row_tiles)
+    per_weight = plan.col_tiles // 3 if kind == "qkv" else plan.col_tiles
+    assert plan.col_tiles == per_weight * (3 if kind == "qkv" else 1)
+    assert _covered_once(c, ab.QKV_COLS, per_weight)
+    assert _covered_once(plan.col_tiles, plan.run, plan.groups)
+    assert _depth_once(c, rk.DEPTH_CHUNK, plan.chunks, plan.split,
+                       plan.chunks_per_split)
+    if kind == "qkv":
+        assert plan.split == 1
+        assert 2 <= plan.stages <= ab.MAX_STAGES
+        smem = ab.qkv_smem(plan.wgs, c, plan.stages, plan.boxes)
+        assert smem <= ab.SMEM_BUDGET
+        assert (plan.stages == ab.MAX_STAGES or ab.qkv_smem(
+            plan.wgs, c, plan.stages + 1, plan.boxes) > ab.SMEM_BUDGET)
+        # all five staging boxes unless they would leave fewer than three
+        # stages
+        assert plan.boxes == (ab.BOXES if ab.qkv_stages(plan.wgs, c) >= 3
+                              else 1)
+    else:
+        assert plan.run == 1 and plan.stages == plan.boxes == 0
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 1000])
+def test_absorb_plan_shares_out_only_where_the_rows_leave_sms_idle(sms):
+    """Kernel 5 shares a panel's column tiles out over blocks, and kernel 6
+    splits its depth, only where the unsplit grid gives at most half the SMs
+    a block; then kernel 5 takes the shortest run whose blocks the SMs hold
+    at once, and kernel 6 (the cut of ff_down) stays within one wave. Two
+    warpgroups wherever there are more than 64 rows and (kernel 5) the
+    panel leaves room for three stages. The same arguments give the same
+    plan, also after the cache is emptied."""
+    for n, c in ABSORB_SD15 + ABSORB_RAGGED:
+        for kind in ("qkv", "out"):
+            plan = ab.absorb_plan(kind, n, c, sms)
+            ab.absorb_plan.cache_clear()
+            assert plan == ab.absorb_plan(kind, n, c, sms)
+            unsplit = plan.row_tiles * (1 if kind == "qkv" else plan.col_tiles)
+            if 2 * unsplit > sms:
+                assert plan.split == 1
+                assert plan.run == (plan.col_tiles if kind == "qkv" else 1)
+                continue
+            if kind == "qkv":
+                assert plan.blocks <= max(sms, plan.row_tiles)
+                held = max(1, sms // plan.row_tiles)
+                assert plan.run == 1 or -(-plan.col_tiles // (plan.run - 1)) > held
+            else:
+                assert plan.split >= 2 or plan.chunks == 1
+                assert plan.blocks <= sms
+        qkv = ab.absorb_plan("qkv", n, c, sms)
+        assert (qkv.wgs == 2) == (n > ab.WG_ROWS and ab.qkv_stages(2, c) >= 3)
+        assert ab.absorb_plan("out", n, c, sms).wgs == (2 if n > ab.WG_ROWS
+                                                        else 1)
+
+
+def test_absorb_plans_on_the_h100():
+    """What the rules give at 132 SMs and UNet batch 4. Kernel 5: two
+    warpgroups and all six column tiles a block at 64x64 latents (128
+    blocks); one warpgroup and runs of 6, 3 and 1 tiles at C = 640 and
+    1280 (128, 128 and 96 blocks), a ring of 4, 4, 3, 3 stages, the staging
+    one box at a time at C = 1280. Kernel 6:
+    256 and 128 blocks unsplit at the two large levels, the depth split in
+    2 and 7 at the two small ones, as ff_down splits at the same N. The
+    out projection's cut is ff_down's: the same rule over C's depth."""
+    got = [(n, c, p.wgs, p.run, p.stages, p.boxes, p.blocks) for (n, c), p in
+           ((sh, ab.absorb_plan("qkv", *sh, H100_SMS)) for sh in ABSORB_SD15)]
+    assert got == [(16384, 320, 2, 6, 4, 5, 128), (4096, 640, 1, 6, 4, 5, 128),
+                   (1024, 1280, 1, 3, 3, 1, 128), (256, 1280, 1, 1, 3, 1, 96)]
+    got = [(n, c, p.wgs, p.split, p.chunks_per_split, p.blocks) for (n, c), p
+           in ((sh, ab.absorb_plan("out", *sh, H100_SMS)) for sh in ABSORB_SD15)]
+    assert got == [(16384, 320, 2, 1, 5, 256), (4096, 640, 2, 1, 10, 128),
+                   (1024, 1280, 2, 2, 10, 128), (256, 1280, 2, 7, 3, 112)]
+    for n, c in ABSORB_SD15:
+        out = ab.absorb_plan("out", n, c, H100_SMS)
+        ff = ffm.ff_plan(n, c, c, 0, H100_SMS)
+        assert (out.wgs, out.row_tiles, out.col_tiles, out.chunks, out.split,
+                out.chunks_per_split) == (
+            ff.down_wgs, ff.down_row_tiles, ff.down_col_tiles, ff.down_chunks,
+            ff.down_split, ff.down_chunks_per_split)
+    with pytest.raises(ValueError):
+        ab.absorb_plan("qkv", 256, 1472, H100_SMS)
+    with pytest.raises(ValueError):
+        ab.absorb_plan("proj", 256, 320, H100_SMS)
