@@ -74,6 +74,28 @@ Run from the root of a checkout. Phases:
      (full and shallow UNet calls counted through the FF kernel's launches),
      each with its latent error against the exact path, held below
      APPROX_FACTOR of what two unrelated samples differ by on this card;
+  2e. (run after 2d) kernels 1, 2, 3, 5, 6 and 7 at every SD2.1-768 shape
+     of their kind (UNet batch 4, 96 x 96 latents: 9216 to 144 tokens, 5 to
+     20 heads of 64, FFs up to 36 864 rows, convs at 96 to 12 side) against
+     their plain versions, with the same times, bounds and yardsticks as at
+     SD1.5, and their sums over one SD2.1 UNet call;
+  10. the SD2.1-768 path: `sd21_config(torch.bfloat16)` with seeded random
+     weights, MoE routing on all 16 FFs, the hash tokenizer, 2 requests,
+     DDIM v-prediction at 50 steps with CFG 7.5, decoded to 768 x 768:
+     wall, img/s, peak memory, kernels 1-3 at 16 launches a UNet call and
+     no plain call; `denoise` latents with kernels against plain versions
+     after 3 and SD21_LONG_STEPS steps within the card's own SD2.1
+     bf16-vs-f32 floor; the same requests with `attn_absorb="1"` and
+     `conv_chain=True` (kernels 5, 6, 7 at their counts, latents against
+     the modes-off path within that floor);
+  11. the other schedulers on the SD1.5 geometry: Euler at 50 steps,
+     DPM-Solver++ 2M at 20 and LCM at 4 (a UNet with the 256-wide guidance
+     embedding, guidance 8.0), each a timed 2-request generate with its
+     launch counts and its `denoise` latents, kernels against plain
+     versions, within its own bf16-vs-f32 floor (LCM's runs on one injected
+     step noise); then a `ServingEngine(batch_size=2)` over the LCM
+     pipeline serving the 3 seeded requests of phase 7, request 0 alone
+     equal to co-batched;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -104,6 +126,11 @@ FF_REL_TOL = 2e-2        # max |kernel - plain| / max |plain| on agreeing rows
 # disagreement measured on an H100 (1 - 0.999996 and 1 - 0.999756).
 FF_DECISION_AGREEMENT = 0.99998
 FF_ROW_AGREEMENT = 0.999
+# Every routing decision on which kernel and plain version disagree is a near
+# tie: its expert's plain score lies within this share of its row's k-th
+# score. (The gate is rounded to bf16 before the scores, in both; its f32
+# products summed in another order round to another bf16 now and then.)
+FF_NEAR_TIE = 0.02
 ATTN_REL_TOL = 2e-2      # max |kernel - plain| / max |plain|
 # ||z_kernels - z_plain|| / ||z_plain||: below FLOOR_FACTOR x the bf16-vs-f32
 # floor measured on the card in the same run, and below LATENT_REL_TOL after
@@ -131,6 +158,11 @@ EXP_RATE = [0.0]
 # (tokens, channels) of the UNet levels; the UNet batch is 2 x BATCH with CFG
 LEVELS = ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
 LEVEL_BLOCKS = (5, 5, 5, 1)   # transformer blocks of SD1.5 at each level
+# (tokens, channels, heads) of the attention levels: SD1.5 (8 heads of 40,
+# 80, 160) and SD2.1-768 (96 x 96 latents; 5, 10, 20, 20 heads of 64), each
+# with the same transformer blocks a level
+SD15_ATTN = tuple((s, c, 8) for s, c in LEVELS)
+SD21_ATTN = ((9216, 320, 5), (2304, 640, 10), (576, 1280, 20), (144, 1280, 20))
 # (side, Cin, Cout) of every 3x3 resblock conv of SD1.5, and how many convs
 # of a UNet call have that shape
 CONV_SHAPES = ((64, 320, 320), (64, 640, 320), (64, 960, 320),
@@ -139,6 +171,9 @@ CONV_SHAPES = ((64, 320, 320), (64, 640, 320), (64, 960, 320),
                (16, 640, 1280), (16, 1280, 1280), (16, 1920, 1280),
                (16, 2560, 1280), (8, 1280, 1280), (8, 2560, 1280))
 CONV_COUNTS = (7, 2, 1, 1, 6, 1, 1, 1, 1, 6, 1, 2, 11, 3)
+# the same convs at SD2.1-768's 96, 48, 24 and 12 side
+SD21_CONV_SHAPES = tuple((3 * side // 2, cin, cout)
+                         for side, cin, cout in CONV_SHAPES)
 RESNETS = 22             # resblocks of the SD1.5 UNet, two 3x3 convs each
 # (side, Cin, Cout) of every stride-1 3x3 conv that takes the fused Winograd
 # kernel, and how many convs of one call have that shape. UNet (batch
@@ -161,6 +196,14 @@ WINO_UNET_CONVS, WINO_VAE_CONVS = 33, 31
 # must stay on its own sample's side of the halfway point to an unrelated
 # one.
 APPROX_FACTOR = 0.5
+
+
+def implied_row_agreement(e: int) -> float:
+    """The least share of rows whose whole expert set agrees that
+    FF_DECISION_AGREEMENT implies for E experts: a row disagrees where one
+    of its E decisions flips, and a near tie at the k-th score flips two
+    (one expert in, one out). The limit of phase 2e's SD2.1 shapes."""
+    return 1.0 - e * (1.0 - FF_DECISION_AGREEMENT) / 2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -247,7 +290,12 @@ def launch_ms(fn, groups, iters: int = 20) -> dict:
     return out
 
 
-def check_ff(gen: torch.Generator) -> dict:
+def check_ff(gen: torch.Generator, levels=SD15_ATTN, label: str = "SD1.5",
+             row_limit=lambda e: FF_ROW_AGREEMENT) -> tuple[list, list]:
+    """Kernel 1 against its plain version at the FF shape of each
+    (tokens, channels, heads) level (N = 2 BATCH x tokens rows): routing
+    decisions, rows whose expert set agrees (at least `row_limit(E)`),
+    disagreements only at near ties, outputs on agreeing rows."""
     from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import geglu_ff_fused as ffm
     from diffusion_models_moe_tpu_torch.taps import patterns_from_labels
@@ -257,8 +305,8 @@ def check_ff(gen: torch.Generator) -> dict:
     def rn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    # (C, N): N = CFG batch (2 x BATCH) x tokens of the UNet level
-    for c, tokens in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
+    # N = CFG batch (2 x BATCH) x tokens of the UNet level
+    for tokens, c, _ in levels:
         n, hdim = 2 * BATCH * tokens, 4 * c
         e = hdim // 20
         k = int(e * 0.3)
@@ -281,7 +329,13 @@ def check_ff(gen: torch.Generator) -> dict:
         rows = (sel_k == sel_p).all(dim=1)
         row_agree = rows.float().mean().item()
         abs_e, rel = rel_err(y[rows], y_plain[rows])
-        del y_plain, ga
+        # how near to its row's k-th plain score each disagreeing decision is
+        scores = ga.to(bf16).float() @ pat.float().t()
+        kth = torch.topk(scores, k, dim=-1).values[:, -1:]
+        gap = ((scores - kth).abs() / kth.abs())[sel_k != sel_p]
+        tie_gap = gap.max().item() if gap.numel() else 0.0
+        limit = row_limit(e)
+        del y_plain, ga, scores
         # this shape's tensors bound now: phase 9 calls it again
         kern = lambda a=args, kw=ln: ffm.geglu_ff_fused(*a, **kw)  # noqa: E731
         ms = graph_ms(kern)
@@ -297,7 +351,10 @@ def check_ff(gen: torch.Generator) -> dict:
         del prod
         plan = ffm.ff_plan(n, c, hdim, e, _build.sm_count(x.device))
         print(f"ff    C={c:4d} N={n:5d} E={e:3d} k={k:2d}: routing decisions "
-              f"agree {decision_agree:.6f}, rows agree {row_agree:.6f}; on "
+              f"agree {decision_agree:.6f}, rows agree {row_agree:.6f} (limit "
+              f"{limit:.5f}), {int((~rows).sum())} rows differ, each "
+              f"disagreeing decision within {tie_gap:.2e} of its row's k-th "
+              f"score (limit {FF_NEAR_TIE}); on "
               f"agreeing rows max_abs_err {abs_e:.6g} rel {rel:.3e} "
               f"(tol {FF_REL_TOL:g}); kernel {ms:.4f} ms (back-to-back calls "
               f"{call_ms:.4f}), plain {plain_ms:.4f} ms; host {hus:.1f} us a "
@@ -305,8 +362,9 @@ def check_ff(gen: torch.Generator) -> dict:
         check(decision_agree >= FF_DECISION_AGREEMENT,
               f"ff C={c}: routing decisions agree {decision_agree} < "
               f"{FF_DECISION_AGREEMENT}")
-        check(row_agree >= FF_ROW_AGREEMENT,
-              f"ff C={c}: rows agree {row_agree} < {FF_ROW_AGREEMENT}")
+        check(row_agree >= limit, f"ff C={c}: rows agree {row_agree} < {limit}")
+        check(tie_gap <= FF_NEAR_TIE,
+              f"ff C={c}: a disagreeing decision {tie_gap} from the k-th score")
         check(rel <= FF_REL_TOL, f"ff C={c}: rel err {rel} > {FF_REL_TOL}")
         # up GEMM (N, C) x (C, 2H), score and mask GEMMs over E, down GEMM;
         # x and y, W1, W2, biases, patterns (bf16) and the f32 LN pair
@@ -329,7 +387,8 @@ def check_ff(gen: torch.Generator) -> dict:
                            plain_ms=plain_ms, library_ms=None,
                            cublas_products_ms=cublas_up + cublas_down, **bd,
                            decision_agreement=decision_agree,
-                           row_agreement=row_agree))
+                           row_agreement=row_agree, row_limit=limit,
+                           near_tie_gap=tie_gap))
         # the floor is worked out, not measured: printed, kept off the
         # kernels line
         floors.append(floor)
@@ -338,7 +397,7 @@ def check_ff(gen: torch.Generator) -> dict:
             for key in ("ms", "call_ms", "cublas_products_ms", "bound_ms",
                         "plain_ms")}
     sums["split_floor_ms"] = per_call(floors, LEVEL_BLOCKS, "bound_ms")
-    print(f"ff: the 16 launches of a UNet call at batch {2 * BATCH} sum to "
+    print(f"ff ({label}): the 16 launches of a UNet call at batch {2 * BATCH} sum to "
           f"{sums['ms']:.3f} ms in the kernels (back-to-back calls "
           f"{sums['call_ms']:.3f}); cuBLAS on the two products alone "
           f"{sums['cublas_products_ms']:.3f}; bound {sums['bound_ms']:.3f}, "
@@ -487,17 +546,19 @@ ATTN_EXTRA = ((4, 77, 40, "bsc", 77), (4, 1000, 80, "bsc", 77),
               (4, 4096, 64, "bsc", 77), (4, 1024, 64, "bs3c", 77))
 
 
-def check_attention(gen: torch.Generator) -> tuple[list, list]:
+def check_attention(gen: torch.Generator, levels=SD15_ATTN,
+                    extra=ATTN_EXTRA, label: str = "SD1.5"
+                    ) -> tuple[list, list]:
     """Phase 2: kernels 2 and 3 against their plain versions at the four
-    SD1.5 shapes of each kind (with SDPA on the same tensors as the
-    yardstick, and the wrapper's host time) and at ATTN_EXTRA."""
+    shapes of each kind that `levels` gives (with SDPA on the same tensors
+    as the yardstick, and the wrapper's host time) and at `extra` (8
+    heads)."""
     from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import sd_flash
     dev = DEV
-    heads = 8
     out = {}
 
-    def heads4(b, n, d, view):
+    def heads4(b, n, d, view, heads):
         # (B, S, C) projection outputs viewed as (B, S, H, D), as the model
         # hands them to the kernels; "bs3c": kernel 5's column thirds
         c = heads * d
@@ -506,16 +567,15 @@ def check_attention(gen: torch.Generator) -> tuple[list, list]:
         return t[..., c:2 * c].reshape(b, n, heads, d) if view == "bs3c" \
             else t.view(b, n, heads, d)
 
-    cases = [(kind, 2 * BATCH, s, d, "bsc", 77, True)
-             for kind in ("self", "cross")
-             for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
-    cases += [(kind, b, s, d, view, kvv, False)
-              for kind in ("self", "cross") for b, s, d, view, kvv in ATTN_EXTRA
+    cases = [(kind, 2 * BATCH, s, heads, c // heads, "bsc", 77, True)
+             for kind in ("self", "cross") for s, c, heads in levels]
+    cases += [(kind, b, s, 8, d, view, kvv, False)
+              for kind in ("self", "cross") for b, s, d, view, kvv in extra
               if kind == "cross" or kvv == 77]
-    for kind, b, s, d, view, kv_valid, main in cases:
+    for kind, b, s, heads, d, view, kv_valid, main in cases:
         shapes = out.setdefault(kind, [])
         s_kv = s if kind == "self" else 77
-        q, k, v = (heads4(b, n, d, view) for n in (s, s_kv, s_kv))
+        q, k, v = (heads4(b, n, d, view, heads) for n in (s, s_kv, s_kv))
         if view == "bs3c":
             assert not q.is_contiguous()
         scale = d ** -0.5
@@ -533,7 +593,7 @@ def check_attention(gen: torch.Generator) -> tuple[list, list]:
         torch.cuda.synchronize()
         abs_e, rel = rel_err(o, o_plain)
         del o_plain
-        what = (f"{kind:5s} B={b} S={s:4d} S_kv={s_kv:4d} D={d:3d} {view:4s} "
+        what = (f"{kind:5s} B={b} S={s:4d} S_kv={s_kv:4d} H={heads:2d} D={d:3d} {view:4s} "
                 f"kv_valid={kv_valid if kind == 'cross' else s_kv}")
         check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
         keys = s_kv if kind == "self" else kv_valid
@@ -584,7 +644,7 @@ def check_attention(gen: torch.Generator) -> tuple[list, list]:
         shapes.append(row)
     for kind, counts in (("self", LEVEL_BLOCKS), ("cross", LEVEL_BLOCKS)):
         rows = out[kind][:4]
-        print(f"{kind}: the 16 launches of a UNet call at batch {2 * BATCH} "
+        print(f"{kind} ({label}): the 16 launches of a UNet call at batch {2 * BATCH} "
               f"sum to {per_call(rows, counts, 'ms'):.3f} ms in the kernel, "
               f"{per_call(rows, counts, 'library_ms'):.3f} ms in SDPA, bound "
               f"{per_call(rows, counts, 'bound_ms'):.3f} ms", flush=True)
@@ -592,10 +652,12 @@ def check_attention(gen: torch.Generator) -> tuple[list, list]:
 
 
 # ---------------------------------------------------------------- phase 2c
-def check_absorb(gen: torch.Generator) -> tuple[list, list]:
+def check_absorb(gen: torch.Generator, levels=SD15_ATTN,
+                 label: str = "SD1.5") -> tuple[list, list]:
     """Phase 2c: the absorbed-attention kernels (LN + q/k/v projection, out
     projection + bias + residual) against their plain versions at the four
-    SD1.5 self-attention shapes, on the same bf16 inputs; device times from
+    self-attention shapes of `levels` (SD1.5's; 2e: SD2.1-768's), on the
+    same bf16 inputs; device times from
     CUDA graphs and by events, the wrappers' host microseconds, each
     shape's plan, and cuBLAS on the products alone as a yardstick (not a
     library call for the same function: `F.linear` of the pre-normalised x
@@ -604,13 +666,13 @@ def check_absorb(gen: torch.Generator) -> tuple[list, list]:
     from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import attn_absorb_fused as ab
     dev, bf16 = DEV, torch.bfloat16
-    b, heads = 2 * BATCH, 8
+    b = 2 * BATCH
     qkv_shapes, out_shapes = [], []
 
     def rn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    for s, c in LEVELS:
+    for s, c, heads in levels:
         n, d = b * s, c // heads
         x = rn(b, s, c)
         wq, wk, wv, wo = (rn(c, c, scale=c ** -0.5) for _ in range(4))
@@ -674,7 +736,7 @@ def check_absorb(gen: torch.Generator) -> tuple[list, list]:
         sums = {k: per_call(rows, LEVEL_BLOCKS, k)
                 for k in ("ms", "call_ms", "cublas_product_ms", "bound_ms",
                           "plain_ms")}
-        print(f"{name}: the 16 launches of a UNet call at batch {b} sum to "
+        print(f"{name} ({label}): the 16 launches of a UNet call at batch {b} sum to "
               f"{sums['ms']:.3f} ms in the kernel (back-to-back calls "
               f"{sums['call_ms']:.3f}); cuBLAS on the products alone "
               f"{sums['cublas_product_ms']:.3f}; bound {sums['bound_ms']:.3f}; "
@@ -682,9 +744,11 @@ def check_absorb(gen: torch.Generator) -> tuple[list, list]:
     return qkv_shapes, out_shapes
 
 
-def check_chain(gen: torch.Generator) -> list:
+def check_chain(gen: torch.Generator, conv_shapes=CONV_SHAPES,
+                label: str = "SD1.5") -> list:
     """Phase 2c: the conv-chain kernel against its plain version at every
-    SD1.5 resblock conv shape, with the time embedding in `bt`, with and
+    resblock conv shape of `conv_shapes` (SD1.5's; 2e: SD2.1-768's), with
+    the time embedding in `bt`, with and
     without a residual. Beside it, as yardsticks only: cuDNN's convolution
     alone on the same tensors, and the unfused sequence the mode replaces
     (group_norm in f32, silu, cast, conv2d + bias, + time embedding,
@@ -699,7 +763,7 @@ def check_chain(gen: torch.Generator) -> list:
     def rn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    for side, cin, cout in CONV_SHAPES:
+    for side, cin, cout in conv_shapes:
         m = b * side * side
         x = rn(b, cin, side, side).contiguous(memory_format=cl)
         res = rn(b, cout, side, side).contiguous(memory_format=cl)
@@ -766,7 +830,7 @@ def check_chain(gen: torch.Generator) -> list:
     check(sum(CONV_COUNTS) == 2 * RESNETS, "CONV_COUNTS")
     sums = {k: per_call(shapes, CONV_COUNTS, k) for k in
             ("ms", "fold_and_kernel_ms", "unfused_ms", "library_ms", "bound_ms")}
-    print(f"chain: the {2 * RESNETS} convs of a UNet call at batch {b} sum to "
+    print(f"chain ({label}): the {2 * RESNETS} convs of a UNet call at batch {b} sum to "
           f"{sums['ms']:.3f} ms in the kernel, {sums['fold_and_kernel_ms']:.3f} "
           f"ms with the GroupNorm fold, against {sums['unfused_ms']:.3f} ms "
           f"for the unfused sequence, {sums['library_ms']:.3f} ms for cuDNN's "
@@ -889,19 +953,25 @@ def run_slice(card: str) -> tuple:
     return pipe, ivs, cond, uncond, launches, images
 
 
+def unet_calls(cfg, steps: int) -> int:
+    """UNet calls of a `steps`-step run: PNDM's warm-up takes one more."""
+    return steps + (cfg.scheduler == "pndm")
+
+
 def timed_generate(pipe, what: str, cond, uncond, seed: int, ivs,
-                   expect: dict, num_steps=None):
+                   expect: dict, num_steps=None, guidance_scale=None):
     """One `generate` of len(cond) requests, timed, with the kernels' launch
     counts over it held to `expect`; checks the images."""
     from diffusion_models_moe_tpu_torch.ops import _build
     cfg = pipe.config
     steps = num_steps or cfg.num_inference_steps
+    g = cfg.guidance_scale if guidance_scale is None else guidance_scale
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     images, _ = pipe.generate(cond, uncond,
                               torch.Generator(device=DEV).manual_seed(seed),
-                              num_steps=num_steps, ivs=ivs)
+                              num_steps=num_steps, ivs=ivs, guidance_scale=g)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -912,9 +982,11 @@ def timed_generate(pipe, what: str, cond, uncond, seed: int, ivs,
     check(bool(torch.isfinite(images).all()), f"{what}: non-finite images")
     check(images.min().item() >= 0.0 and images.max().item() <= 1.0,
           f"{what}: image values outside [0, 1]")
-    print(f"{what}: generate {b} requests {side}x{side}, PNDM {steps} steps "
-          f"({steps + 1} UNet calls at batch {2 * b}), CFG "
-          f"{cfg.guidance_scale}, MoE topk 0.3 on "
+    lcm = cfg.scheduler == "lcm"
+    print(f"{what}: generate {b} requests {side}x{side}, {cfg.scheduler} "
+          f"{cfg.prediction_type} {steps} steps ({unet_calls(cfg, steps)} UNet "
+          f"calls at batch {b if lcm else 2 * b}), "
+          f"{'guidance embedding' if lcm else 'CFG'} {g}, MoE topk 0.3 on "
           f"{sum(iv is not None for iv in ivs)} FFs: wall {wall:.3f} s, "
           f"{b / wall:.4f} img/s, peak memory {peak_gib:.2f} GiB; images "
           f"finite in [{images.min().item():.4f}, "
@@ -929,11 +1001,34 @@ def timed_generate(pipe, what: str, cond, uncond, seed: int, ivs,
 
 
 def check_no_plain(launches: dict, what: str) -> None:
-    """On an SD1.5 bf16 path every call the kernels could take went to
-    them: the model handed none to a plain version."""
+    """On a bf16 path of SD1.5 or SD2.1 every call the kernels could take
+    went to them: the model handed none to a plain version."""
     from diffusion_models_moe_tpu_torch.ops import _build
     plain = {k: launches[k] for k in _build.PLAIN if launches[k]}
     check(not plain, f"{what}: calls handed to plain versions: {plain}")
+
+
+def kernels_vs_plain(pipe, pipe32, ctx, ctx32, lat, steps: int, g: float,
+                     ivs, what: str, **kw) -> tuple[float, float, torch.Tensor]:
+    """`denoise` from the same latents with the kernels and with their plain
+    versions, and the bf16-vs-f32 floor of this card: the same denoise with
+    the plain versions in the f32 copy `pipe32` of the model. Holds the
+    kernels' latents within FLOOR_FACTOR x the floor; returns (rel, floor,
+    the kernels' latents). `kw` goes to every denoise (LCM's step noise)."""
+    z_k, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs, **kw)
+    z_p, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs, use_kernels=False, **kw)
+    z_32, _ = pipe32.denoise(ctx32, lat, steps, g, ivs=ivs, use_kernels=False,
+                             **kw)
+    check(bool(torch.isfinite(z_k).all()), f"{what}: non-finite latents")
+    rel = ((z_k - z_p).norm() / z_p.norm()).item()
+    floor = ((z_p - z_32).norm() / z_32.norm()).item()
+    print(f"denoise {steps} steps, guidance {g}, {what}: latent rel err "
+          f"kernels vs plain {rel:.6f}; floor (plain "
+          f"bf16 vs plain f32 on this card) {floor:.6f}", flush=True)
+    check(rel <= FLOOR_FACTOR * floor,
+          f"{what}, {steps} steps: kernels-vs-plain {rel} > "
+          f"{FLOOR_FACTOR} x floor {floor}")
+    return rel, floor, z_k
 
 
 def check_latents(pipe, ivs, cond, uncond):
@@ -958,20 +1053,8 @@ def check_latents(pipe, ivs, cond, uncond):
     g = cfg.guidance_scale
 
     def compare(ivs, steps: int, what: str) -> tuple[float, float]:
-        z_k, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs)
-        z_p, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs, use_kernels=False)
-        z_32, _ = pipe32.denoise(ctx32, lat, steps, g, ivs=ivs,
-                                 use_kernels=False)
-        check(bool(torch.isfinite(z_k).all()), f"{what}: non-finite latents")
-        rel = ((z_k - z_p).norm() / z_p.norm()).item()
-        floor = ((z_p - z_32).norm() / z_32.norm()).item()
-        print(f"denoise {steps} steps, CFG {g}, {what}: latent rel err "
-              f"kernels vs plain {rel:.6f}; floor (plain bf16 vs plain f32 on "
-              f"this card) {floor:.6f}", flush=True)
-        check(rel <= FLOOR_FACTOR * floor,
-              f"{what}, {steps} steps: kernels-vs-plain {rel} > "
-              f"{FLOOR_FACTOR} x floor {floor}")
-        kept["z_k"] = z_k
+        rel, floor, kept["z_k"] = kernels_vs_plain(
+            pipe, pipe32, ctx, ctx32, lat, steps, g, ivs, what)
         return rel, floor
 
     kept = {}
@@ -1145,10 +1228,12 @@ SERVE_PROMPTS = ("a photo of a dog", "a photo of a house",
 SERVE_SEEDS = (11, 12, 13)
 
 
-def serve(pipe, ivs, what: str, expect_per_batch: dict):
+def serve(pipe, ivs, what: str, expect_per_batch: dict, num_steps=None,
+          guidance_scale=None):
     """The three seeded requests through a `ServingEngine(batch_size=2)`
-    over `pipe` (one full batch, one padded), then request 0 again, alone.
-    Checks the images, the stats, that request 0 alone equals request 0
+    over `pipe` (one full batch, one padded), then request 0 again, alone,
+    at `num_steps` and `guidance_scale` (the config's by default). Checks
+    the images, the stats, that request 0 alone equals request 0
     co-batched, and the kernels' launch counts per batch. Returns the
     launch counts of the three-request run."""
     from diffusion_models_moe_tpu_torch.data.tokenize import \
@@ -1156,9 +1241,12 @@ def serve(pipe, ivs, what: str, expect_per_batch: dict):
     from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.serving import ServingEngine
     cfg = pipe.config
+    steps = num_steps or cfg.num_inference_steps
+    g = cfg.guidance_scale if guidance_scale is None else guidance_scale
     tok = per_prompt_hash_tokenize(cfg.text_encoder.vocab_size,
                                    cfg.text_encoder.max_length)
-    eng = ServingEngine(pipe, tok, batch_size=BATCH, ivs=ivs, max_wait_ms=100.0)
+    eng = ServingEngine(pipe, tok, batch_size=BATCH, ivs=ivs, max_wait_ms=100.0,
+                        num_steps=steps, guidance_scale=g)
     side = 8 * cfg.sample_size
     with eng:
         # warm-up: one request (cuDNN and cuBLAS set-up at this batch shape)
@@ -1193,8 +1281,8 @@ def serve(pipe, ivs, what: str, expect_per_batch: dict):
     busy = st.total_batch_seconds - warm
     n = len(images) + 1
     print(f"{what}: ServingEngine(batch_size={BATCH}) served {len(images)} "
-          f"seeded requests {side}x{side} in 2 batches (one padded), PNDM "
-          f"{cfg.num_inference_steps} steps, CFG {cfg.guidance_scale}, MoE "
+          f"seeded requests {side}x{side} in 2 batches (one padded), "
+          f"{cfg.scheduler} {steps} steps, guidance {g}, MoE "
           f"topk 0.3 on 16 FFs: wall {wall:.3f} s, {len(images) / wall:.4f} "
           f"img/s; with request 0 alone after them {n} requests in "
           f"{busy:.3f} s of batches, {n / busy:.4f} img/s, mean_fill "
@@ -1420,6 +1508,212 @@ def run_remaining_modes(pipe, ivs, cond, uncond, modes_off: dict,
     return launches
 
 
+# ---------------------------------------------------------------- phase 2e
+def check_sd21_kernels(gen: torch.Generator) -> dict:
+    """Phase 2e: kernels 1, 2, 3, 5, 6 and 7 against their plain versions at
+    every SD2.1-768 shape of their kind (UNet batch 2 x BATCH, 96 x 96
+    latents, 64-dim heads), with the same times, bounds and yardsticks as
+    at SD1.5. Returns {kernel: (rows, sums over one UNet call)}."""
+    label = "SD2.1-768"
+    ff, _ = check_ff(gen, SD21_ATTN, label, row_limit=implied_row_agreement)
+    self_attn, cross_attn = check_attention(gen, SD21_ATTN, (), label)
+    ln_qkv, attn_out = check_absorb(gen, SD21_ATTN, label)
+    chain = check_chain(gen, SD21_CONV_SHAPES, label)
+    out = {}
+    for name, rows, counts in (
+            ("geglu_ff_fused", ff, LEVEL_BLOCKS),
+            ("sd_self_attention", self_attn, LEVEL_BLOCKS),
+            ("sd_cross_attention", cross_attn, LEVEL_BLOCKS),
+            ("ln_qkv_fused", ln_qkv, LEVEL_BLOCKS),
+            ("attn_out_residual_fused", attn_out, LEVEL_BLOCKS),
+            ("conv3x3_chain", chain, CONV_COUNTS)):
+        sums = {k: per_call(rows, counts, k)
+                for k in ("ms", "bound_ms", "plain_ms")}
+        for k in ("library_ms", "cublas_products_ms", "cublas_product_ms"):
+            if rows[0].get(k) is not None:
+                sums[k] = per_call(rows, counts, k)
+        out[name] = (rows, sums)
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+SD21_PROMPTS = ["a photo of a dog", "a house in the style of Van Gogh"]
+# the longer of phase 10's two kernels-vs-plain runs: the config's 50 steps
+SD21_LONG_STEPS = 50
+
+
+def run_sd21(card: str) -> dict:
+    """Phase 10: moefied SD2.1-768 (seeded random weights, MoE routing on all
+    16 FFs) through `generate`: 2 requests from the hash tokenizer, DDIM
+    v-prediction at 50 steps, CFG 7.5, decoded to 768 x 768; `denoise`
+    latents with kernels against plain versions after 3 and
+    SD21_LONG_STEPS steps within the card's own SD2.1 floor; and the same
+    requests with the exact-tier modes on. Returns the launch counts of the
+    modes-off and the modes-on generate."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                build_moe_interventions,
+                                                sd21_config)
+    from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
+    from diffusion_models_moe_tpu_torch.models.layers import ResnetBlock2D
+    from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import \
+        attn_absorb_ok
+    dev = DEV
+    cfg = sd21_config(torch.bfloat16)
+    steps, g = cfg.num_inference_steps, cfg.guidance_scale
+    calls = unet_calls(cfg, steps)
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline(cfg, device=dev)
+    pipe.init_params(torch.Generator(device=dev).manual_seed(0))
+    ivs = build_moe_interventions(labels_for(cfg.unet.ff_dims()), 0.3,
+                                  device=dev, dtype=cfg.unet.dtype)
+    tcfg = cfg.text_encoder
+    tok = hash_tokenize(tcfg.vocab_size, tcfg.max_length)
+    cond = tok(SD21_PROMPTS).to(dev)
+    uncond = tok([""]).repeat(BATCH, 1).to(dev)
+    torch.cuda.synchronize()
+    print(f"sd21: SD2.1-768 bf16 pipeline built with seeded random weights in "
+          f"{time.perf_counter() - t0:.1f} s ({cfg.sample_size}x"
+          f"{cfg.sample_size} latents, heads {cfg.unet.attention_head_dim}, "
+          f"{tcfg.num_layers}-layer {tcfg.hidden_act} text tower)", flush=True)
+    pipe.generate(cond, uncond, torch.Generator(device=dev).manual_seed(2),
+                  num_steps=1, ivs=ivs)                     # warm-up
+    torch.cuda.synchronize()
+    per_gen = 16 * calls
+    _, launches = timed_generate(
+        pipe, f"SD2.1-768 on {card}", cond, uncond, seed=3, ivs=ivs,
+        expect={"geglu_ff_fused": per_gen, "sd_self_attention": per_gen,
+                "sd_cross_attention": per_gen, "fused_route_multiply": 0,
+                "ln_qkv_fused": 0, "attn_out_residual_fused": 0,
+                "conv3x3_chain": 0})
+    # kernels against plain versions, and the card's own SD2.1 floor
+    pipe32 = StableDiffusionPipeline(sd21_config(torch.float32), device=dev)
+    pipe32.init_params(torch.Generator(device=dev).manual_seed(0))
+    ctx = torch.cat([pipe.encode_text(uncond)[0], pipe.encode_text(cond)[0]])
+    ctx32 = torch.cat([pipe32.encode_text(uncond)[0],
+                       pipe32.encode_text(cond)[0]])
+    lat = torch.randn((BATCH, 4, cfg.sample_size, cfg.sample_size),
+                      generator=torch.Generator(device=dev).manual_seed(4),
+                      device=dev)
+    for n in (3, SD21_LONG_STEPS):
+        _, floor, z_k = kernels_vs_plain(pipe, pipe32, ctx, ctx32, lat, n, g,
+                                         ivs, "SD2.1-768 DDIM v-prediction, "
+                                         "MoE on 16 FFs")
+    del pipe32
+    torch.cuda.empty_cache()
+    # the exact-tier modes on the same weights and requests
+    cfg_on = sd21_config(torch.bfloat16, attn_absorb="1", conv_chain=True)
+    pipe_on = StableDiffusionPipeline(cfg_on, device=dev)
+    pipe_on.load_state_dicts({k: m.state_dict()
+                              for k, m in pipe.modules().items()})
+    del pipe
+    for tokens, c, heads in SD21_ATTN:
+        check(attn_absorb_ok(tokens, c, heads),
+              f"attn_absorb_ok: S={tokens}, C={c}, {heads} heads")
+    side = cfg.sample_size // 8          # the innermost level's latents
+    n_chain = sum(sum(m.chain_branches(side, side))
+                  for m in pipe_on.unet.modules()
+                  if isinstance(m, ResnetBlock2D))
+    check(n_chain == 2 * RESNETS, f"{n_chain} chain convs of {2 * RESNETS}")
+    pipe_on.generate(cond, uncond, torch.Generator(device=dev).manual_seed(2),
+                     num_steps=1, ivs=ivs)                  # warm-up
+    _, launches_on = timed_generate(
+        pipe_on, f"SD2.1-768, exact-tier modes on, on {card}", cond, uncond,
+        seed=3, ivs=ivs,
+        expect={"ln_qkv_fused": per_gen, "attn_out_residual_fused": per_gen,
+                "conv3x3_chain": n_chain * calls, "geglu_ff_fused": per_gen,
+                "sd_self_attention": per_gen, "sd_cross_attention": per_gen,
+                "fused_route_multiply": 0})
+    z_on, _ = pipe_on.denoise(ctx, lat, SD21_LONG_STEPS, g, ivs=ivs)
+    check(bool(torch.isfinite(z_on).all()), "SD2.1 modes on: non-finite latents")
+    rel = ((z_on - z_k).norm() / z_k.norm()).item()
+    print(f"denoise {SD21_LONG_STEPS} steps, SD2.1-768: latent rel err modes "
+          f"on vs modes off (kernels, same weights, context and latents) "
+          f"{rel:.6f}; floor (plain bf16 vs plain f32) {floor:.6f}",
+          flush=True)
+    check(rel <= FLOOR_FACTOR * floor,
+          f"SD2.1 modes on vs off {rel} > {FLOOR_FACTOR} x floor {floor}")
+    del pipe_on
+    torch.cuda.empty_cache()
+    return dict(serving=launches, modes_on=launches_on)
+
+
+# ---------------------------------------------------------------- phase 11
+# (scheduler, steps) of phase 11 on the SD1.5 geometry; LCM's guidance
+# scale, which it embeds (the LCM UNet has a 256-wide guidance embedding,
+# as the public LCM_Dreamshaper_v7 checkpoint's)
+OTHER_SCHEDULERS = (("euler", 50), ("dpm", 20), ("lcm", 4))
+LCM_GUIDANCE = 8.0
+LCM_COND_DIM = 256
+
+
+def sd15_variant(dtype: torch.dtype, scheduler: str):
+    """An SD1.5 pipeline under `scheduler` on the seeded weights (LCM: a
+    UNet with the guidance embedding, its own seeded weights)."""
+    import dataclasses
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    cfg = sd15_config(dtype)
+    unet = cfg.unet
+    if scheduler == "lcm":
+        unet = dataclasses.replace(unet, time_cond_proj_dim=LCM_COND_DIM)
+    pipe = StableDiffusionPipeline(
+        dataclasses.replace(cfg, scheduler=scheduler, unet=unet), device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    return pipe
+
+
+def run_other_schedulers(ivs, cond, uncond, card: str) -> dict:
+    """Phase 11: Euler at 50 steps, DPM-Solver++ 2M at 20 and LCM at 4
+    (guidance embedding, LCM_GUIDANCE) on the SD1.5 geometry: a timed
+    2-request generate each with its launch counts, `denoise` latents with
+    kernels against plain versions within its own bf16-vs-f32 floor (LCM's
+    three runs on one injected step noise), then a ServingEngine over the
+    LCM pipeline. Returns the launch counts of each generate and the
+    engine's."""
+    out = {}
+    for name, steps in OTHER_SCHEDULERS:
+        lcm = name == "lcm"
+        pipe = sd15_variant(torch.bfloat16, name)
+        cfg = pipe.config
+        g = LCM_GUIDANCE if lcm else cfg.guidance_scale
+        per_gen = 16 * unet_calls(cfg, steps)
+        pipe.generate(cond, uncond, torch.Generator(device=DEV).manual_seed(2),
+                      num_steps=1, ivs=ivs, guidance_scale=g)   # warm-up
+        torch.cuda.synchronize()
+        _, out[name] = timed_generate(
+            pipe, f"{name} on {card}", cond, uncond, seed=3, ivs=ivs,
+            num_steps=steps, guidance_scale=g,
+            expect={"geglu_ff_fused": per_gen, "sd_self_attention": per_gen,
+                    "sd_cross_attention": per_gen, "fused_route_multiply": 0})
+        pipe32 = sd15_variant(torch.float32, name)
+        halves = (cond,) if lcm else (uncond, cond)
+        ctx = torch.cat([pipe.encode_text(h)[0] for h in halves])
+        ctx32 = torch.cat([pipe32.encode_text(h)[0] for h in halves])
+        s = cfg.sample_size
+        scale = getattr(pipe.scheduler, "init_noise_sigma_for", None)
+        scale = scale(steps) if scale else pipe.scheduler.init_noise_sigma
+        lat = torch.randn((BATCH, 4, s, s), device=DEV,
+                          generator=torch.Generator(device=DEV).manual_seed(4)
+                          ) * scale
+        kw = {}
+        if lcm:
+            kw["step_noise"] = torch.randn(
+                (steps, BATCH, 4, s, s), device=DEV,
+                generator=torch.Generator(device=DEV).manual_seed(6))
+        kernels_vs_plain(pipe, pipe32, ctx, ctx32, lat, steps, g, ivs,
+                         f"{name}, MoE on 16 FFs", **kw)
+        del pipe32
+        if lcm:
+            out["lcm_engine"] = serve(
+                pipe, ivs, f"serving, LCM, {card}",
+                {"geglu_ff_fused": 16 * steps, "sd_self_attention": 16 * steps,
+                 "sd_cross_attention": 16 * steps, "fused_route_multiply": 0},
+                num_steps=steps, guidance_scale=g)
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -1476,6 +1770,8 @@ def main() -> None:
     phase_done("2c (attention absorb and conv chain)")
     wino = check_winograd(gen)
     phase_done("2d (fused Winograd)")
+    sd21_kernels = check_sd21_kernels(gen)
+    phase_done("2e (kernels at SD2.1-768's shapes)")
     pipe, ivs, cond, uncond, launches, images = run_slice(card)
     phase_done("3 (serving slice)")
     compare, modes_off = check_latents(pipe, ivs, cond, uncond)
@@ -1491,13 +1787,23 @@ def main() -> None:
     wino_launches = run_remaining_modes(pipe, ivs, cond, uncond, modes_off,
                                         card)
     phase_done("8 (Winograd, int8 and DeepCache serving modes)")
+    modes_off.pop("pipe32", None)
+    del pipe, compare, modes_off
+    torch.cuda.empty_cache()
+    sd21_launches = run_sd21(card)
+    phase_done("10 (SD2.1-768: DDIM, v-prediction, exact-tier modes)")
+    other_launches = run_other_schedulers(ivs, cond, uncond, card)
+    phase_done("11 (Euler, DPM-Solver++ 2M, LCM and its serving engine)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
         "serving": launches, "attribution": attribution_launches,
         "wanda_erasure": wanda_launches,
         "serving_engine_modes_on": serving_launches,
-        "serving_engine_winograd": wino_launches}))
+        "serving_engine_winograd": wino_launches,
+        "sd21_serving": sd21_launches["serving"],
+        "sd21_modes_on": sd21_launches["modes_on"],
+        **{f"sd15_{k}": v for k, v in other_launches.items()}}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -1535,6 +1841,17 @@ def main() -> None:
                     bound_by=m[0]["bound_by"], library_ms=m[0]["library_ms"],
                     shape=m[0]["shape"], shapes=m)
                for name, src, rep, m, counts in rows]
+    # phase 2e's shapes and sums over one SD2.1-768 UNet call, and the
+    # launches of phase 10's generate (kernels 5-7: with the modes on)
+    for k in kernels:
+        if k["name"] in sd21_kernels:
+            rows_21, sums_21 = sd21_kernels[k["name"]]
+            path = ("modes_on" if k["name"] in ("ln_qkv_fused",
+                                                "attn_out_residual_fused",
+                                                "conv3x3_chain")
+                    else "serving")
+            k.update(sd21_shapes=rows_21, sd21_unet_call=sums_21,
+                     sd21_launches=sd21_launches[path][k["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

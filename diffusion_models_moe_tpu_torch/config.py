@@ -2,9 +2,11 @@
 
 Counterpart of `diffusion_models_moe_tpu/config.py`: the same frozen
 dataclasses and presets, with the compute dtype held as a `torch.dtype`.
-Only the fields the SD1.x serving slice reads are kept; options of the JAX
-package that steer TPU layouts or other model families (flash switch, fused
-routing, SDXL add-embeds, LCM conditioning) have no counterpart here.
+Only the fields the text-to-image slice reads are kept: SD1.x and SD2.x
+geometry, every scheduler of the JAX package, v-prediction and LCM's
+guidance embedding (`UNetConfig.time_cond_proj_dim`). Options of the JAX
+package that steer TPU layouts, training or other model families (flash
+switch, fused routing, remat, SDXL add-embeds) have no counterpart here.
 
 Serving modes, all off by default. The exact-tier modes that the JAX package
 switches with environment variables at trace time (DMOE_ATTN_ABSORB,
@@ -52,6 +54,8 @@ class UNetConfig:
     ff_activation: str = "geglu"         # "geglu" | "geglu-relu"
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
+    # LCM guidance-scale embedding width (0: none; LCM checkpoints use 256)
+    time_cond_proj_dim: int = 0
     dtype: torch.dtype = torch.float32
     # absorbed self-attention sub-block (ops/attn_absorb_fused.py): "0" off,
     # "1" both kernels, "qkv" the LN+qkv prologue only, "out" the
@@ -145,8 +149,8 @@ class PipelineConfig:
     sample_size: int = 64                # latent spatial size (64 -> 512 px)
     guidance_scale: float = 7.5
     num_inference_steps: int = 50
-    scheduler: str = "pndm"
-    prediction_type: str = "epsilon"
+    scheduler: str = "pndm"              # ddim, pndm, euler, dpm or lcm
+    prediction_type: str = "epsilon"     # or "v_prediction" (SD2.1-768)
     # DeepCache: > 0 runs the full UNet on every interval-th step and the
     # shallow forward on a cached deep feature between them
     deep_cache_interval: int = 0
@@ -176,6 +180,28 @@ def sd15_config(dtype: torch.dtype = torch.bfloat16, relufied: bool = False,
                         **unet_modes),
         text_encoder=CLIPTextConfig(dtype=dtype),
         vae=VAEConfig(dtype=dtype, **vae_modes),
+        **pipe_modes,
+    )
+
+
+def sd21_config(dtype: torch.dtype = torch.bfloat16, v_prediction: bool = True,
+                **modes) -> PipelineConfig:
+    """Stable Diffusion 2.1 geometry: 1024-wide OpenCLIP text conditioning
+    (23 layers of exact GELU), 64-dim attention heads, DDIM; v-prediction at
+    768 px (96 x 96 latents) or, with `v_prediction=False`, epsilon at 512 px.
+    `modes` as in `sd15_config`."""
+    unet_modes, vae_modes, pipe_modes = _split_modes(modes)
+    return PipelineConfig(
+        unet=UNetConfig(cross_attention_dim=1024,
+                        attention_head_dim=(5, 10, 20, 20), dtype=dtype,
+                        **unet_modes),
+        text_encoder=CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
+                                    num_layers=23, num_heads=16,
+                                    hidden_act="gelu", dtype=dtype),
+        vae=VAEConfig(dtype=dtype, **vae_modes),
+        sample_size=96 if v_prediction else 64,
+        scheduler="ddim",
+        prediction_type="v_prediction" if v_prediction else "epsilon",
         **pipe_modes,
     )
 

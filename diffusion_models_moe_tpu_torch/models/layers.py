@@ -80,14 +80,25 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 class TimestepEmbedding(nn.Module):
-    """Linear -> SiLU -> Linear on the sinusoidal embedding."""
+    """Linear -> SiLU -> Linear on the sinusoidal embedding. With `cond_dim`
+    > 0 (LCM's guidance embedding), a bias-free `cond_proj` of the
+    conditioning is added to the sinusoidal embedding first (diffusers'
+    `time_embedding.cond_proj`)."""
 
-    def __init__(self, in_dim: int, emb_dim: int):
+    def __init__(self, in_dim: int, emb_dim: int, cond_dim: int = 0):
         super().__init__()
+        self.cond_proj = (nn.Linear(cond_dim, in_dim, bias=False)
+                          if cond_dim > 0 else None)
         self.linear_1 = nn.Linear(in_dim, emb_dim)
         self.linear_2 = nn.Linear(emb_dim, emb_dim)
 
-    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, emb: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if cond is not None:
+            if self.cond_proj is None:
+                raise ValueError("a timestep condition was given to a UNet "
+                                 "without cond_proj (time_cond_proj_dim 0)")
+            emb = emb + self.cond_proj(cond.to(emb.dtype))
         return self.linear_2(F.silu(self.linear_1(emb)))
 
 

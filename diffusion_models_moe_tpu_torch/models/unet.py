@@ -73,7 +73,8 @@ class UNet2DCondition(nn.Module):
                                  quant=cfg.quant_int8, **wino)
 
         self.conv_in = nn.Conv2d(cfg.sample_channels, ch[0], 3, 1, 1)
-        self.time_embedding = TimestepEmbedding(ch[0], tdim)
+        self.time_embedding = TimestepEmbedding(ch[0], tdim,
+                                                cfg.time_cond_proj_dim)
         self.down_blocks = nn.ModuleList()
         skips = [ch[0]]
         cur = ch[0]
@@ -115,11 +116,14 @@ class UNet2DCondition(nn.Module):
                 taps_out: Optional[dict] = None,
                 use_kernels: bool = True,
                 deep_feature: Optional[torch.Tensor] = None,
-                return_deep: bool = False):
+                return_deep: bool = False,
+                timestep_cond: Optional[torch.Tensor] = None):
         """sample: (B, C, H, W) latents; timestep: scalar or (B,);
-        encoder_hidden_states: (B, S, D_text). Returns the predicted noise
-        (B, C, H, W) in f32. With `tap`, each FF layer writes its statistics
-        into `taps_out` as {stat: {ff_index: tensor}}.
+        encoder_hidden_states: (B, S, D_text); timestep_cond: (B,
+        time_cond_proj_dim), LCM's guidance embedding, added through
+        `time_embedding.cond_proj` before its first linear. Returns the
+        predicted noise (B, C, H, W) in f32. With `tap`, each FF layer
+        writes its statistics into `taps_out` as {stat: {ff_index: tensor}}.
 
         DeepCache (Ma et al. 2023): the feature entering the last up block
         changes slowly between adjacent steps. `return_deep=True` runs the
@@ -140,7 +144,7 @@ class UNet2DCondition(nn.Module):
         t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
         temb = timestep_embedding(t.expand(b), cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift).to(dt)
-        temb = self.time_embedding(temb)
+        temb = self.time_embedding(temb, timestep_cond)
         context = encoder_hidden_states.to(dt)
         ivs = tuple(ivs) if ivs is not None else ()
         kw = dict(step_idx=step_idx, tap=tap, taps_out=taps_out,

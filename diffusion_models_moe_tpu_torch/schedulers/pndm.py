@@ -12,7 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from diffusion_models_moe_tpu_torch.schedulers.common import NoiseTables
+from diffusion_models_moe_tpu_torch.schedulers.common import (NoiseTables, f32,
+                                                              spaced_timesteps)
 
 
 @dataclasses.dataclass
@@ -32,12 +33,12 @@ class PNDMScheduler:
         return PNDMScheduler(NoiseTables.create(num_train_timesteps), **kw)
 
     def set_timesteps(self, num_inference_steps: int):
-        """Returns (timesteps (T,) int64 numpy, coefficient dict of (T,) f64
+        """Returns (timesteps (T,) int64 numpy, coefficient dict of (T,) f32
         numpy); T = steps + 1, with the warm-up step relabelled."""
         n_train = self.tables.num_train_timesteps
         ratio = n_train // num_inference_steps
-        base = (np.arange(0, num_inference_steps) * ratio).round().astype(
-            np.int64) + self.steps_offset
+        base = spaced_timesteps(n_train, num_inference_steps,
+                                self.steps_offset)[::-1].astype(np.int64)
         # [t_{n-1}, t_{n-2}, t_{n-2}, t_{n-3}, ..., t_0]
         plms = np.concatenate([base[:-1], base[-2:-1], base[-1:]])[::-1].copy()
         # effective (t, t_prev) per index: step 1 re-uses (t_{n-1} -> t_{n-2})
@@ -50,12 +51,16 @@ class PNDMScheduler:
         a_t = acp[np.clip(t_eff, 0, n_train - 1)]
         a_prev = np.where(t_prev >= 0, acp[np.clip(t_prev, 0, None)], acp[0])
         denom = a_t * np.sqrt(1 - a_prev) + np.sqrt(a_t * (1 - a_t) * a_prev)
-        coeffs = {"c_sample": np.sqrt(a_prev / a_t),
-                  "c_eps": (a_prev - a_t) / denom}
+        coeffs = {"c_sample": f32(np.sqrt(a_prev / a_t)),
+                  "c_eps": f32((a_prev - a_t) / denom)}
         return plms, coeffs
 
     def init_state(self) -> PNDMState:
         return PNDMState(ets=[])
+
+    def scale_model_input(self, coeffs: dict, i: int,
+                          sample: torch.Tensor) -> torch.Tensor:
+        return sample
 
     def step(self, state: PNDMState, coeffs: dict, eps: torch.Tensor, i: int,
              sample: torch.Tensor) -> tuple[PNDMState, torch.Tensor]:
@@ -75,7 +80,5 @@ class PNDMScheduler:
             eps_p = (55.0 * ets[0] - 59.0 * ets[1] + 37.0 * ets[2]
                      - 9.0 * ets[3]) / 24.0
         x = cur_sample if i == 1 else sample
-        # f32 coefficients, as the JAX tables are
-        c_s = float(np.float32(coeffs["c_sample"][i]))
-        c_e = float(np.float32(coeffs["c_eps"][i]))
+        c_s, c_e = float(coeffs["c_sample"][i]), float(coeffs["c_eps"][i])
         return PNDMState(ets=ets, cur_sample=cur_sample), c_s * x - c_e * eps_p

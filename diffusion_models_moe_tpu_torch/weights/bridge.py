@@ -89,6 +89,9 @@ def unet_numpy_state_dict(params: dict, cfg: UNetConfig) -> dict:
     for name in ("linear_1", "linear_2"):
         _emit(sd, f"time_embedding.{name}",
               _linear(params["time_embedding"][name]))
+    if "time_cond_proj" in params:      # LCM's guidance embedding
+        _emit(sd, "time_embedding.cond_proj",
+              _linear(params["time_cond_proj"], use_bias=False))
     n = len(cfg.block_out_channels)
     for i, kind in enumerate(cfg.down_block_types):
         for j in range(cfg.layers_per_block):

@@ -749,3 +749,98 @@ def test_unet_call_with_fused_winograd_counts_its_launches(gen):
         ref = off(lat, 500, ctx)
     assert torch.isfinite(eps).all()
     assert ((eps - ref).norm() / ref.norm()).item() < 0.05
+
+
+# SD2.1-768 at UNet batch 4 (2 requests with CFG): (tokens, channels, heads)
+# of the four levels, 64-dim heads throughout
+SD21_LEVELS = [(9216, 320, 5), (2304, 640, 10), (576, 1280, 20),
+               (144, 1280, 20)]
+
+
+@pytest.mark.parametrize("s,c,heads", SD21_LEVELS)
+def test_geglu_ff_kernel_at_sd21_shapes(gen, s, c, heads):
+    """Kernel 1 routed with LN at each SD2.1-768 FF shape (N = 4 S, up to
+    36 864 rows at C = 320) against its plain version."""
+    hdim, e = 4 * c, 4 * c // 20
+    w1, b1, w2, b2, ln, pat = _ff_weights(gen, c, hdim, e)
+    y = _ff_agrees(_rn(gen, 4 * s, c), w1, b1, w2, b2, pat, int(0.3 * e), **ln)
+    assert torch.isfinite(y.float()).all()
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+@pytest.mark.parametrize("s,c,heads", SD21_LEVELS)
+def test_attention_kernels_at_sd21_shapes(gen, s, c, heads, kind):
+    """Kernels 2 and 3 at SD2.1-768's shapes: 5 to 20 heads of 64 over 9216
+    to 144 queries, self or over 77 keys, on projection outputs viewed as
+    (B, S, H, D)."""
+    q = _heads(gen, 4, s, heads, 64, False)
+    n_kv = s if kind == "self" else 77
+    k, v = (_heads(gen, 4, n_kv, heads, 64, False) for _ in range(2))
+    assert sd_flash.attn_kernel_ok(q, k, None if kind == "self" else 77, v)
+    if kind == "self":
+        def fn(uk):
+            return sd_flash.sd_self_attention(q, k, v, 0.125, use_kernels=uk)
+    else:
+        def fn(uk):
+            return sd_flash.sd_cross_attention(q, k, v, 0.125, 77,
+                                               use_kernels=uk)
+    _build.reset_launch_counts()
+    o = fn(True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"sd_{kind}_attention"] == 1
+    assert _rel(o, fn(False)) < REL_TOL
+
+
+@pytest.mark.parametrize("kind", ["qkv", "out"])
+@pytest.mark.parametrize("s,c,heads", SD21_LEVELS)
+def test_absorb_kernels_at_sd21_shapes(gen, s, c, heads, kind):
+    """Kernels 5 and 6 at SD2.1-768's shapes (whole heads of 64: 5 at
+    C = 320) against their plain versions, bit-equal on a repeat."""
+    b = 4
+    assert absorb.attn_absorb_ok(s, c, heads)
+    x, (wq, wk, wv, wo), bo, ln = _absorb_inputs(gen, b, s, c)
+    if kind == "qkv":
+        def run(uk=True):
+            return torch.cat([t.reshape(b, s, c) for t in absorb.ln_qkv_fused(
+                x, wq, wk, wv, heads, *ln, use_kernels=uk)], dim=-1)
+    else:
+        o = _rn(gen, b, s, heads, c // heads)
+
+        def run(uk=True):
+            return absorb.attn_out_residual_fused(o, wo, bo, x,
+                                                  use_kernels=uk)
+    got = run()
+    assert _rel(got, run(False)) < REL_TOL
+    assert torch.equal(got, run())
+
+
+def test_sd2_shaped_generate_takes_the_kernels(gen):
+    """A 2-step generate of an SD2-shaped model at small width on the card
+    (DDIM, v-prediction, per-block heads (1, 2, 4, 4) of 64, exact-GELU text
+    tower, bf16): every attention and FF call on the kernels, none on a
+    plain version."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd21_config, tiny_config)
+    base = sd21_config(torch.bfloat16)
+    tiny = tiny_config(torch.bfloat16)
+    cfg = dataclasses.replace(
+        base, sample_size=16, vae=tiny.vae,
+        unet=dataclasses.replace(base.unet, block_out_channels=(64, 128, 256,
+                                                                256),
+                                 attention_head_dim=(1, 2, 4, 4),
+                                 cross_attention_dim=64),
+        text_encoder=dataclasses.replace(tiny.text_encoder, hidden_size=64,
+                                         hidden_act="gelu"))
+    pipe = StableDiffusionPipeline(cfg, device="cuda")
+    pipe.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cond = torch.randint(0, cfg.text_encoder.vocab_size,
+                         (2, cfg.text_encoder.max_length), device="cuda")
+    _build.reset_launch_counts()
+    images, _ = pipe.generate(cond, torch.zeros_like(cond), seeds=[0, 1],
+                              num_steps=2)
+    torch.cuda.synchronize()
+    assert images.shape == (2, 3, 128, 128) and torch.isfinite(images).all()
+    calls = 16 * 2          # 16 attention layers and FFs, DDIM's 2 steps
+    for name in ("sd_self_attention", "sd_cross_attention", "geglu_ff_fused"):
+        assert _build.LAUNCHES[name] == calls, name
+    assert all(_build.LAUNCHES[k] == 0 for k in _build.PLAIN)

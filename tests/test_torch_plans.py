@@ -44,6 +44,9 @@ CHAIN_SD15 = [(4, s, s, ci, co) for s, ci, co in (
     (32, 640, 640), (32, 960, 640), (32, 1280, 640), (32, 1920, 640),
     (16, 640, 1280), (16, 1280, 1280), (16, 1920, 1280), (16, 2560, 1280),
     (8, 1280, 1280), (8, 2560, 1280))]
+# the same 14 convs at SD2.1-768's 96 x 96 latents (96, 48, 24, 12)
+CHAIN_SD21 = [(b, 3 * h // 2, 3 * w // 2, ci, co)
+              for b, h, w, ci, co in CHAIN_SD15]
 CHAIN_RAGGED = [(3, 13, 9, 40, 72), (1, 7, 7, 8, 8), (2, 20, 12, 320, 136),
                 (2, 8, 24, 96, 160), (1, 16, 16, 72, 168), (4, 8, 8, 1280, 8)]
 # the 14 UNet (batch 4) and 8 VAE (batch 2) shapes of the fused Winograd mode
@@ -99,7 +102,7 @@ def _depth_once(cin, chunk, chunks, split, per) -> bool:
     return bool((seen == 1).all())
 
 
-@pytest.mark.parametrize("shape", CHAIN_SD15 + CHAIN_RAGGED)
+@pytest.mark.parametrize("shape", CHAIN_SD15 + CHAIN_SD21 + CHAIN_RAGGED)
 def test_chain_plan_covers_the_convolution_once(shape):
     b, h, w, cin, cout = shape
     plan = chain.chain_plan(*shape, H100_SMS)
@@ -163,6 +166,22 @@ def test_plans_on_the_h100_split_the_small_levels():
     assert four.blocks(4) // four.split == 4 * (one.blocks(1) // one.split)
 
 
+def test_chain_plans_on_the_h100_at_sd21():
+    """At SD2.1-768's 96, 48, 24 and 12 side and UNet batch 4: no depth is
+    split (even 12 x 12 gives 128 blocks of 8 x 8 pixels, near one an SM);
+    16-pixel-wide tiles down to 24 x 24, whose last column of tiles is half
+    empty, and 8 x 8 tiles at 12 x 12, whose last row and column hold 4."""
+    got = [(s[1], s[3], p.tile_w, p.tiles_y, p.tiles_x, p.split, p.blocks(4))
+           for s, p in ((sh, chain.chain_plan(*sh, H100_SMS))
+                        for sh in CHAIN_SD21)]
+    expect = {96: (16, 12, 6, 1, 576), 48: (16, 6, 3, 1, 288),
+              24: (16, 3, 2, 1, 192), 12: (8, 2, 2, 1, 128)}
+    for side, cin, *plan in got:
+        assert tuple(plan) == expect[side], (side, cin)
+    for _, h, w, cin, cout in CHAIN_SD21:
+        assert chain.chain_ok(h, w, cin, cout)
+
+
 def test_split_depth_keeps_every_split_non_empty():
     for chunks in range(1, 41):
         for blocks in (1, 7, 32, 40, 64, 66, 67, 500):
@@ -177,6 +196,11 @@ def test_split_depth_keeps_every_split_non_empty():
 ATTN_SD15 = [(kind, 4, 8, s, s if kind == "self" else 77, d)
              for kind in ("self", "cross")
              for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))]
+# SD2.1-768 at UNet batch 4: 5, 10, 20 and 20 heads of 64 over 9216, 2304,
+# 576 and 144 tokens
+ATTN_SD21 = [(kind, 4, h, s, s if kind == "self" else 77, 64)
+             for kind in ("self", "cross")
+             for s, h in ((9216, 5), (2304, 10), (576, 20), (144, 20))]
 ATTN_RAGGED = [(kind, b, h, s, s if kind == "self" else 77, d)
                for kind in ("self", "cross")
                for b, h, s, d in ((2, 3, 200, 40), (1, 2, 1000, 80),
@@ -184,7 +208,7 @@ ATTN_RAGGED = [(kind, b, h, s, s if kind == "self" else 77, d)
                                   (2, 3, 200, 160))]
 
 
-@pytest.mark.parametrize("shape", ATTN_SD15 + ATTN_RAGGED)
+@pytest.mark.parametrize("shape", ATTN_SD15 + ATTN_SD21 + ATTN_RAGGED)
 def test_attn_plan_covers_every_query_and_key_once(shape):
     """Blocks of `run` tiles of `rows` query rows cover every query row of a
     (batch, head) once, no block is empty by the kernel's own count, and the
@@ -245,16 +269,37 @@ def test_attn_plans_on_the_h100():
         sd_flash.attn_plan("self", 4, 8, 64, 64, 8, H100_SMS)
 
 
+def test_attn_plans_on_the_h100_at_sd21():
+    """At SD2.1-768's shapes every self-attention grid fills the card with
+    128-row blocks (160 to 1440 blocks; at S = 144 the second block of a
+    head holds 16 rows), keys in tiles of 128 through a six-stage ring at
+    D = 64; the cross kernel's blocks walk 11, 6, 3 and 1 query tiles."""
+    got = [(k, s, p.wgs, p.bkv, p.stages, p.run, p.blocks(b, h)) for
+           (k, b, h, s, _, _), p in
+           ((sh, sd_flash.attn_plan(*sh, H100_SMS)) for sh in ATTN_SD21)]
+    assert got == [("self", 9216, 2, 128, 6, 1, 1440),
+                   ("self", 2304, 2, 128, 6, 1, 720),
+                   ("self", 576, 2, 128, 6, 1, 400),
+                   ("self", 144, 2, 128, 6, 1, 160),
+                   ("cross", 9216, 1, 80, 2, 11, 280),
+                   ("cross", 2304, 1, 80, 2, 6, 240),
+                   ("cross", 576, 1, 80, 2, 3, 240),
+                   ("cross", 144, 1, 80, 2, 1, 240)]
+
+
 # (N, C, H, E) of the four SD1.5 FFs at UNet batch 4 (20-neuron experts) and
 # ragged ones (N no multiple of any tile, E under a product, C no multiple
 # of the 160-channel tile, H no multiple of the 128-column tile)
 FF_SD15 = [(4 * t, c, 4 * c, 4 * c // 20)
            for t, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))]
+# SD2.1-768's four FFs at UNet batch 4 (N = 4 x 9216, 2304, 576, 144)
+FF_SD21 = [(4 * t, c, 4 * c, 4 * c // 20)
+           for t, c in ((9216, 320), (2304, 640), (576, 1280), (144, 1280))]
 FF_RAGGED = [(77, 64, 256, 12), (1000, 64, 256, 12), (4100, 320, 1280, 64),
              (3000, 96, 448, 100), (1, 32, 64, 1), (300, 1280, 5120, 256)]
 
 
-@pytest.mark.parametrize("shape", FF_SD15 + FF_RAGGED)
+@pytest.mark.parametrize("shape", FF_SD15 + FF_SD21 + FF_RAGGED)
 def test_ff_plan_covers_every_tile_and_depth_chunk_once(shape):
     """Every launch of kernel 1 and its routing stage covers every row,
     column and depth chunk exactly once, with no empty part."""
@@ -340,17 +385,39 @@ def test_ff_plans_on_the_h100_fill_the_card():
         assert plan.up_wgs == (1 if n == 256 else 2)
 
 
+def test_ff_plans_on_the_h100_at_sd21():
+    """At SD2.1-768's four FF shapes: ff_up persistent on all 132 SMs over
+    2880 / 1440 / 720 / 200 tiles; ff_down unsplit at the three larger N
+    (576, 288, 144 blocks) and split in 3 at N = 576 (120 blocks); the
+    scores split in 4 and 16 at the two smaller N; the mask pass 1152, 360,
+    126 and 100 blocks. Every FF shape is one the kernel takes."""
+    got = [(n, p.up_tiles, p.up_ctas, p.up_wgs, p.down_blocks, p.down_split,
+            p.route.score_blocks, p.route.split, p.route.mask_blocks)
+           for (n, c, h, e), p in
+           ((sh, ffm.ff_plan(*sh, H100_SMS)) for sh in FF_SD21)]
+    assert got == [(36864, 2880, 132, 2, 576, 1, 576, 1, 1152),
+                   (9216, 1440, 132, 2, 288, 1, 144, 1, 360),
+                   (2304, 720, 132, 2, 144, 1, 144, 4, 126),
+                   (576, 200, 132, 2, 120, 3, 144, 16, 100)]
+    for n, c, h, e in FF_SD21:
+        assert ffm.fused_ff_ok(n, c, h, e)
+        assert rk.route_kernel_ok(h, e)
+
+
 # (N, C) of the four SD1.5 self-attentions at UNet batch 4 and ragged ones
 # (the GPU tests' N = 600, 77, 2000 at C = 320, 96, 1280; one row; a
 # panel's worth plus one; the widest two-warpgroup C)
 ABSORB_SD15 = [(4 * s, c) for s, c in ((4096, 320), (1024, 640), (256, 1280),
                                        (64, 1280))]
+# SD2.1-768's four self-attentions at UNet batch 4: 5, 10, 20, 20 heads of 64
+ABSORB_SD21 = [(4 * s, c) for s, c in ((9216, 320), (2304, 640), (576, 1280),
+                                       (144, 1280))]
 ABSORB_RAGGED = [(600, 320), (77, 96), (2000, 1280), (400, 320), (1, 8),
                  (65, 1280), (300, 448), (129, 512)]
 
 
 @pytest.mark.parametrize("kind", ["qkv", "out"])
-@pytest.mark.parametrize("shape", ABSORB_SD15 + ABSORB_RAGGED)
+@pytest.mark.parametrize("shape", ABSORB_SD15 + ABSORB_SD21 + ABSORB_RAGGED)
 def test_absorb_plan_covers_every_row_column_and_depth_chunk_once(shape,
                                                                   kind):
     """Every row, every output column (in each of q, k and v for kernel 5)
@@ -442,3 +509,22 @@ def test_absorb_plans_on_the_h100():
         ab.absorb_plan("qkv", 256, 1472, H100_SMS)
     with pytest.raises(ValueError):
         ab.absorb_plan("proj", 256, 320, H100_SMS)
+
+
+def test_absorb_plans_on_the_h100_at_sd21():
+    """At SD2.1-768's shapes. Kernel 5: two warpgroups and all six column
+    tiles a block at C = 320 (288 blocks); one warpgroup and runs of 12, 8
+    and 2 tiles at C = 640 and 1280 (144, 108, 108 blocks), the staging one
+    box at a time at C = 1280. Kernel 6: ff_down's cut at the same N,
+    split in 3 at the smallest level only. Whole heads of 64 at every
+    level."""
+    got = [(n, c, p.wgs, p.run, p.stages, p.boxes, p.blocks) for (n, c), p in
+           ((sh, ab.absorb_plan("qkv", *sh, H100_SMS)) for sh in ABSORB_SD21)]
+    assert got == [(36864, 320, 2, 6, 4, 5, 288), (9216, 640, 1, 12, 4, 5, 144),
+                   (2304, 1280, 1, 8, 3, 1, 108), (576, 1280, 1, 2, 3, 1, 108)]
+    got = [(n, c, p.wgs, p.split, p.chunks_per_split, p.blocks) for (n, c), p
+           in ((sh, ab.absorb_plan("out", *sh, H100_SMS)) for sh in ABSORB_SD21)]
+    assert got == [(36864, 320, 2, 1, 5, 576), (9216, 640, 2, 1, 10, 288),
+                   (2304, 1280, 2, 1, 20, 144), (576, 1280, 2, 3, 7, 120)]
+    for n, c in ABSORB_SD21:
+        assert ab.attn_absorb_ok(n // 4, c, c // 64)
