@@ -96,6 +96,20 @@ Run from the root of a checkout. Phases:
      step noise); then a `ServingEngine(batch_size=2)` over the LCM
      pipeline serving the 3 seeded requests of phase 7, request 0 alone
      equal to co-batched;
+  12. (run after 11) the MoEfication front end on the seeded SD1.5 weights:
+     written as a diffusers snapshot in f32 (unet, text_encoder with its
+     position_ids buffer, vae with a seeded encoder side, a byte-level CLIP
+     vocabulary of 49408 ids), read by `load_pipeline_snapshot` into a fresh
+     bf16 pipeline and `load_tokenizer` (native merges), every gate clustered
+     by `moefy_unet` (Sinkhorn plans on the card) into exactly balanced
+     20-neuron experts, a SNAPSHOT_STEPS-step routed generate of 2 requests on
+     those labels (kernels 1-3 at 16 launches a UNet call, no plain call,
+     latents bit-equal to the in-memory weights'), then a seeded gate mask
+     baked by `bake_gate_masks`, written with `save_safetensors`, held to the
+     SD1.5 key fixture by `validate_edited_unet`, read back through
+     `load_edited_unet_state_dict` into a fresh pipeline and served bit-equal
+     to the in-memory bake; the snapshot lives in a temporary directory
+     removed when the phase ends;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -1714,6 +1728,251 @@ def run_other_schedulers(ivs, cond, uncond, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 12
+# PNDM steps of phase 12's generates: 11 UNet calls reach every level,
+# routing and kernel of the routed path; the config's 50 would add a minute
+SNAPSHOT_STEPS = 10
+SNAPSHOT_PROMPTS = ["a photo of a dog", "a house in the style of Van Gogh"]
+EXPERT_SIZE = 20
+BAKE_SHARE = 0.05          # share of each layer's gate neurons baked away
+
+
+def vae_encoder_shapes(cfg) -> dict:
+    """Key -> shape of the encoder side of a diffusers AutoencoderKL
+    (`encoder.*`, `quant_conv.*`), which a real snapshot holds and the port
+    has no module for."""
+    shapes = {}
+    ch, wide = cfg.block_out_channels, 2 * cfg.latent_channels
+
+    def conv(p, o, i, k):
+        shapes[f"{p}.weight"], shapes[f"{p}.bias"] = (o, i, k, k), (o,)
+
+    def norm(p, c):
+        shapes[f"{p}.weight"], shapes[f"{p}.bias"] = (c,), (c,)
+
+    def resnet(p, i, o):
+        norm(f"{p}.norm1", i)
+        conv(f"{p}.conv1", o, i, 3)
+        norm(f"{p}.norm2", o)
+        conv(f"{p}.conv2", o, o, 3)
+        if i != o:
+            conv(f"{p}.conv_shortcut", o, i, 1)
+
+    conv("encoder.conv_in", ch[0], cfg.in_channels, 3)
+    c_in = ch[0]
+    for i, c in enumerate(ch):
+        for j in range(cfg.layers_per_block):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", c_in if j == 0 else c, c)
+        c_in = c
+        if i < len(ch) - 1:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", c, c, 3)
+    for j in range(2):
+        resnet(f"encoder.mid_block.resnets.{j}", ch[-1], ch[-1])
+    a = "encoder.mid_block.attentions.0"
+    norm(f"{a}.group_norm", ch[-1])
+    for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+        shapes[f"{a}.{proj}.weight"] = (ch[-1], ch[-1])
+        shapes[f"{a}.{proj}.bias"] = (ch[-1],)
+    norm("encoder.conv_norm_out", ch[-1])
+    conv("encoder.conv_out", wide, ch[-1], 3)
+    conv("quant_conv", wide, wide, 1)
+    return shapes
+
+
+def write_tokenizer(path: str, vocab_size: int) -> None:
+    """A byte-level CLIP vocabulary of `vocab_size` ids in CLIP's layout:
+    the 256 byte symbols, the same with </w>, one two-symbol token per
+    merge (seeded), then <|startoftext|> and <|endoftext|>."""
+    from diffusion_models_moe_tpu_torch.data.tokenizer import _bytes_to_unicode
+    symbols = list(_bytes_to_unicode().values())
+    vocab = {s: i for i, s in enumerate(symbols + [s + "</w>" for s in symbols])}
+    pairs = [(a, b + end) for end in ("", "</w>") for a in symbols
+             for b in symbols]
+    order = np.random.RandomState(0).permutation(len(pairs))
+    merges = [pairs[i] for i in order[:vocab_size - len(vocab) - 2]]
+    for a, b in merges:
+        vocab[a + b] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    with open(os.path.join(path, "special_tokens_map.json"), "w") as f:
+        json.dump({"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                   "pad_token": "<|endoftext|>", "unk_token": "<|endoftext|>"}, f)
+
+
+def write_snapshot(pipe, root: str) -> int:
+    """`pipe`'s weights as a diffusers SD1.5 snapshot in f32 under `root`:
+    unet/, text_encoder/ (`text_model.` keys and the `position_ids`
+    buffer), vae/ (the decoder and a seeded encoder side), tokenizer/.
+    Returns the bytes written."""
+    from diffusion_models_moe_tpu_torch.weights.export import save_safetensors
+    cfg = pipe.config
+    gen = torch.Generator().manual_seed(12)
+    vae = {k: v.float() for k, v in pipe.vae_decoder.state_dict().items()}
+    for k, shape in vae_encoder_shapes(cfg.vae).items():
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        vae[k] = torch.randn(shape, generator=gen) * fan_in ** -0.5
+    text = {k: v.float() for k, v in pipe.text_encoder.state_dict().items()}
+    text["text_model.embeddings.position_ids"] = torch.arange(
+        cfg.text_encoder.max_length)[None]
+    for sub, name, sd in (
+            ("unet", "diffusion_pytorch_model",
+             {k: v.float() for k, v in pipe.unet.state_dict().items()}),
+            ("text_encoder", "model", text),
+            ("vae", "diffusion_pytorch_model", vae)):
+        save_safetensors(sd, os.path.join(root, sub, f"{name}.safetensors"))
+    write_tokenizer(os.path.join(root, "tokenizer"),
+                    cfg.text_encoder.vocab_size)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def routed_latents(pipe, ivs, cond, uncond) -> tuple:
+    """A SNAPSHOT_STEPS-step routed generate of the two seeded requests,
+    undecoded, with the kernels' launch counts over it: (latents, launches,
+    wall s)."""
+    from diffusion_models_moe_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    z, _ = pipe.generate(cond, uncond, seeds=[0, 1], num_steps=SNAPSHOT_STEPS,
+                         ivs=ivs, decode=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(z).all()), "phase 12: non-finite latents")
+    return z, dict(_build.LAUNCHES), wall
+
+
+def run_snapshot_flow(card: str) -> dict:
+    """Phase 12: the seeded SD1.5 weights written as a diffusers snapshot,
+    read into a fresh pipeline, every gate clustered on the card into
+    EXPERT_SIZE-neuron experts, a routed generate on those labels (bit-equal
+    to the in-memory weights'), and a gate-masked UNet baked, written,
+    validated, read back and served bit-equal to the in-memory bake.
+    Returns the routed generate's launch counts."""
+    import tempfile
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                build_moe_interventions,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.data.tokenizer import load_tokenizer
+    from diffusion_models_moe_tpu_torch.erasure.masks import bake_gate_masks
+    from diffusion_models_moe_tpu_torch.moefication.moefy import moefy_unet
+    from diffusion_models_moe_tpu_torch.taps import layer_name
+    from diffusion_models_moe_tpu_torch.weights.export import save_safetensors
+    from diffusion_models_moe_tpu_torch.weights.port import (
+        load_edited_unet_state_dict, load_pipeline_snapshot, unet_state_dict,
+        validate_edited_unet)
+    mem = seeded_pipeline()
+    cfg = mem.config
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snapshot_") as root:
+        t0 = time.perf_counter()
+        nbytes = write_snapshot(mem, root)
+        walls["write"] = time.perf_counter() - t0
+        print(f"snapshot: SD1.5 diffusers layout in f32 (unet, text_encoder "
+              f"with position_ids, vae with its encoder side, tokenizer of "
+              f"{cfg.text_encoder.vocab_size} ids): {nbytes} bytes written in "
+              f"{walls['write']:.3f} s", flush=True)
+
+        t0 = time.perf_counter()
+        sds = load_pipeline_snapshot(root, cfg)
+        pipe = StableDiffusionPipeline(sd15_config(torch.bfloat16), device=DEV)
+        pipe.load_state_dicts(sds)
+        tok = load_tokenizer(os.path.join(root, "tokenizer"),
+                             cfg.text_encoder.max_length)
+        torch.cuda.synchronize()
+        walls["read"] = time.perf_counter() - t0
+        check(tok.merge_loop == "native",
+              f"phase 12: the tokenizer runs the {tok.merge_loop} merge loop")
+        cond = tok(SNAPSHOT_PROMPTS).to(DEV)
+        uncond = tok([""] * len(SNAPSHOT_PROMPTS)).to(DEV)
+        check(tuple(cond.shape) == (2, cfg.text_encoder.max_length)
+              and int(cond.max()) < cfg.text_encoder.vocab_size,
+              f"phase 12: ids {tuple(cond.shape)}, largest {int(cond.max())}")
+        print(f"snapshot read into a fresh sd15_config(bf16) pipeline and the "
+              f"CLIP tokenizer ({tok.merge_loop} merges) in {walls['read']:.3f} "
+              f"s; prompt ids {cond[:, :8].tolist()}", flush=True)
+
+        t0 = time.perf_counter()
+        labels = moefy_unet(pipe.unet.state_dict(), cfg.unet,
+                            expert_size=EXPERT_SIZE, method="sinkhorn",
+                            device=DEV)
+        walls["moefy"] = time.perf_counter() - t0
+        experts = []
+        for i, d in enumerate(cfg.unet.ff_dims()):
+            counts = np.bincount(labels[layer_name(i)])
+            experts.append(len(counts))
+            check(len(counts) == 4 * d // EXPERT_SIZE
+                  and (counts == EXPERT_SIZE).all(),
+                  f"phase 12: layer {i} clustered into {len(counts)} experts "
+                  f"of {counts.min()}..{counts.max()} neurons")
+        print(f"moefy_unet (Sinkhorn on the card) of all 16 gates into "
+              f"{EXPERT_SIZE}-neuron experts in {walls['moefy']:.3f} s; "
+              f"experts by layer {experts}", flush=True)
+
+        ivs = build_moe_interventions(labels, 0.3, device=DEV,
+                                      dtype=cfg.unet.dtype)
+        z_disk, launches, walls["generate"] = routed_latents(pipe, ivs, cond,
+                                                             uncond)
+        calls = 16 * unet_calls(cfg, SNAPSHOT_STEPS)
+        for name, count in (("geglu_ff_fused", calls),
+                            ("sd_self_attention", calls),
+                            ("sd_cross_attention", calls),
+                            ("fused_route_multiply", 0)):
+            check(launches[name] == count, f"phase 12: kernel {name} "
+                  f"launched {launches[name]} times, expected {count}")
+        check_no_plain(launches, "phase 12")
+        z_mem, _, _ = routed_latents(mem, ivs, cond, uncond)
+        same = torch.equal(z_disk, z_mem)
+        print(f"routed generate on the snapshot's weights and labels: 2 "
+              f"requests, {SNAPSHOT_STEPS} PNDM steps, top-k 0.3: wall "
+              f"{walls['generate']:.3f} s; launches {launches}; latents "
+              f"bit-equal to the in-memory weights': {same}", flush=True)
+        check(same, "phase 12: the snapshot's latents differ from the "
+              "in-memory weights'")
+
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(12)
+        masks = {i: rng.rand(4 * d) < BAKE_SHARE
+                 for i, d in enumerate(cfg.unet.ff_dims())}
+        baked = bake_gate_masks(pipe.unet.state_dict(), cfg.unet, masks)
+        path = os.path.join(root, "baked", "unet.safetensors")
+        save_safetensors(baked, path)
+        walls["bake"] = time.perf_counter() - t0
+        with open(os.path.join(ROOT, "tests", "fixtures",
+                               "sd15_unet_keys.txt")) as f:
+            keys = {line.strip() for line in f if line.strip()}
+        report = validate_edited_unet(path, cfg.unet, expected_keys=keys)
+        check(report.get("keys_ok") and report.get("shapes_ok"),
+              f"phase 12: the baked checkpoint's census {report}")
+        pipe.unet.load_state_dict(baked)
+        z_bake_mem, _, _ = routed_latents(pipe, ivs, cond, uncond)
+        del pipe, mem
+        fresh = StableDiffusionPipeline(sd15_config(torch.bfloat16), device=DEV)
+        fresh.load_state_dicts(dict(sds, unet=unet_state_dict(
+            load_edited_unet_state_dict(path))))
+        z_bake_disk, _, _ = routed_latents(fresh, ivs, cond, uncond)
+        same_baked = torch.equal(z_bake_disk, z_bake_mem)
+        moved = ((z_bake_mem - z_disk).norm() / z_disk.norm()).item()
+        print(f"baked {sum(int(m.sum()) for m in masks.values())} gate neurons "
+              f"({BAKE_SHARE} of each layer) and wrote the UNet "
+              f"({os.path.getsize(path)} bytes) in {walls['bake']:.3f} s; "
+              f"census keys_ok {report['keys_ok']} shapes_ok "
+              f"{report['shapes_ok']} ({report['n_tensors']} tensors); the "
+              f"bake moves the latents by {moved:.6f}; latents of the "
+              f"checkpoint read back bit-equal to the in-memory bake's: "
+              f"{same_baked}", flush=True)
+        check(same_baked, "phase 12: the baked checkpoint serves other "
+              "latents than the in-memory bake")
+        del fresh, sds
+    torch.cuda.empty_cache()
+    print(f"phase 12 walls (s): {json.dumps(walls)} on {card}", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -1794,6 +2053,8 @@ def main() -> None:
     phase_done("10 (SD2.1-768: DDIM, v-prediction, exact-tier modes)")
     other_launches = run_other_schedulers(ivs, cond, uncond, card)
     phase_done("11 (Euler, DPM-Solver++ 2M, LCM and its serving engine)")
+    snapshot_launches = run_snapshot_flow(card)
+    phase_done("12 (snapshot -> moefy -> routed generate -> bake -> checkpoint)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -1803,7 +2064,8 @@ def main() -> None:
         "serving_engine_winograd": wino_launches,
         "sd21_serving": sd21_launches["serving"],
         "sd21_modes_on": sd21_launches["modes_on"],
-        **{f"sd15_{k}": v for k, v in other_launches.items()}}))
+        **{f"sd15_{k}": v for k, v in other_launches.items()},
+        "snapshot_routed": snapshot_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [

@@ -5,7 +5,9 @@ text encoder, MoE-routed UNet, every scheduler of the JAX package (PNDM,
 DDIM, Euler, DPM-Solver++ 2M, LCM with its guidance embedding) with
 classifier-free guidance and v-prediction, VAE decoder; the taps and
 interventions on its FF layers; skill attribution (`analysis/`) and concept
-erasure (`erasure/`). Its hot path runs hand-written CUDA kernels
+erasure (`erasure/`); the MoEfication front end: diffusers snapshots and
+baked checkpoints in and out (`weights/`), the CLIP tokenizer (`data/`),
+expert clustering and routers (`moefication/`), HPO studies. Its hot path runs hand-written CUDA kernels
 (`ops/csrc/`), built at first use on a CUDA tensor; on the CPU every kernel
 takes its plain PyTorch version. It imports neither JAX nor the JAX package,
 which stays the reference.

@@ -1,18 +1,23 @@
-"""MoE routing interventions from expert labels (PyTorch port).
+"""MoEfication: cluster every GEGLU gate into experts, and build the MoE
+routing interventions from the expert labels (PyTorch port).
 
-Counterpart of `diffusion_models_moe_tpu/moefication/moefy.py`: the routing
-interventions, the AddExperts boost, the labels artifact, and the FF layers'
-state-dict prefixes. Clustering (`moefy_unet`) stays in the JAX package for
-now.
+Counterpart of `diffusion_models_moe_tpu/moefication/moefy.py`: the gates'
+rows (`gate_weights`), their clustering into equal-size experts
+(`moefy_unet`, `moefication/cluster.py`) with its `param_split.npz`
+artifact, the routing interventions, the AddExperts boost, and the FF
+layers' state-dict prefixes.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from diffusion_models_moe_tpu_torch.config import UNetConfig, resolve_device
+from diffusion_models_moe_tpu_torch.moefication.cluster import (
+    balanced_kmeans, random_split_labels)
 from diffusion_models_moe_tpu_torch.taps import (Interventions,
                                                  LayerIntervention,
                                                  layer_name,
@@ -41,6 +46,39 @@ def ff_param_paths(cfg: UNetConfig) -> list[str]:
                 add(f"up_blocks.{i}.attentions.{j}", rev[i])
     assert len(paths) == cfg.n_ff_layers, (len(paths), cfg.n_ff_layers)
     return paths
+
+
+def gate_weights(unet_state: dict, cfg: UNetConfig) -> list[np.ndarray]:
+    """The gate half of each FF's up-projection, rows = neurons: rows
+    [H:2H] of `ff.net.0.proj.weight` ((2H, D) in torch layout), as (H, D)
+    float64 arrays, in FF order."""
+    out = []
+    for path in ff_param_paths(cfg):
+        w = unet_state[f"{path}.net.0.proj.weight"].detach()
+        out.append(w[w.shape[0] // 2:].to("cpu", torch.float64).numpy())
+    return out
+
+
+def moefy_unet(unet_state: dict, cfg: UNetConfig, expert_size: int = 20,
+               method: str = "sinkhorn", seed: int = 0,
+               save_path: Optional[str] = None, random_split: bool = False,
+               device="cuda") -> dict[str, np.ndarray]:
+    """Cluster every FF layer's gate rows into experts of `expert_size`
+    neurons: {layer_name: (H,) int64 labels}, saved as one `.npz` at
+    `save_path` where given. `device` is where the Sinkhorn plans run (the
+    card unless the caller names another); `random_split` gives the
+    contiguous control split instead."""
+    labels = {}
+    for idx, w in enumerate(gate_weights(unet_state, cfg)):
+        h = w.shape[0]
+        labels[layer_name(idx)] = (
+            random_split_labels(h, expert_size) if random_split
+            else balanced_kmeans(w, h // expert_size, seed=seed,
+                                 method=method, device=device))
+    if save_path is not None:
+        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        np.savez(save_path, **labels)
+    return labels
 
 
 def load_labels(path: str) -> dict[str, np.ndarray]:

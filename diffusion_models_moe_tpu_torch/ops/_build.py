@@ -1,4 +1,5 @@
-"""Builds and loads the hand-written CUDA kernels in `ops/csrc/`.
+"""Builds and loads the hand-written CUDA kernels in `ops/csrc/`, and the
+repository's host C++ libraries in `native/`.
 
 Each source is compiled by its own `nvcc` for `sm_90a`, all at once, and the
 objects are linked into one shared library with a plain C interface, at
@@ -29,6 +30,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+NATIVE = pathlib.Path(__file__).resolve().parents[2] / "native"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -152,6 +155,26 @@ def load_library() -> KernelLibrary:
     lib.dmoe_error_string.argtypes = [ctypes.c_int]
     lib.dmoe_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib, so_path, build_seconds, log)
+
+
+@functools.lru_cache(maxsize=None)
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Builds `native/<name>.cpp` with g++ (once per process, into
+    BUILD_DIR, under a name that carries a hash of the source and flags)
+    and loads it. The JAX package builds the same sources into `native/`;
+    the port keeps its own copy, written to a temporary name and renamed
+    into place, so concurrent processes never load a half-written file.
+    Raises OSError or CalledProcessError where it cannot build or load."""
+    src = NATIVE / f"{name}.cpp"
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so_path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if not so_path.exists():
+        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", str(tmp)],
+                       check=True, capture_output=True)
+        os.replace(tmp, so_path)
+    return ctypes.CDLL(str(so_path))
 
 
 @functools.lru_cache(maxsize=None)

@@ -844,3 +844,66 @@ def test_sd2_shaped_generate_takes_the_kernels(gen):
     for name in ("sd_self_attention", "sd_cross_attention", "geglu_ff_fused"):
         assert _build.LAUNCHES[name] == calls, name
     assert all(_build.LAUNCHES[k] == 0 for k in _build.PLAIN)
+
+
+def test_sinkhorn_plan_on_the_card_matches_the_cpu(gen):
+    """The Sinkhorn plan of balanced k-means in float32 on the card against
+    the same plan on the CPU, at an SD1.5 gate's cost shape (5120 neurons,
+    256 experts) and the annealed eps of Lloyd iterations 0 and 24."""
+    from diffusion_models_moe_tpu_torch.moefication import cluster
+    cost = torch.rand((5120, 256), generator=gen, device="cuda",
+                      dtype=torch.float64) * 4.0
+    for it in (0, 24):
+        eps = float(np.float32(0.05 * 0.85 ** it))
+        got = cluster._sinkhorn_plan(cost, eps).cpu()
+        ref = cluster._sinkhorn_plan(cost.cpu(), eps)
+        assert ((got - ref).abs().max() / ref.abs().max()).item() < 1e-4, it
+
+
+def test_moefy_unet_on_the_card_equals_the_cpu_on_separable_gates(gen):
+    """`moefy_unet` with its Sinkhorn plans on the card gives the CPU's
+    labels where every gate's rows form well-separated clusters of 16."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                tiny_config)
+    from diffusion_models_moe_tpu_torch.moefication import moefy
+    cfg = tiny_config()
+    pipe = StableDiffusionPipeline(cfg, device="cpu")
+    state = dict(pipe.unet.state_dict())
+    rng = np.random.RandomState(0)
+    for path, d in zip(moefy.ff_param_paths(cfg.unet), cfg.unet.ff_dims()):
+        w = state[f"{path}.net.0.proj.weight"].clone()
+        h = w.shape[0] // 2
+        centers = rng.randn(h // 16, d) * 4
+        rows = centers[rng.permutation(np.arange(h) % (h // 16))]
+        w[h:] = torch.from_numpy(rows + 0.05 * rng.randn(h, d))
+        state[f"{path}.net.0.proj.weight"] = w
+    got = moefy.moefy_unet(state, cfg.unet, expert_size=16, device="cuda")
+    ref = moefy.moefy_unet(state, cfg.unet, expert_size=16, device="cpu")
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_tiny_snapshot_reads_onto_the_card(gen, tmp_path):
+    """A tiny diffusers snapshot written by the port's writer loads into a
+    pipeline on the card, every tensor equal to what was written."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                tiny_config)
+    from diffusion_models_moe_tpu_torch.weights.export import save_safetensors
+    from diffusion_models_moe_tpu_torch.weights.port import \
+        load_pipeline_snapshot
+    cfg = tiny_config()
+    src = StableDiffusionPipeline(cfg, device="cuda")
+    src.init_params(gen)
+    for sub, name, module in (
+            ("unet", "diffusion_pytorch_model", src.unet),
+            ("text_encoder", "model", src.text_encoder),
+            ("vae", "diffusion_pytorch_model", src.vae_decoder)):
+        save_safetensors(module.state_dict(),
+                         str(tmp_path / sub / f"{name}.safetensors"))
+    pipe = StableDiffusionPipeline(cfg, device="cuda")
+    pipe.load_state_dicts(load_pipeline_snapshot(str(tmp_path), cfg))
+    for key, module in src.modules().items():
+        got = pipe.modules()[key].state_dict()
+        for name, t in module.state_dict().items():
+            assert got[name].is_cuda and torch.equal(got[name], t), name
