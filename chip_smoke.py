@@ -110,6 +110,32 @@ Run from the root of a checkout. Phases:
      `load_edited_unet_state_dict` into a fresh pipeline and served bit-equal
      to the in-memory bake; the snapshot lives in a temporary directory
      removed when the phase ends;
+  2f. (run after 2e) kernels 1, 2, 3, 5, 6, 7 and 8 at every SDXL shape of
+     their kind (UNet batch 4, 128 x 128 latents: 4096 and 1024 tokens, 10
+     and 20 heads of 64, FFs of 16 384 rows at E = 128 and 4096 at E = 256,
+     whose row agreement is held to what the decision limit implies, 3x3
+     convs at 128 to 32 side; kernel 8 also the VAE decoder at 1024 px),
+     and kernel 8 at SD2.1-768's UNet convs and 768-px decode, with the
+     same times, bounds and yardsticks as at SD1.5 and their sums over one
+     SDXL UNet call;
+  14. (run after 11) Safe Latent Diffusion on SD1.5: phase 3's seeded
+     weights and labels, the safety concept through the hash tokenizer, a
+     2-request `sld_generate` at 50 PNDM steps with `SLDConfig.medium()`
+     (UNet batch 6), timed, kernels 1-3 at 16 launches a UNet call;
+     `sld_denoise` latents with kernels against plain versions within the
+     card's floor after 3 steps of `max()` and 50 of `medium()`, and apart
+     from CFG alone on the same noise;
+  13. (run after 12) SDXL at full width: `sdxl_config(torch.bfloat16)`
+     with seeded random weights, MoE routing on all 70 FFs, the hash
+     tokenizer, 2 requests at 1024 x 1024, Euler at 50 steps with CFG 7.5:
+     wall, img/s, peak memory, kernels 1-3 at 70 launches a UNet call, no
+     plain call; `denoise` latents against plain versions after 3 and
+     SDXL_LONG_STEPS steps within the card's own SDXL floor; the exact-tier
+     modes (kernels 5-7 at their counts, latents within that floor);
+     `moefy_unet` of the 70 gates and a gate bake, timed; LCM-SDXL
+     (`lcm=True`, the JAX bench's `lcm-sdxl` point: 4 steps, batch 2),
+     timed, its latents on one injected step noise within its own floor,
+     and a ServingEngine(batch_size=2) over it serving phase 7's requests;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -210,6 +236,33 @@ WINO_UNET_CONVS, WINO_VAE_CONVS = 33, 31
 # must stay on its own sample's side of the halfway point to an unrelated
 # one.
 APPROX_FACTOR = 0.5
+# SDXL (sdxl_config, 128 x 128 latents): (tokens, channels, heads) of its two
+# attention levels (10 and 20 heads of 64) and the transformer blocks of a
+# UNet call at each: 2 x 2 down and 3 x 2 up at 640; 2 x 10 down, 10 mid and
+# 3 x 10 up at 1280
+SDXL_ATTN = ((4096, 640, 10), (1024, 1280, 20))
+SDXL_BLOCKS = (10, 60)
+SDXL_FFS = sum(SDXL_BLOCKS)
+# (side, Cin, Cout) of every 3x3 resblock conv of the SDXL UNet and how many
+# convs of a UNet call have that shape (17 resblocks)
+SDXL_CONV_SHAPES = ((128, 320, 320), (128, 640, 320), (128, 960, 320),
+                    (64, 320, 640), (64, 640, 640), (64, 960, 640),
+                    (64, 1280, 640), (64, 1920, 640),
+                    (32, 640, 1280), (32, 1280, 1280), (32, 1920, 1280),
+                    (32, 2560, 1280))
+SDXL_CONV_COUNTS = (7, 2, 1, 1, 6, 1, 1, 1, 1, 10, 1, 2)
+SDXL_RESNETS = 17
+# kernel 8 under conv_winograd="fused": every SDXL resblock conv and the two
+# upsampler convs (36 a UNet call); the VAE decoder's 31 at 1024 px, and
+# SD2.1-768's 33 UNet convs at 96 to 24 side and 31 decoder convs at 768 px
+WINO_SDXL_UNET = (tuple(zip(SDXL_CONV_SHAPES, SDXL_CONV_COUNTS))
+                  + (((64, 1280, 1280), 1), ((128, 640, 640), 1)))
+WINO_SDXL_VAE = tuple(((2 * side, cin, cout), n)
+                      for (side, cin, cout), n in WINO_VAE)
+WINO_SD21_UNET = tuple(((3 * side // 2, cin, cout), n)
+                       for (side, cin, cout), n in WINO_UNET)
+WINO_SD21_VAE = tuple(((3 * side // 2, cin, cout), n)
+                      for (side, cin, cout), n in WINO_VAE)
 
 
 def implied_row_agreement(e: int) -> float:
@@ -305,7 +358,8 @@ def launch_ms(fn, groups, iters: int = 20) -> dict:
 
 
 def check_ff(gen: torch.Generator, levels=SD15_ATTN, label: str = "SD1.5",
-             row_limit=lambda e: FF_ROW_AGREEMENT) -> tuple[list, list]:
+             row_limit=lambda e: FF_ROW_AGREEMENT, counts=LEVEL_BLOCKS
+             ) -> tuple[list, list]:
     """Kernel 1 against its plain version at the FF shape of each
     (tokens, channels, heads) level (N = 2 BATCH x tokens rows): routing
     decisions, rows whose expert set agrees (at least `row_limit(E)`),
@@ -407,11 +461,12 @@ def check_ff(gen: torch.Generator, levels=SD15_ATTN, label: str = "SD1.5",
         # kernels line
         floors.append(floor)
         kernels.append(kern)
-    sums = {key: per_call(shapes, LEVEL_BLOCKS, key)
+    sums = {key: per_call(shapes, counts, key)
             for key in ("ms", "call_ms", "cublas_products_ms", "bound_ms",
                         "plain_ms")}
-    sums["split_floor_ms"] = per_call(floors, LEVEL_BLOCKS, "bound_ms")
-    print(f"ff ({label}): the 16 launches of a UNet call at batch {2 * BATCH} sum to "
+    sums["split_floor_ms"] = per_call(floors, counts, "bound_ms")
+    print(f"ff ({label}): the {sum(counts)} launches of a UNet call at batch "
+          f"{2 * BATCH} sum to "
           f"{sums['ms']:.3f} ms in the kernels (back-to-back calls "
           f"{sums['call_ms']:.3f}); cuBLAS on the two products alone "
           f"{sums['cublas_products_ms']:.3f}; bound {sums['bound_ms']:.3f}, "
@@ -561,8 +616,8 @@ ATTN_EXTRA = ((4, 77, 40, "bsc", 77), (4, 1000, 80, "bsc", 77),
 
 
 def check_attention(gen: torch.Generator, levels=SD15_ATTN,
-                    extra=ATTN_EXTRA, label: str = "SD1.5"
-                    ) -> tuple[list, list]:
+                    extra=ATTN_EXTRA, label: str = "SD1.5",
+                    counts=LEVEL_BLOCKS) -> tuple[list, list]:
     """Phase 2: kernels 2 and 3 against their plain versions at the four
     shapes of each kind that `levels` gives (with SDPA on the same tensors
     as the yardstick, and the wrapper's host time) and at `extra` (8
@@ -656,9 +711,10 @@ def check_attention(gen: torch.Generator, levels=SD15_ATTN,
               f"{bd['binds']}; {plan.blocks(b, heads)} blocks of {plan.rows} "
               f"rows x {plan.run} tiles", flush=True)
         shapes.append(row)
-    for kind, counts in (("self", LEVEL_BLOCKS), ("cross", LEVEL_BLOCKS)):
-        rows = out[kind][:4]
-        print(f"{kind} ({label}): the 16 launches of a UNet call at batch {2 * BATCH} "
+    for kind in ("self", "cross"):
+        rows = out[kind][:len(levels)]
+        print(f"{kind} ({label}): the {sum(counts)} launches of a UNet call "
+              f"at batch {2 * BATCH} "
               f"sum to {per_call(rows, counts, 'ms'):.3f} ms in the kernel, "
               f"{per_call(rows, counts, 'library_ms'):.3f} ms in SDPA, bound "
               f"{per_call(rows, counts, 'bound_ms'):.3f} ms", flush=True)
@@ -667,7 +723,8 @@ def check_attention(gen: torch.Generator, levels=SD15_ATTN,
 
 # ---------------------------------------------------------------- phase 2c
 def check_absorb(gen: torch.Generator, levels=SD15_ATTN,
-                 label: str = "SD1.5") -> tuple[list, list]:
+                 label: str = "SD1.5", counts=LEVEL_BLOCKS
+                 ) -> tuple[list, list]:
     """Phase 2c: the absorbed-attention kernels (LN + q/k/v projection, out
     projection + bias + residual) against their plain versions at the four
     self-attention shapes of `levels` (SD1.5's; 2e: SD2.1-768's), on the
@@ -747,10 +804,11 @@ def check_absorb(gen: torch.Generator, levels=SD15_ATTN,
                              library_ms=None, blocks=plan.blocks, wgs=plan.wgs,
                              run=plan.run, split=plan.split, **bd))
     for name, rows in (("ln_qkv", qkv_shapes), ("attn_out", out_shapes)):
-        sums = {k: per_call(rows, LEVEL_BLOCKS, k)
+        sums = {k: per_call(rows, counts, k)
                 for k in ("ms", "call_ms", "cublas_product_ms", "bound_ms",
                           "plain_ms")}
-        print(f"{name} ({label}): the 16 launches of a UNet call at batch {b} sum to "
+        print(f"{name} ({label}): the {sum(counts)} launches of a UNet call "
+              f"at batch {b} sum to "
               f"{sums['ms']:.3f} ms in the kernel (back-to-back calls "
               f"{sums['call_ms']:.3f}); cuBLAS on the products alone "
               f"{sums['cublas_product_ms']:.3f}; bound {sums['bound_ms']:.3f}; "
@@ -759,7 +817,8 @@ def check_absorb(gen: torch.Generator, levels=SD15_ATTN,
 
 
 def check_chain(gen: torch.Generator, conv_shapes=CONV_SHAPES,
-                label: str = "SD1.5") -> list:
+                label: str = "SD1.5", counts=CONV_COUNTS,
+                resnets: int = RESNETS) -> list:
     """Phase 2c: the conv-chain kernel against its plain version at every
     resblock conv shape of `conv_shapes` (SD1.5's; 2e: SD2.1-768's), with
     the time embedding in `bt`, with and
@@ -841,10 +900,11 @@ def check_chain(gen: torch.Generator, conv_shapes=CONV_SHAPES,
                            max_abs_err=abs_e, rel_err=rel, ms=ms,
                            plain_ms=plain_ms, library_ms=library_ms, **bd,
                            fold_and_kernel_ms=folded_ms, unfused_ms=unfused_ms))
-    check(sum(CONV_COUNTS) == 2 * RESNETS, "CONV_COUNTS")
-    sums = {k: per_call(shapes, CONV_COUNTS, k) for k in
+    check(sum(counts) == 2 * resnets and len(counts) == len(conv_shapes),
+          f"{label}: conv counts")
+    sums = {k: per_call(shapes, counts, k) for k in
             ("ms", "fold_and_kernel_ms", "unfused_ms", "library_ms", "bound_ms")}
-    print(f"chain ({label}): the {2 * RESNETS} convs of a UNet call at batch {b} sum to "
+    print(f"chain ({label}): the {2 * resnets} convs of a UNet call at batch {b} sum to "
           f"{sums['ms']:.3f} ms in the kernel, {sums['fold_and_kernel_ms']:.3f} "
           f"ms with the GroupNorm fold, against {sums['unfused_ms']:.3f} ms "
           f"for the unfused sequence, {sums['library_ms']:.3f} ms for cuDNN's "
@@ -854,19 +914,22 @@ def check_chain(gen: torch.Generator, conv_shapes=CONV_SHAPES,
 
 
 # ---------------------------------------------------------------- phase 2d
-def check_winograd(gen: torch.Generator) -> list:
+def check_winograd(gen: torch.Generator, unet=WINO_UNET, vae=WINO_VAE,
+                   totals=(WINO_UNET_CONVS, WINO_VAE_CONVS),
+                   label: str = "SD1.5") -> list:
     """Phase 2d: the fused Winograd kernel against its plain version (the
     formulation of ops/winograd.py on the same hoisted, rounded filter) at
-    every shape of WINO_UNET (batch 2 x BATCH) and WINO_VAE (batch BATCH),
-    with the bias. Beside it, as a yardstick only, cuDNN's convolution on
-    the same tensors (it rounds neither V nor U, so it is held to twice the
-    limit)."""
+    every shape of `unet` (batch 2 x BATCH) and `vae` (batch BATCH; SD1.5's
+    WINO_UNET and WINO_VAE, 2f: SDXL's and SD2.1-768's), with the bias.
+    Beside it, as a yardstick only, cuDNN's convolution on the same tensors
+    (it rounds neither V nor U, so it is held to twice the limit). Returns
+    the rows, the UNet's first."""
     from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import winograd_fused as wf
     dev, bf16, cl = DEV, torch.bfloat16, torch.channels_last
     shapes = []
-    for what, b, table, total in (("unet", 2 * BATCH, WINO_UNET, WINO_UNET_CONVS),
-                                  ("vae", BATCH, WINO_VAE, WINO_VAE_CONVS)):
+    for what, b, table, total in (("unet", 2 * BATCH, unet, totals[0]),
+                                  ("vae", BATCH, vae, totals[1])):
         check(sum(n for _, n in table) == total, f"WINO table of the {what}")
         for (side, cin, cout), n in table:
             check(wf.fused_ok(side, side, cin, cout),
@@ -919,9 +982,10 @@ def check_winograd(gen: torch.Generator) -> list:
                 max_abs_err=abs_e, rel_err=rel,
                 rel_err_vs_library=rel_lib, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, **bd))
-    n_unet = len(WINO_UNET)
-    for what, rows, table in (("UNet call at batch 4", shapes[:n_unet], WINO_UNET),
-                              ("VAE decode at batch 2", shapes[n_unet:], WINO_VAE)):
+    n_unet = len(unet)
+    for what, rows, table in (
+            (f"{label} UNet call at batch {2 * BATCH}", shapes[:n_unet], unet),
+            (f"{label} VAE decode at batch {BATCH}", shapes[n_unet:], vae)):
         counts = tuple(n for _, n in table)
         sums = {k: per_call(rows, counts, k)
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -1023,16 +1087,24 @@ def check_no_plain(launches: dict, what: str) -> None:
 
 
 def kernels_vs_plain(pipe, pipe32, ctx, ctx32, lat, steps: int, g: float,
-                     ivs, what: str, **kw) -> tuple[float, float, torch.Tensor]:
+                     ivs, what: str, kw32=None, denoise=None,
+                     **kw) -> tuple[float, float, torch.Tensor]:
     """`denoise` from the same latents with the kernels and with their plain
     versions, and the bf16-vs-f32 floor of this card: the same denoise with
     the plain versions in the f32 copy `pipe32` of the model. Holds the
     kernels' latents within FLOOR_FACTOR x the floor; returns (rel, floor,
-    the kernels' latents). `kw` goes to every denoise (LCM's step noise)."""
-    z_k, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs, **kw)
-    z_p, _ = pipe.denoise(ctx, lat, steps, g, ivs=ivs, use_kernels=False, **kw)
-    z_32, _ = pipe32.denoise(ctx32, lat, steps, g, ivs=ivs, use_kernels=False,
-                             **kw)
+    the kernels' latents). `kw` goes to every denoise (LCM's step noise),
+    `kw32` in its place to the f32 copy's where given (SDXL's added
+    conditioning, made by each copy's own towers). `denoise(pipe, ctx, lat,
+    steps, g, ivs, use_kernels, **kw)` replaces `pipe.denoise` where given
+    (SLD's loop)."""
+    if denoise is None:
+        def denoise(p, c, z, n, g_, ivs_, uk, **kw_):
+            return p.denoise(c, z, n, g_, ivs=ivs_, use_kernels=uk, **kw_)[0]
+    z_k = denoise(pipe, ctx, lat, steps, g, ivs, True, **kw)
+    z_p = denoise(pipe, ctx, lat, steps, g, ivs, False, **kw)
+    z_32 = denoise(pipe32, ctx32, lat, steps, g, ivs, False,
+                   **(kw if kw32 is None else kw32))
     check(bool(torch.isfinite(z_k).all()), f"{what}: non-finite latents")
     rel = ((z_k - z_p).norm() / z_p.norm()).item()
     floor = ((z_p - z_32).norm() / z_32.norm()).item()
@@ -1297,7 +1369,8 @@ def serve(pipe, ivs, what: str, expect_per_batch: dict, num_steps=None,
     print(f"{what}: ServingEngine(batch_size={BATCH}) served {len(images)} "
           f"seeded requests {side}x{side} in 2 batches (one padded), "
           f"{cfg.scheduler} {steps} steps, guidance {g}, MoE "
-          f"topk 0.3 on 16 FFs: wall {wall:.3f} s, {len(images) / wall:.4f} "
+          f"topk 0.3 on {sum(iv is not None for iv in ivs)} FFs: wall "
+          f"{wall:.3f} s, {len(images) / wall:.4f} "
           f"img/s; with request 0 alone after them {n} requests in "
           f"{busy:.3f} s of batches, {n / busy:.4f} img/s, mean_fill "
           f"{st.mean_fill:.4f} (warm-up included), peak memory "
@@ -1533,21 +1606,64 @@ def check_sd21_kernels(gen: torch.Generator) -> dict:
     self_attn, cross_attn = check_attention(gen, SD21_ATTN, (), label)
     ln_qkv, attn_out = check_absorb(gen, SD21_ATTN, label)
     chain = check_chain(gen, SD21_CONV_SHAPES, label)
-    out = {}
-    for name, rows, counts in (
-            ("geglu_ff_fused", ff, LEVEL_BLOCKS),
-            ("sd_self_attention", self_attn, LEVEL_BLOCKS),
-            ("sd_cross_attention", cross_attn, LEVEL_BLOCKS),
-            ("ln_qkv_fused", ln_qkv, LEVEL_BLOCKS),
-            ("attn_out_residual_fused", attn_out, LEVEL_BLOCKS),
-            ("conv3x3_chain", chain, CONV_COUNTS)):
-        sums = {k: per_call(rows, counts, k)
-                for k in ("ms", "bound_ms", "plain_ms")}
-        for k in ("library_ms", "cublas_products_ms", "cublas_product_ms"):
-            if rows[0].get(k) is not None:
-                sums[k] = per_call(rows, counts, k)
-        out[name] = (rows, sums)
-    return out
+    return {name: (rows, call_sums(rows, counts)) for name, rows, counts in (
+        ("geglu_ff_fused", ff, LEVEL_BLOCKS),
+        ("sd_self_attention", self_attn, LEVEL_BLOCKS),
+        ("sd_cross_attention", cross_attn, LEVEL_BLOCKS),
+        ("ln_qkv_fused", ln_qkv, LEVEL_BLOCKS),
+        ("attn_out_residual_fused", attn_out, LEVEL_BLOCKS),
+        ("conv3x3_chain", chain, CONV_COUNTS))}
+
+
+def call_sums(rows: list, counts: tuple) -> dict:
+    """A kernel's times, bound, plain version and yardstick summed over the
+    calls one UNet call (or VAE decode) makes at each shape."""
+    sums = {k: per_call(rows, counts, k)
+            for k in ("ms", "bound_ms", "plain_ms")}
+    for k in ("library_ms", "cublas_products_ms", "cublas_product_ms"):
+        if rows[0].get(k) is not None:
+            sums[k] = per_call(rows, counts, k)
+    return sums
+
+
+# ---------------------------------------------------------------- phase 2f
+def check_sdxl_kernels(gen: torch.Generator) -> tuple[dict, dict]:
+    """Phase 2f: kernels 1, 2, 3, 5, 6, 7 and 8 against their plain versions
+    at every SDXL shape of their kind (UNet batch 2 x BATCH, 128 x 128
+    latents, heads of 64, 4096 and 1024 tokens, FFs of 16 384 and 4096 rows
+    at E = 128 and 256; kernel 8 also the VAE decoder at 1024 px), with the
+    same times, bounds and yardsticks as at SD1.5, kernel 1's row agreement
+    held to what its decision limit implies at E; and kernel 8 at
+    SD2.1-768's UNet convs and 768-px decode. Returns ({kernel: (rows, sums
+    over one SDXL UNet call)}, {"sd21": kernel 8's SD2.1 rows and sums})."""
+    label = "SDXL"
+    ff, _ = check_ff(gen, SDXL_ATTN, label, row_limit=implied_row_agreement,
+                     counts=SDXL_BLOCKS)
+    self_attn, cross_attn = check_attention(gen, SDXL_ATTN, (), label,
+                                            SDXL_BLOCKS)
+    ln_qkv, attn_out = check_absorb(gen, SDXL_ATTN, label, SDXL_BLOCKS)
+    chain = check_chain(gen, SDXL_CONV_SHAPES, label, SDXL_CONV_COUNTS,
+                        SDXL_RESNETS)
+    out = {name: (rows, call_sums(rows, counts)) for name, rows, counts in (
+        ("geglu_ff_fused", ff, SDXL_BLOCKS),
+        ("sd_self_attention", self_attn, SDXL_BLOCKS),
+        ("sd_cross_attention", cross_attn, SDXL_BLOCKS),
+        ("ln_qkv_fused", ln_qkv, SDXL_BLOCKS),
+        ("attn_out_residual_fused", attn_out, SDXL_BLOCKS),
+        ("conv3x3_chain", chain, SDXL_CONV_COUNTS))}
+    wino = {}
+    for what, unet, vae in (("SDXL", WINO_SDXL_UNET, WINO_SDXL_VAE),
+                            ("SD2.1-768", WINO_SD21_UNET, WINO_SD21_VAE)):
+        rows = check_winograd(gen, unet, vae,
+                              (sum(n for _, n in unet), sum(n for _, n in vae)),
+                              what)
+        wino[what] = dict(
+            rows=rows,
+            unet_call=call_sums(rows[:len(unet)], tuple(n for _, n in unet)),
+            vae_decode=call_sums(rows[len(unet):], tuple(n for _, n in vae)))
+    out["winograd3x3_fused"] = (wino["SDXL"]["rows"],
+                                wino["SDXL"]["unet_call"])
+    return out, dict(sdxl_vae=wino["SDXL"]["vae_decode"], sd21=wino["SD2.1-768"])
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1973,6 +2089,292 @@ def run_snapshot_flow(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 13
+SDXL_PROMPTS = ["a photo of a dog", "a house in the style of Van Gogh"]
+# the longer of phase 13's two kernels-vs-plain runs: the config's 50 steps,
+# as SD21_LONG_STEPS
+SDXL_LONG_STEPS = 50
+
+
+def sdxl_pipeline(dtype: torch.dtype, lcm: bool = False, **modes):
+    """An SDXL pipeline (`sdxl_config`, LCM-SDXL with `lcm`) with seeded
+    random weights."""
+    from diffusion_models_moe_tpu_torch import SDXLPipeline, sdxl_config
+    pipe = SDXLPipeline(sdxl_config(dtype, lcm=lcm, **modes), device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    return pipe
+
+
+def sdxl_vs_plain(pipe, pipe32, cond, uncond, steps: int, g: float, ivs,
+                  what: str, step_noise=None) -> tuple[float, float, tuple]:
+    """`kernels_vs_plain` on an SDXL pipeline and its f32 copy: each copy's
+    towers make its own context and added conditioning; the latents are
+    N(0, 1) (seeded) times the scheduler's initial sigma at `steps`.
+    Returns (rel, floor, (the kernels' latents, context, added conditioning,
+    initial latents))."""
+    ctx, add = pipe.conditioning(cond, uncond, g)
+    ctx32, add32 = pipe32.conditioning(cond, uncond, g)
+    s = pipe.config.sample_size
+    scale = getattr(pipe.scheduler, "init_noise_sigma_for", None)
+    scale = scale(steps) if scale else pipe.scheduler.init_noise_sigma
+    lat = torch.randn((BATCH, 4, s, s), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(4)
+                      ) * scale
+    kw = {} if step_noise is None else dict(step_noise=step_noise)
+    rel, floor, z_k = kernels_vs_plain(
+        pipe, pipe32, ctx, ctx32, lat, steps, g, ivs, what,
+        kw32=dict(kw, added_cond=add32), added_cond=add, **kw)
+    return rel, floor, (z_k, ctx, add, lat)
+
+
+def run_sdxl(card: str) -> dict:
+    """Phase 13: SDXL at full width (seeded random weights, MoE routing on
+    all 70 FFs, the hash tokenizer): 2 requests at 1024 x 1024, Euler at the
+    config's 50 steps with CFG 7.5; `denoise` latents with kernels against
+    plain versions after 3 and SDXL_LONG_STEPS steps within the card's own
+    SDXL bf16-vs-f32 floor; the same requests with the exact-tier modes on
+    (kernels 5-7), their latents against the modes-off path within that
+    floor; `moefy_unet` and a gate bake on the SDXL weights, timed; then
+    LCM-SDXL (`sdxl_config(lcm=True)`, the JAX bench's `lcm-sdxl` point: 4
+    steps, batch 2, the config's guidance through the embedding), timed, its
+    latents on one injected step noise within its own floor, and a
+    ServingEngine(batch_size=2) over it serving phase 7's 3 seeded requests.
+    Returns the launch counts of each generate and of the engine."""
+    from diffusion_models_moe_tpu_torch import SDXLPipeline, sdxl_config
+    from diffusion_models_moe_tpu_torch import build_moe_interventions
+    from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
+    from diffusion_models_moe_tpu_torch.erasure.masks import bake_gate_masks
+    from diffusion_models_moe_tpu_torch.models.layers import ResnetBlock2D
+    from diffusion_models_moe_tpu_torch.moefication.moefy import moefy_unet
+    from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import \
+        attn_absorb_ok
+    from diffusion_models_moe_tpu_torch.taps import layer_name
+    t0 = time.perf_counter()
+    pipe = sdxl_pipeline(torch.bfloat16)
+    cfg = pipe.config
+    steps, g = cfg.num_inference_steps, cfg.guidance_scale
+    calls = unet_calls(cfg, steps)
+    dims = cfg.unet.ff_dims()
+    ivs = build_moe_interventions(labels_for(dims), 0.3, device=DEV,
+                                  dtype=cfg.unet.dtype)
+    tcfg = cfg.text_encoder
+    tok = hash_tokenize(tcfg.vocab_size, tcfg.max_length)
+    cond = tok(SDXL_PROMPTS).to(DEV)
+    uncond = tok([""]).repeat(BATCH, 1).to(DEV)
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in m.parameters())
+                for k, m in pipe.modules().items()}
+    check(len(dims) == SDXL_FFS and sorted(set(dims)) == [640, 1280],
+          f"SDXL FF widths {dims}")
+    print(f"sdxl: SDXL bf16 pipeline built with seeded random weights in "
+          f"{time.perf_counter() - t0:.1f} s ({cfg.sample_size}x"
+          f"{cfg.sample_size} latents, {len(dims)} FFs, parameters "
+          f"{json.dumps(n_params)})", flush=True)
+    pipe.generate(cond, uncond, torch.Generator(device=DEV).manual_seed(2),
+                  num_steps=1, ivs=ivs)                     # warm-up
+    torch.cuda.synchronize()
+    per_gen = SDXL_FFS * calls
+    _, launches = timed_generate(
+        pipe, f"SDXL on {card}", cond, uncond, seed=3, ivs=ivs,
+        expect={"geglu_ff_fused": per_gen, "sd_self_attention": per_gen,
+                "sd_cross_attention": per_gen, "fused_route_multiply": 0,
+                "ln_qkv_fused": 0, "attn_out_residual_fused": 0,
+                "conv3x3_chain": 0})
+    pipe32 = sdxl_pipeline(torch.float32)
+    for n in (3, SDXL_LONG_STEPS):
+        _, floor, (z_k, ctx, add, lat) = sdxl_vs_plain(
+            pipe, pipe32, cond, uncond, n, g, ivs,
+            f"SDXL Euler, MoE on {SDXL_FFS} FFs")
+    del pipe32
+    torch.cuda.empty_cache()
+    # the exact-tier modes on the same weights and requests
+    pipe_on = SDXLPipeline(sdxl_config(torch.bfloat16, attn_absorb="1",
+                                       conv_chain=True), device=DEV)
+    pipe_on.load_state_dicts({k: m.state_dict()
+                              for k, m in pipe.modules().items()})
+    for tokens, c, heads in SDXL_ATTN:
+        check(attn_absorb_ok(tokens, c, heads),
+              f"attn_absorb_ok: S={tokens}, C={c}, {heads} heads")
+    n_chain = sum(sum(m.chain_branches(32, 32))
+                  for m in pipe_on.unet.modules()
+                  if isinstance(m, ResnetBlock2D))
+    check(n_chain == 2 * SDXL_RESNETS,
+          f"{n_chain} chain convs of {2 * SDXL_RESNETS}")
+    pipe_on.generate(cond, uncond, torch.Generator(device=DEV).manual_seed(2),
+                     num_steps=1, ivs=ivs)                  # warm-up
+    _, launches_on = timed_generate(
+        pipe_on, f"SDXL, exact-tier modes on, on {card}", cond, uncond,
+        seed=3, ivs=ivs,
+        expect={"ln_qkv_fused": per_gen, "attn_out_residual_fused": per_gen,
+                "conv3x3_chain": n_chain * calls, "geglu_ff_fused": per_gen,
+                "sd_self_attention": per_gen, "sd_cross_attention": per_gen,
+                "fused_route_multiply": 0})
+    z_on, _ = pipe_on.denoise(ctx, lat, SDXL_LONG_STEPS, g, ivs=ivs,
+                              added_cond=add)
+    check(bool(torch.isfinite(z_on).all()), "SDXL modes on: non-finite latents")
+    rel = ((z_on - z_k).norm() / z_k.norm()).item()
+    print(f"denoise {SDXL_LONG_STEPS} steps, SDXL: latent rel err modes on vs "
+          f"modes off (kernels, same weights, context and latents) "
+          f"{rel:.6f}; floor (plain bf16 vs plain f32) {floor:.6f}",
+          flush=True)
+    check(rel <= FLOOR_FACTOR * floor,
+          f"SDXL modes on vs off {rel} > {FLOOR_FACTOR} x floor {floor}")
+    del pipe_on, z_on, z_k
+    torch.cuda.empty_cache()
+    # MoEfication and a bake on the SDXL weights
+    walls = {}
+    t0 = time.perf_counter()
+    labels = moefy_unet(pipe.unet.state_dict(), cfg.unet,
+                        expert_size=EXPERT_SIZE, method="sinkhorn", device=DEV)
+    walls["moefy"] = time.perf_counter() - t0
+    for i, d in enumerate(dims):
+        counts = np.bincount(labels[layer_name(i)])
+        check(len(counts) == 4 * d // EXPERT_SIZE
+              and (counts == EXPERT_SIZE).all(),
+              f"SDXL layer {i} clustered into {len(counts)} experts of "
+              f"{counts.min()}..{counts.max()} neurons")
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(13)
+    masks = {i: rng.rand(4 * d) < BAKE_SHARE for i, d in enumerate(dims)}
+    baked = bake_gate_masks(pipe.unet.state_dict(), cfg.unet, masks)
+    torch.cuda.synchronize()
+    walls["bake"] = time.perf_counter() - t0
+    print(f"SDXL MoEfication: moefy_unet (Sinkhorn on the card) of all "
+          f"{len(dims)} gates into {EXPERT_SIZE}-neuron experts in "
+          f"{walls['moefy']:.3f} s (experts 128 x 10, 256 x 60, every one "
+          f"{EXPERT_SIZE} neurons); bake_gate_masks of "
+          f"{sum(int(m.sum()) for m in masks.values())} gate neurons in "
+          f"{walls['bake']:.3f} s", flush=True)
+    del baked, pipe
+    torch.cuda.empty_cache()
+    # LCM-SDXL: the JAX bench's lcm-sdxl point
+    pipe = sdxl_pipeline(torch.bfloat16, lcm=True)
+    cfg = pipe.config
+    steps, g = cfg.num_inference_steps, cfg.guidance_scale
+    per_gen = SDXL_FFS * steps
+    pipe.generate(cond, uncond, torch.Generator(device=DEV).manual_seed(2),
+                  num_steps=1, ivs=ivs)                     # warm-up
+    torch.cuda.synchronize()
+    _, launches_lcm = timed_generate(
+        pipe, f"LCM-SDXL on {card}", cond, uncond, seed=3, ivs=ivs,
+        expect={"geglu_ff_fused": per_gen, "sd_self_attention": per_gen,
+                "sd_cross_attention": per_gen, "fused_route_multiply": 0})
+    pipe32 = sdxl_pipeline(torch.float32, lcm=True)
+    s = cfg.sample_size
+    noise = torch.randn((steps, BATCH, 4, s, s), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(6))
+    sdxl_vs_plain(pipe, pipe32, cond, uncond, steps, g, ivs,
+                  f"LCM-SDXL, MoE on {SDXL_FFS} FFs", step_noise=noise)
+    del pipe32
+    torch.cuda.empty_cache()
+    launches_engine = serve(
+        pipe, ivs, f"serving, LCM-SDXL, {card}",
+        {"geglu_ff_fused": per_gen, "sd_self_attention": per_gen,
+         "sd_cross_attention": per_gen, "fused_route_multiply": 0},
+        num_steps=steps, guidance_scale=g)
+    del pipe
+    torch.cuda.empty_cache()
+    print(f"phase 13 walls (s): {json.dumps(walls)} on {card}", flush=True)
+    return dict(serving=launches, modes_on=launches_on, lcm=launches_lcm,
+                lcm_engine=launches_engine)
+
+
+# ---------------------------------------------------------------- phase 14
+SLD_PROMPTS = ["a photo of a dog", "a house in the style of Van Gogh"]
+
+
+def run_sld(ivs, card: str) -> dict:
+    """Phase 14: Safe Latent Diffusion on SD1.5 (phase 3's seeded weights
+    and labels, the safety concept through the hash tokenizer): a 2-request
+    `sld_generate` with PNDM at 50 steps, CFG 7.5 and `SLDConfig.medium()`
+    (UNet batch 3 x BATCH), timed, with kernels 1-3 at 16 launches a UNet
+    call; `sld_denoise` latents with kernels against plain versions within
+    the card's floor after 3 steps of `SLDConfig.max()` (warm-up 0: the
+    safety term acts from the first step) and 50 of `medium()`; and the
+    50-step SLD latents apart from the unguided (CFG only) latents on the
+    same noise by more than that floor allows. Returns the launch counts
+    of the generate."""
+    from diffusion_models_moe_tpu_torch import (SAFETY_CONCEPT, SLDConfig,
+                                                StableDiffusionPipeline,
+                                                sd15_config, sld_generate)
+    from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.pipelines.sld import sld_denoise
+    pipe = seeded_pipeline()
+    cfg = pipe.config
+    steps, g = cfg.num_inference_steps, cfg.guidance_scale
+    tcfg = cfg.text_encoder
+    tok = hash_tokenize(tcfg.vocab_size, tcfg.max_length)
+    cond = tok(SLD_PROMPTS).to(DEV)
+    uncond = tok([""]).repeat(BATCH, 1).to(DEV)
+    safety = tok([SAFETY_CONCEPT]).to(DEV)
+    sld_generate(pipe, cond, uncond, safety,
+                 torch.Generator(device=DEV).manual_seed(2), num_steps=1,
+                 ivs=ivs)                                   # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images = sld_generate(pipe, cond, uncond, safety,
+                          torch.Generator(device=DEV).manual_seed(3),
+                          sld=SLDConfig.medium(), ivs=ivs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    side = 8 * cfg.sample_size
+    check(tuple(images.shape) == (BATCH, 3, side, side)
+          and bool(torch.isfinite(images).all())
+          and images.min().item() >= 0.0 and images.max().item() <= 1.0,
+          f"SLD: images {tuple(images.shape)} not finite, misshapen or "
+          "outside [0, 1]")
+    calls = unet_calls(cfg, steps)
+    per_gen = 16 * calls
+    print(f"SLD on {card}: sld_generate {BATCH} requests {side}x{side}, "
+          f"{cfg.scheduler} {steps} steps ({calls} UNet calls at batch "
+          f"{3 * BATCH}: uncond, cond, safety), CFG {g}, SLDConfig.medium(), "
+          f"MoE topk 0.3 on 16 FFs: wall {wall:.3f} s, {BATCH / wall:.4f} "
+          f"img/s, peak memory {peak_gib:.2f} GiB; launches {launches}",
+          flush=True)
+    for name, count in (("geglu_ff_fused", per_gen),
+                        ("sd_self_attention", per_gen),
+                        ("sd_cross_attention", per_gen),
+                        ("fused_route_multiply", 0)):
+        check(launches[name] == count, f"SLD: kernel {name} launched "
+              f"{launches[name]} times, expected {count}")
+    check_no_plain(launches, "SLD")
+    pipe32 = StableDiffusionPipeline(sd15_config(torch.float32), device=DEV)
+    pipe32.init_params(torch.Generator(device=DEV).manual_seed(0))
+    safety_b = safety.expand(BATCH, -1)
+    ctx3, ctx3_32 = (torch.cat([p.encode_text(ids)[0]
+                                for ids in (uncond, cond, safety_b)])
+                     for p in (pipe, pipe32))
+    lat = torch.randn((BATCH, 4, cfg.sample_size, cfg.sample_size),
+                      generator=torch.Generator(device=DEV).manual_seed(4),
+                      device=DEV) * pipe.scheduler.init_noise_sigma
+    for n, name in ((3, "max"), (steps, "medium")):
+        sld = getattr(SLDConfig, name)()
+
+        def denoise(p, c, z, n_, g_, ivs_, uk, sld=sld):
+            return sld_denoise(p, c, z, n_, g_, sld, ivs=ivs_, use_kernels=uk)
+
+        _, floor, z_sld = kernels_vs_plain(
+            pipe, pipe32, ctx3, ctx3_32, lat, n, g, ivs,
+            f"SLD {name}(), MoE on 16 FFs", denoise=denoise)
+    del pipe32
+    z_cfg, _ = pipe.denoise(ctx3[:2 * BATCH], lat, steps, g, ivs=ivs)
+    moved = ((z_sld - z_cfg).norm() / z_cfg.norm()).item()
+    print(f"denoise {steps} steps: SLD medium() against CFG alone on the same "
+          f"weights, noise and prompts (kernels): latent rel diff {moved:.6f}; "
+          f"floor (plain bf16 vs plain f32) {floor:.6f}", flush=True)
+    check(moved > FLOOR_FACTOR * floor,
+          f"SLD moves the latents by {moved}, within {FLOOR_FACTOR} x the "
+          f"floor {floor}")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -2031,6 +2433,8 @@ def main() -> None:
     phase_done("2d (fused Winograd)")
     sd21_kernels = check_sd21_kernels(gen)
     phase_done("2e (kernels at SD2.1-768's shapes)")
+    sdxl_kernels, wino_extra = check_sdxl_kernels(gen)
+    phase_done("2f (kernels at SDXL's shapes; kernel 8 at SD2.1-768's)")
     pipe, ivs, cond, uncond, launches, images = run_slice(card)
     phase_done("3 (serving slice)")
     compare, modes_off = check_latents(pipe, ivs, cond, uncond)
@@ -2053,8 +2457,12 @@ def main() -> None:
     phase_done("10 (SD2.1-768: DDIM, v-prediction, exact-tier modes)")
     other_launches = run_other_schedulers(ivs, cond, uncond, card)
     phase_done("11 (Euler, DPM-Solver++ 2M, LCM and its serving engine)")
+    sld_launches = run_sld(ivs, card)
+    phase_done("14 (Safe Latent Diffusion on SD1.5)")
     snapshot_launches = run_snapshot_flow(card)
     phase_done("12 (snapshot -> moefy -> routed generate -> bake -> checkpoint)")
+    sdxl_launches = run_sdxl(card)
+    phase_done("13 (SDXL and LCM-SDXL at full width)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -2065,7 +2473,8 @@ def main() -> None:
         "sd21_serving": sd21_launches["serving"],
         "sd21_modes_on": sd21_launches["modes_on"],
         **{f"sd15_{k}": v for k, v in other_launches.items()},
-        "snapshot_routed": snapshot_launches}))
+        "sld": sld_launches, "snapshot_routed": snapshot_launches,
+        **{f"sdxl_{k}": v for k, v in sdxl_launches.items()}}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -2114,6 +2523,21 @@ def main() -> None:
                     else "serving")
             k.update(sd21_shapes=rows_21, sd21_unet_call=sums_21,
                      sd21_launches=sd21_launches[path][k["name"]])
+    # phase 2f's shapes and sums over one SDXL UNet call, and the launches
+    # of phase 13's generate (kernels 5-7: with the modes on; kernel 8 runs
+    # on no phase-13 path); kernel 8 at SD2.1-768's shapes and its VAE sums
+    for k in kernels:
+        name = k["name"]
+        if name in sdxl_kernels:
+            rows_xl, sums_xl = sdxl_kernels[name]
+            path = ("modes_on" if name in ("ln_qkv_fused",
+                                           "attn_out_residual_fused",
+                                           "conv3x3_chain") else "serving")
+            k.update(sdxl_shapes=rows_xl, sdxl_unet_call=sums_xl,
+                     sdxl_launches=sdxl_launches[path].get(name, 0))
+        if name == "winograd3x3_fused":
+            k.update(sdxl_vae_decode=wino_extra["sdxl_vae"],
+                     sd21_winograd=wino_extra["sd21"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """PyTorch port of diffusion_models_moe_tpu for one NVIDIA H100.
 
-This package covers the moefied SD1.5 and SD2.1 text-to-image slice: CLIP
-text encoder, MoE-routed UNet, every scheduler of the JAX package (PNDM,
+This package covers the moefied SD1.5, SD2.1 and SDXL text-to-image slice:
+CLIP text encoders (SDXL's two towers and pooled projection), MoE-routed
+UNet (SDXL's added conditioning), every scheduler of the JAX package (PNDM,
 DDIM, Euler, DPM-Solver++ 2M, LCM with its guidance embedding) with
-classifier-free guidance and v-prediction, VAE decoder; the taps and
+classifier-free guidance and v-prediction, VAE decoder; Safe Latent
+Diffusion's safety guidance (`pipelines/sld.py`); the taps and
 interventions on its FF layers; skill attribution (`analysis/`) and concept
 erasure (`erasure/`); the MoEfication front end: diffusers snapshots and
 baked checkpoints in and out (`weights/`), the CLIP tokenizer (`data/`),
@@ -15,9 +17,15 @@ which stays the reference.
 from diffusion_models_moe_tpu_torch.config import (CLIPTextConfig,
                                                    PipelineConfig, UNetConfig,
                                                    VAEConfig, sd15_config,
-                                                   sd21_config, tiny_config)
+                                                   sd21_config, sdxl_config,
+                                                   sdxl_text_configs,
+                                                   tiny_config)
 from diffusion_models_moe_tpu_torch.moefication.moefy import \
     build_moe_interventions
+from diffusion_models_moe_tpu_torch.pipelines.sdxl import SDXLPipeline
+from diffusion_models_moe_tpu_torch.pipelines.sld import (SAFETY_CONCEPT,
+                                                          SLDConfig,
+                                                          sld_generate)
 from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
     StableDiffusionPipeline
 from diffusion_models_moe_tpu_torch.taps import (GEGLU_REMOVAL_FILL,
@@ -29,8 +37,9 @@ from diffusion_models_moe_tpu_torch.taps import (GEGLU_REMOVAL_FILL,
 
 __all__ = [
     "CLIPTextConfig", "GEGLU_REMOVAL_FILL", "LayerIntervention",
-    "PipelineConfig", "StableDiffusionPipeline", "TapSpec", "UNetConfig",
-    "VAEConfig", "build_moe_interventions", "layer_name", "no_interventions",
+    "PipelineConfig", "SAFETY_CONCEPT", "SDXLPipeline", "SLDConfig",
+    "StableDiffusionPipeline", "TapSpec", "UNetConfig", "VAEConfig",
+    "build_moe_interventions", "layer_name", "no_interventions",
     "patterns_from_labels", "routing_mask", "sd15_config", "sd21_config",
-    "tiny_config",
+    "sdxl_config", "sdxl_text_configs", "sld_generate", "tiny_config",
 ]

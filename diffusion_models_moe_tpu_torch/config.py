@@ -2,11 +2,13 @@
 
 Counterpart of `diffusion_models_moe_tpu/config.py`: the same frozen
 dataclasses and presets, with the compute dtype held as a `torch.dtype`.
-Only the fields the text-to-image slice reads are kept: SD1.x and SD2.x
-geometry, every scheduler of the JAX package, v-prediction and LCM's
-guidance embedding (`UNetConfig.time_cond_proj_dim`). Options of the JAX
-package that steer TPU layouts, training or other model families (flash
-switch, fused routing, remat, SDXL add-embeds) have no counterpart here.
+Only the fields the text-to-image slice reads are kept: SD1.x, SD2.x and
+SDXL geometry (SDXL's added conditioning: `UNetConfig.addition_embed_dim`
+and `addition_time_embed_dim`; its two text towers: `sdxl_text_configs`),
+every scheduler of the JAX package, v-prediction and LCM's guidance
+embedding (`UNetConfig.time_cond_proj_dim`). Options of the JAX package that
+steer TPU layouts, training or other model families (flash switch, fused
+routing, remat, PixArt) have no counterpart here.
 
 Serving modes, all off by default. The exact-tier modes that the JAX package
 switches with environment variables at trace time (DMOE_ATTN_ABSORB,
@@ -35,6 +37,11 @@ def check_winograd(conv_winograd: str, winograd_tile: int) -> None:
         raise ValueError(f"winograd_tile={winograd_tile!r}: 2 or 4")
 
 
+# SDXL's micro-conditioning, the time ids of its added conditioning:
+# (orig_h, orig_w, crop_top, crop_left, h, w)
+ADD_TIME_IDS = 6
+
+
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
     """SD-style UNet2DCondition configuration ("cross" blocks carry
@@ -56,6 +63,10 @@ class UNetConfig:
     freq_shift: int = 0
     # LCM guidance-scale embedding width (0: none; LCM checkpoints use 256)
     time_cond_proj_dim: int = 0
+    # SDXL's added conditioning: the pooled text embedding's width (0: none)
+    # and the width of each of the six sinusoidal time ids
+    addition_embed_dim: int = 0
+    addition_time_embed_dim: int = 0
     dtype: torch.dtype = torch.float32
     # absorbed self-attention sub-block (ops/attn_absorb_fused.py): "0" off,
     # "1" both kernels, "qkv" the LN+qkv prologue only, "out" the
@@ -204,6 +215,48 @@ def sd21_config(dtype: torch.dtype = torch.bfloat16, v_prediction: bool = True,
         prediction_type="v_prediction" if v_prediction else "epsilon",
         **pipe_modes,
     )
+
+
+def sdxl_config(dtype: torch.dtype = torch.bfloat16, lcm: bool = False,
+                **modes) -> PipelineConfig:
+    """SDXL-base geometry: blocks (320, 640, 1280) with (0, 2, 10)
+    transformer blocks (70 FFs), heads of 64, 2048-wide context (the two
+    towers' penultimate states, `sdxl_text_configs`), the pooled text and
+    the time ids as added conditioning, 128 x 128 latents (1024 px), Euler
+    at 50 steps. With `lcm=True` LCM-SDXL: the guidance embedding
+    (`time_cond_proj_dim=256`), LCM at 4 steps. The text-encoder field is
+    the default CLIP-L, as in the JAX preset; the pipeline builds its
+    towers from `sdxl_text_configs`. `modes` as in `sd15_config`."""
+    unet_modes, vae_modes, pipe_modes = _split_modes(modes)
+    return PipelineConfig(
+        unet=UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            down_block_types=("plain", "cross", "cross"),
+            up_block_types=("cross", "cross", "plain"),
+            transformer_layers_per_block=(0, 2, 10),
+            attention_head_dim=(5, 10, 20),
+            cross_attention_dim=2048,
+            addition_embed_dim=1280,
+            addition_time_embed_dim=256,
+            time_cond_proj_dim=256 if lcm else 0,
+            dtype=dtype, **unet_modes),
+        vae=VAEConfig(dtype=dtype, **vae_modes),
+        sample_size=128,
+        scheduler="lcm" if lcm else "euler",
+        num_inference_steps=4 if lcm else 50,
+        **pipe_modes,
+    )
+
+
+def sdxl_text_configs(dtype: torch.dtype = torch.bfloat16
+                      ) -> tuple[CLIPTextConfig, CLIPTextConfig]:
+    """SDXL's two text towers: CLIP-L/14 (768 wide, 12 layers, quick GELU)
+    and OpenCLIP bigG/14 (1280 wide, 32 layers, exact GELU)."""
+    clip_l = CLIPTextConfig(dtype=dtype)
+    big_g = CLIPTextConfig(hidden_size=1280, intermediate_size=5120,
+                           num_layers=32, num_heads=20, hidden_act="gelu",
+                           dtype=dtype)
+    return clip_l, big_g
 
 
 def tiny_config(dtype: torch.dtype = torch.float32, **modes) -> PipelineConfig:

@@ -10,9 +10,11 @@ its special tokens and contractions), a pattern of the `regex` package. The
 port does not use that package: it builds the same classes for the stdlib
 `re` from `unicodedata.category` (letters L*, numbers N*) and the Unicode
 White_Space set that `regex` takes for `\\s`, and applies case-insensitive
-matching to the literal alternatives only, as `regex` does. Both agree
-wherever their Unicode databases agree; a code point assigned after the
-interpreter's Unicode version is not a letter here.
+matching to the literal alternatives only, as `regex` does. Where the
+databases differ (`regex`'s is newer than the interpreter's), the committed
+table `data/_regex_classes.txt` gives `regex`'s class; it is made by
+`tools/gen_regex_classes.py`, so the two splits agree on every code point to
+U+10FFFF.
 
 Merges run in the native core (`native/bpe_core.cpp`, `data/_native_bpe.py`)
 where it builds; the pure-Python merge loop is the plain version, and
@@ -55,11 +57,22 @@ def _bytes_to_unicode() -> dict[int, str]:
     return dict(zip(bs, [chr(c) for c in cs]))
 
 
+_REGEX_CLASSES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "_regex_classes.txt")
+
+
 def _char_classes() -> dict[str, str]:
-    """The code points of the major Unicode categories L and N, each as the
-    body of a stdlib `re` character class in escaped ranges."""
+    """The code points of the classes L and N of `regex`, each as the body
+    of a stdlib `re` character class in escaped ranges: the major Unicode
+    category, overridden by the runs of `_regex_classes.txt`."""
     majors = [unicodedata.category(c)[0]
               for c in map(chr, range(sys.maxunicode + 1))]
+    with open(_REGEX_CLASSES, encoding="ascii") as f:
+        for line in f:
+            if not line.startswith("#"):
+                start, end, cls = line.split()
+                majors[int(start, 16):int(end, 16) + 1] = (
+                    [cls] * (int(end, 16) - int(start, 16) + 1))
     out: dict[str, list[str]] = {"L": [], "N": []}
     start = 0
     for major, run in itertools.groupby(majors):
@@ -204,3 +217,15 @@ def load_tokenizer(path: str, max_length: int = 77
                                       max_length=max_length, truncation=True
                                       )["input_ids"], dtype=torch.int64)
         return tokenize
+
+
+def load_sdxl_tokenizers(snapshot_root: str, max_length: int = 77):
+    """SDXL snapshots ship two CLIP tokenizers (`tokenizer/`,
+    `tokenizer_2/`): (tokenize_l, tokenize_bigG) for
+    `SDXLPipeline.generate`'s `cond_ids` and `cond_ids_2`. The second pads
+    with '!' (id 0) where CLIP-L pads with EOS, so the bigG tower sees other
+    ids than CLIP-L's for a prompt shorter than `max_length`."""
+    return (load_tokenizer(os.path.join(snapshot_root, "tokenizer"),
+                           max_length),
+            load_tokenizer(os.path.join(snapshot_root, "tokenizer_2"),
+                           max_length))

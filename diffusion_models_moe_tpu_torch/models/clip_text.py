@@ -123,7 +123,10 @@ class _TextTransformer(nn.Module):
 
 class CLIPTextEncoder(nn.Module):
     """input_ids (B, S) -> final-LayerNorm hidden states (B, S, D). With
-    `tap`, the MLPs write their statistics into `taps_out`."""
+    `tap`, the MLPs write their statistics into `taps_out`. With
+    `return_penultimate`, (final, penultimate): the second is the state
+    that enters the last layer, before any LayerNorm (SDXL conditions on
+    transformers' `hidden_states[-2]`)."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -133,13 +136,18 @@ class CLIPTextEncoder(nn.Module):
     def forward(self, input_ids: torch.Tensor, *,
                 tap: Optional[TapSpec] = None,
                 ivs: Optional[Interventions] = None,
-                taps_out: Optional[dict] = None) -> torch.Tensor:
+                taps_out: Optional[dict] = None,
+                return_penultimate: bool = False):
         tm = self.text_model
         s = input_ids.shape[1]
         ivs = tuple(ivs) if ivs is not None else ()
         x = (tm.embeddings.token_embedding(input_ids)
              + tm.embeddings.position_embedding.weight[None, :s])
+        penultimate = None
         for i, layer in enumerate(tm.encoder.layers):
+            if i == len(tm.encoder.layers) - 1:
+                penultimate = x
             x = layer(x, tap=tap, iv=ivs[i] if i < len(ivs) else None,
                       taps_out=taps_out)
-        return layer_norm_f32(tm.final_layer_norm, x).to(x.dtype)
+        x = layer_norm_f32(tm.final_layer_norm, x).to(x.dtype)
+        return (x, penultimate) if return_penultimate else x

@@ -1,7 +1,12 @@
-"""UNet2DCondition for SD1.x (PyTorch port, NCHW), with MoE-routed FFs.
+"""UNet2DCondition for SD1.x, SD2.x and SDXL (PyTorch port, NCHW), with
+MoE-routed FFs.
 
-Counterpart of `diffusion_models_moe_tpu/models/unet.py` without its SDXL
-add-embedding and LCM guidance-embedding options. The config's serving modes
+Counterpart of `diffusion_models_moe_tpu/models/unet.py`, with LCM's
+guidance embedding (`time_embedding.cond_proj`) and SDXL's added
+conditioning: with `addition_embed_dim > 0` the module `add_embedding` maps
+the pooled text embedding concatenated with the sinusoidal embeddings of the
+six time ids (each `addition_time_embed_dim` wide) to the time embedding's
+width, and its output is added to the time embedding. The config's serving modes
 (`attn_absorb`, `conv_chain`, `conv_winograd`, `quant_int8`) are handed down
 to the transformer blocks, the resblocks and the samplers; `conv_in` and
 `conv_out` stay direct convs, as in the JAX module. `forward` also has the
@@ -21,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffusion_models_moe_tpu_torch.config import UNetConfig
+from diffusion_models_moe_tpu_torch.config import ADD_TIME_IDS, UNetConfig
 from diffusion_models_moe_tpu_torch.models.attention import Transformer2D
 from diffusion_models_moe_tpu_torch.models.layers import (Downsample2D,
                                                           ResnetBlock2D,
@@ -75,6 +80,10 @@ class UNet2DCondition(nn.Module):
         self.conv_in = nn.Conv2d(cfg.sample_channels, ch[0], 3, 1, 1)
         self.time_embedding = TimestepEmbedding(ch[0], tdim,
                                                 cfg.time_cond_proj_dim)
+        self.add_embedding = (TimestepEmbedding(
+            cfg.addition_embed_dim
+            + ADD_TIME_IDS * cfg.addition_time_embed_dim, tdim)
+            if cfg.addition_embed_dim > 0 else None)
         self.down_blocks = nn.ModuleList()
         skips = [ch[0]]
         cur = ch[0]
@@ -117,11 +126,16 @@ class UNet2DCondition(nn.Module):
                 use_kernels: bool = True,
                 deep_feature: Optional[torch.Tensor] = None,
                 return_deep: bool = False,
-                timestep_cond: Optional[torch.Tensor] = None):
+                timestep_cond: Optional[torch.Tensor] = None,
+                added_text_embeds: Optional[torch.Tensor] = None,
+                added_time_ids: Optional[torch.Tensor] = None):
         """sample: (B, C, H, W) latents; timestep: scalar or (B,);
         encoder_hidden_states: (B, S, D_text); timestep_cond: (B,
         time_cond_proj_dim), LCM's guidance embedding, added through
-        `time_embedding.cond_proj` before its first linear. Returns the
+        `time_embedding.cond_proj` before its first linear;
+        added_text_embeds (B, addition_embed_dim) and added_time_ids (B, 6):
+        SDXL's added conditioning, through `add_embedding` (ignored by a
+        UNet without it, as in the JAX module). Returns the
         predicted noise (B, C, H, W) in f32. With `tap`, each FF layer
         writes its statistics into `taps_out` as {stat: {ff_index: tensor}}.
 
@@ -145,6 +159,15 @@ class UNet2DCondition(nn.Module):
         temb = timestep_embedding(t.expand(b), cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift).to(dt)
         temb = self.time_embedding(temb, timestep_cond)
+        if self.add_embedding is not None and added_text_embeds is not None:
+            parts = [added_text_embeds.to(dt)]
+            if added_time_ids is not None and cfg.addition_time_embed_dim > 0:
+                ids = torch.as_tensor(added_time_ids, device=sample.device)
+                emb = timestep_embedding(ids.reshape(-1),
+                                         cfg.addition_time_embed_dim,
+                                         cfg.flip_sin_to_cos, cfg.freq_shift)
+                parts.append(emb.reshape(ids.shape[0], -1).to(dt))
+            temb = temb + self.add_embedding(torch.cat(parts, dim=-1))
         context = encoder_hidden_states.to(dt)
         ivs = tuple(ivs) if ivs is not None else ()
         kw = dict(step_idx=step_idx, tap=tap, taps_out=taps_out,

@@ -99,13 +99,17 @@ class StableDiffusionPipeline:
         self.config = config
         self.device = resolve_device(device)
         with torch.device(self.device):
-            self.unet = cast_model(UNet2DCondition(config.unet),
-                                   config.unet.dtype).eval()
-            self.text_encoder = cast_model(CLIPTextEncoder(config.text_encoder),
-                                           config.text_encoder.dtype).eval()
-            self.vae_decoder = cast_model(VAEDecoder(config.vae),
-                                          config.vae.dtype).eval()
+            self._build_modules()
         self.scheduler = SCHEDULERS[config.scheduler].create()
+
+    def _build_modules(self) -> None:
+        config = self.config
+        self.unet = cast_model(UNet2DCondition(config.unet),
+                               config.unet.dtype).eval()
+        self.text_encoder = cast_model(CLIPTextEncoder(config.text_encoder),
+                                       config.text_encoder.dtype).eval()
+        self.vae_decoder = cast_model(VAEDecoder(config.vae),
+                                      config.vae.dtype).eval()
 
     # ------------------------------------------------------------------ params
     def modules(self) -> dict[str, nn.Module]:
@@ -125,7 +129,7 @@ class StableDiffusionPipeline:
                         name.endswith("bias")):
                     p.zero_()
                     continue
-                owner = module.get_submodule(name.rsplit(".", 1)[0])
+                owner = module.get_submodule(name.rpartition(".")[0])
                 if isinstance(owner, (nn.GroupNorm, nn.LayerNorm)):
                     p.fill_(1.0)
                     continue
@@ -135,8 +139,9 @@ class StableDiffusionPipeline:
                 p.copy_(vals * fan_in ** -0.5)
 
     def load_state_dicts(self, state_dicts: dict[str, dict]) -> None:
-        """Loads {"unet", "text_encoder", "vae"} state dicts (diffusers /
-        transformers names, e.g. from `weights/bridge.py`), strictly."""
+        """Loads a state dict for each of `modules()` ({"unet",
+        "text_encoder", "vae"}; diffusers / transformers names, e.g. from
+        `weights/bridge.py`), strictly."""
         for key, module in self.modules().items():
             module.load_state_dict(state_dicts[key], strict=True)
 
@@ -162,13 +167,17 @@ class StableDiffusionPipeline:
                 ivs: Optional[Interventions] = None,
                 use_kernels: bool = True,
                 step_noise: Optional[torch.Tensor] = None,
-                generators: Optional[Sequence[torch.Generator]] = None):
+                generators: Optional[Sequence[torch.Generator]] = None,
+                added_cond: Optional[dict] = None):
         """CFG denoise. context: (2B, S, D) with the unconditional half first
         (B when guidance <= 1, and under LCM); latents: (B, C, h, w), the
         initial noise already scaled by the scheduler's initial sigma.
         Under LCM the step noise is `step_noise` (T, B, C, h, w) where
-        given, else drawn from `generators` (one a sample). Returns (final
-        latents (B, C, h, w) in f32, taps with (T, ...) leaves or None)."""
+        given, else drawn from `generators` (one a sample). `added_cond`:
+        keyword arguments handed to every UNet call, full, shallow and
+        tapped (SDXL's `added_text_embeds` and `added_time_ids`, batched
+        as `context`). Returns (final latents (B, C, h, w) in f32, taps with
+        (T, ...) leaves or None)."""
         sched = self.scheduler
         timesteps, coeffs = sched.set_timesteps(num_steps)
         is_lcm = isinstance(sched, LCMScheduler)
@@ -208,7 +217,7 @@ class StableDiffusionPipeline:
             lat_in = sched.scale_model_input(coeffs, i, lat_in)
             step_taps: dict = {}
             kw = dict(ivs=ivs, step_idx=i, use_kernels=use_kernels,
-                      timestep_cond=tcond)
+                      timestep_cond=tcond, **(added_cond or {}))
             if dc > 0 and i % dc == 0:
                 # entry 0 is always full, so `deep` is set before its first use
                 eps, deep = self.unet(lat_in, t, context, return_deep=True,
@@ -290,42 +299,55 @@ class StableDiffusionPipeline:
         `generator` made after the initial noise. Text taps add over both
         encodes."""
         cfg = self.config
-        if (generator is None) == (seeds is None):
-            raise ValueError("generate takes a generator or seeds, not both")
-        if seeds is not None and len(seeds) != cond_ids.shape[0]:
-            raise ValueError(f"{len(seeds)} seeds for {cond_ids.shape[0]} "
-                             "requests")
         num_steps = num_steps or cfg.num_inference_steps
         g = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        latents, generators = self.start_latents(cond_ids.shape[0], generator,
+                                                 seeds, num_steps)
         cond, cond_taps = self.encode_text(cond_ids, tap, text_ivs)
         uncond, text_taps = self.encode_text(uncond_ids, tap, text_ivs)
         if cond_taps and text_taps:
             text_taps = {stat: {l: v + text_taps[stat][l]
                                 for l, v in layers.items()}
                          for stat, layers in cond_taps.items()}
-        sched = self.scheduler
-        is_lcm = isinstance(sched, LCMScheduler)
         # LCM embeds the guidance scale: the UNet batch is B, as with g <= 1
-        context = cond if is_lcm or g <= 1.0 else torch.cat([uncond, cond])
-        b = cond_ids.shape[0]
+        context = (cond if self.is_lcm or g <= 1.0
+                   else torch.cat([uncond, cond]))
+        latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs,
+                                     generators=generators)
+        if text_taps:
+            taps = dict(taps or {}, **text_taps)
+        return (self.decode(latents) if decode else latents), taps
+
+    @property
+    def is_lcm(self) -> bool:
+        return isinstance(self.scheduler, LCMScheduler)
+
+    def start_latents(self, b: int, generator: Optional[torch.Generator],
+                      seeds, num_steps: int):
+        """`generate`'s initial latents (B, C, s, s) on the device, scaled
+        by the scheduler's `init_noise_sigma_for(num_steps)` where it has
+        one (Euler), else by its `init_noise_sigma`, and under LCM the step
+        noise's generators (else None): from `generator`, or with `seeds`
+        from each request's own seed (see `generate`)."""
+        if (generator is None) == (seeds is None):
+            raise ValueError("generate takes a generator or seeds, not both")
+        if seeds is not None and len(seeds) != b:
+            raise ValueError(f"{len(seeds)} seeds for {b} requests")
+        sched = self.scheduler
         latents = (self.seeded_noise(seeds) if seeds is not None
                    else self.initial_noise(b, generator))
         scale = getattr(sched, "init_noise_sigma_for", None)
         scale = scale(num_steps) if scale else sched.init_noise_sigma
         latents = latents.to(self.device) * scale
         generators = None
-        if is_lcm and seeds is not None:
+        if self.is_lcm and seeds is not None:
             generators = self.step_generators(seeds)
-        elif is_lcm:
+        elif self.is_lcm:
             draws = torch.randint(0, 2 ** 62, (b,), generator=generator,
                                   device=generator.device).tolist()
             generators = [torch.Generator(device=self.device).manual_seed(d)
                           for d in draws]
-        latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs,
-                                     generators=generators)
-        if text_taps:
-            taps = dict(taps or {}, **text_taps)
-        return (self.decode(latents) if decode else latents), taps
+        return latents, generators
 
 
 def to_uint8(images: torch.Tensor) -> torch.Tensor:

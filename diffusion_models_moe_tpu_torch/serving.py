@@ -66,8 +66,10 @@ class ServingStats:
 
 
 class ServingEngine:
-    """Micro-batching executor over `pipe.generate`. `tokenize` maps a list
-    of prompts to (B, S) token ids (e.g. `data.tokenize.hash_tokenize`)."""
+    """Micro-batching executor over `pipe.generate`: a
+    `StableDiffusionPipeline` or an `SDXLPipeline` (whose bigG tower then
+    takes the same ids). `tokenize` maps a list of prompts to (B, S) token
+    ids (e.g. `data.tokenize.hash_tokenize`)."""
 
     def __init__(self, pipe, tokenize: Callable[[Sequence[str]], torch.Tensor],
                  *, batch_size: int = 8, num_steps: int = 50,

@@ -89,6 +89,10 @@ def unet_numpy_state_dict(params: dict, cfg: UNetConfig) -> dict:
     for name in ("linear_1", "linear_2"):
         _emit(sd, f"time_embedding.{name}",
               _linear(params["time_embedding"][name]))
+    if "add_embedding" in params:       # SDXL's added conditioning
+        for name in ("linear_1", "linear_2"):
+            _emit(sd, f"add_embedding.{name}",
+                  _linear(params["add_embedding"][name]))
     if "time_cond_proj" in params:      # LCM's guidance embedding
         _emit(sd, "time_embedding.cond_proj",
               _linear(params["time_cond_proj"], use_bias=False))
@@ -177,13 +181,28 @@ def to_torch(sd: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
-def pipeline_state_dicts(params: dict, config) -> dict[str, dict]:
+def pipeline_state_dicts(params: dict, config,
+                         text_configs: tuple = None) -> dict[str, dict]:
     """A JAX pipeline's params {"unet", "text_encoder", "vae"} -> the port's
-    state dicts, as `StableDiffusionPipeline.load_state_dicts` takes them."""
-    return {
+    state dicts, as `StableDiffusionPipeline.load_state_dicts` takes them.
+    An SDXL pipeline's params also have "text_encoder_2" and
+    "text_projection_2" ((hidden, projection), applied as `pooled @ P`):
+    they become the bigG tower's state dict and the projection's
+    `{"weight": P.T}` (transformers' `text_projection.weight`), as
+    `SDXLPipeline.load_state_dicts` takes them. `text_configs`: the two
+    towers' configs (default: `config.text_encoder` for the first; the
+    second is needed where "text_encoder_2" is present)."""
+    tc1 = text_configs[0] if text_configs else config.text_encoder
+    out = {
         "unet": to_torch(unet_numpy_state_dict(params["unet"], config.unet)),
         "text_encoder": to_torch(clip_text_numpy_state_dict(
-            params["text_encoder"], config.text_encoder)),
+            params["text_encoder"], tc1)),
         "vae": to_torch(vae_decoder_numpy_state_dict(params["vae"],
                                                      config.vae)),
     }
+    if "text_encoder_2" in params:
+        out["text_encoder_2"] = to_torch(clip_text_numpy_state_dict(
+            params["text_encoder_2"], text_configs[1]))
+        out["text_projection_2"] = to_torch(
+            {"weight": np.ascontiguousarray(_np(params["text_projection_2"]).T)})
+    return out

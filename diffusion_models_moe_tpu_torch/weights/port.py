@@ -16,6 +16,10 @@ and renamed where old checkpoints differ, and handed to
   mid-block attention names `query/key/value/proj_attn`, possibly stored as
   1x1 convs, become `to_q/to_k/to_v/to_out.0`.
 
+An SDXL snapshot (`load_sdxl_snapshot`) adds `text_encoder_2/`, a
+transformers `CLIPTextModelWithProjection`: its `text_projection.weight`
+becomes the pipeline's `text_projection_2`, the rest the bigG tower.
+
 fp16 tensors are widened to f32; every other dtype is kept as stored
 (`load_state_dict` casts into the module's dtype). Files are read by the
 port's own safetensors reader (`weights/_safetensors.py`).
@@ -28,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from diffusion_models_moe_tpu_torch.config import UNetConfig
+from diffusion_models_moe_tpu_torch.config import ADD_TIME_IDS, UNetConfig
 from diffusion_models_moe_tpu_torch.weights import _safetensors
 
 StateDict = dict[str, torch.Tensor]
@@ -154,13 +158,59 @@ def load_pipeline_snapshot(snapshot_root: str, config,
             os.path.join(snapshot_root, "text_encoder")),
         "vae": load_vae_decoder_state_dict(os.path.join(snapshot_root, "vae")),
     }
-    bad = {k: c for k, c in _unet_shape_checks(out["unet"],
-                                               config.unet).items()
-           if c["got"] != c["expected"]}
+    _check_unet(snapshot_root, out["unet"], config)
+    return out
+
+
+def load_sdxl_snapshot(snapshot_root: str, config) -> dict[str, StateDict]:
+    """An SDXL diffusers snapshot `{root}/unet`, `{root}/text_encoder`,
+    `{root}/text_encoder_2` (a `CLIPTextModelWithProjection`), `{root}/vae`
+    -> {"unet", "text_encoder", "text_encoder_2", "text_projection_2",
+    "vae"} state dicts, as `SDXLPipeline.load_state_dicts` takes them.
+    Raises ValueError where the UNet's sentinel shapes do not fit `config`
+    (an SD1.x or SD2.x snapshot for an SDXL config)."""
+    te2 = os.path.join(snapshot_root, "text_encoder_2")
+    sd2 = _widen(load_safetensors(os.path.join(te2, "model.safetensors")))
+    proj = sd2.pop("text_projection.weight")
+    out = {
+        "unet": load_unet_state_dict(os.path.join(snapshot_root, "unet")),
+        "text_encoder": load_clip_text_state_dict(
+            os.path.join(snapshot_root, "text_encoder")),
+        "text_encoder_2": clip_text_state_dict(sd2),
+        "text_projection_2": {"weight": proj},
+        "vae": load_vae_decoder_state_dict(os.path.join(snapshot_root, "vae")),
+    }
+    _check_unet(snapshot_root, out["unet"], config)
+    return out
+
+
+_CROSS_K = re.compile(
+    r"^(down_blocks|mid_block|up_blocks)\.(\d+\.)?attentions\.\d+\."
+    r"transformer_blocks\.\d+\.attn2\.to_k\.weight$")
+
+
+def _check_unet(snapshot_root: str, sd: StateDict, config) -> None:
+    """Raises ValueError where a snapshot's UNet does not fit `config`: the
+    sentinel shapes of `_unet_shape_checks`, the context width read off the
+    first cross-attention key (SDXL's down block 0 has none), and the input
+    width of the added conditioning (0 where there is no
+    `add_embedding`)."""
+    cfg = config.unet
+    checks = _unet_shape_checks(sd, cfg)
+    k = next((name for name in sd if _CROSS_K.match(name)), None)
+    if k is not None:
+        checks["cross_attention_dim"] = {
+            "got": int(sd[k].shape[1]), "expected": cfg.cross_attention_dim}
+    add = sd.get("add_embedding.linear_1.weight")
+    checks["add_embedding_in"] = {
+        "got": 0 if add is None else int(add.shape[1]),
+        "expected": (cfg.addition_embed_dim
+                     + ADD_TIME_IDS * cfg.addition_time_embed_dim
+                     if cfg.addition_embed_dim > 0 else 0)}
+    bad = {k: c for k, c in checks.items() if c["got"] != c["expected"]}
     if bad:
         raise ValueError(f"{snapshot_root}: the UNet does not fit the "
                          f"config: {bad}")
-    return out
 
 
 def load_edited_unet_state_dict(path: str) -> StateDict:

@@ -34,8 +34,7 @@ SD2_TEXT = {"hidden_act": "gelu"}
 # fields of the JAX package's configs with no counterpart in the port (TPU
 # layouts, training, other model families, safety filtering)
 JAX_ONLY = {"use_fused_routing", "flash_attention", "remat", "fast_norm",
-            "addition_embed_dim", "addition_time_embed_dim", "safety_check",
-            "blur_nsfw"}
+            "safety_check", "blur_nsfw"}
 # the port's serving-mode fields (strings where the JAX package has
 # environment variables or booleans)
 PORT_ONLY = {"attn_absorb", "conv_chain", "winograd_tile"}

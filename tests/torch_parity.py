@@ -222,3 +222,90 @@ def check_denoise(data: dict, scheduler: str, interval: int, lcm_unet: dict,
                             guidance)
     assert rel_err(got, ref) < rel_tol
     assert rel_err(ref, data["latents"]) > 0.1
+
+
+def tiny_sdxl(mod, lcm: bool = False):
+    """The tiny SDXL geometry of tests/test_sdxl_pipeline.py (copied, not
+    imported), in f32, built from the config module `mod` (the JAX
+    package's or the port's): (pipeline config, (CLIP-L, bigG) text
+    configs). 22 FFs; the two towers 16 and 32 wide make the 48-wide
+    context. The UNet always carries LCM's guidance embedding (width 8), so
+    one weight set serves Euler, which does not call it, and LCM."""
+    unet = mod.UNetConfig(
+        block_out_channels=(16, 32, 64),
+        down_block_types=("plain", "cross", "cross"),
+        up_block_types=("cross", "cross", "plain"),
+        transformer_layers_per_block=(0, 2, 2),
+        attention_head_dim=(2, 4, 8),
+        cross_attention_dim=48,
+        norm_num_groups=8,
+        addition_embed_dim=32,
+        addition_time_embed_dim=8,
+        time_cond_proj_dim=8)
+    tc1 = mod.CLIPTextConfig(vocab_size=100, hidden_size=16,
+                             intermediate_size=32, num_layers=2, num_heads=2,
+                             max_length=8)
+    tc2 = mod.CLIPTextConfig(vocab_size=100, hidden_size=32,
+                             intermediate_size=64, num_layers=2, num_heads=4,
+                             max_length=8, hidden_act="gelu")
+    cfg = mod.PipelineConfig(
+        unet=unet, vae=mod.VAEConfig(block_out_channels=(16, 16, 32, 32),
+                                     norm_num_groups=8, layers_per_block=1),
+        sample_size=16, scheduler="lcm" if lcm else "euler",
+        num_inference_steps=2)
+    return cfg, (tc1, tc2)
+
+
+def sdxl_pipelines(seed: int = 0) -> dict:
+    """The tiny SDXL weights in both packages: numpy weights drawn in the
+    port's state-dict layout, into JAX through its porters (the bigG
+    projection transposed, as `port_sdxl_pipeline` does), back through the
+    bridge (checked bit for bit) into the port's pipeline. Returns the JAX
+    and port configs and text configs, the JAX params, the numpy state
+    dicts and the port's pipeline (Euler)."""
+    from diffusion_models_moe_tpu_torch import SDXLPipeline
+    from diffusion_models_moe_tpu_torch import config as pcfg
+    jax_cfg, jax_tc = tiny_sdxl(jcfg)
+    port_cfg, port_tc = tiny_sdxl(pcfg)
+    port = SDXLPipeline(port_cfg, port_tc, device="cpu")
+    rng = np.random.RandomState(seed)
+    sds = {k: _random_state(m, rng) for k, m in port.modules().items()}
+    params = {
+        "unet": port_unet_state_dict(sds["unet"], jax_cfg.unet),
+        "text_encoder": port_clip_text_state_dict(sds["text_encoder"],
+                                                  jax_tc[0]),
+        "text_encoder_2": port_clip_text_state_dict(sds["text_encoder_2"],
+                                                    jax_tc[1]),
+        "text_projection_2": np.ascontiguousarray(
+            sds["text_projection_2"]["weight"].T),
+        "vae": port_vae_decoder("", jax_cfg.vae, _sd=sds["vae"]),
+    }
+    back = bridge.pipeline_state_dicts(params, port_cfg, port_tc)
+    assert back.keys() == sds.keys()
+    for key, sd in sds.items():
+        assert back[key].keys() == sd.keys(), key
+        for name, v in sd.items():
+            np.testing.assert_array_equal(back[key][name].numpy(), v,
+                                          err_msg=name)
+    port.load_state_dicts(back)
+    return dict(jax_cfg=jax_cfg, jax_tc=jax_tc, port_cfg=port_cfg,
+                port_tc=port_tc, params=params, sds=sds, port=port)
+
+
+def jax_seeded_noise(seeds, s: int, channels: int = 4) -> np.ndarray:
+    """(B, s, s, C) f32: the initial N(0, 1) latents the JAX SDXL and SD
+    pipelines draw for `generate(seeds=...)`, one `PRNGKey(seed)` each."""
+    import jax
+    import jax.numpy as jnp
+    return np.array(jax.vmap(lambda sd: jax.random.normal(
+        jax.random.PRNGKey(sd), (s, s, channels), jnp.float32))(
+            jnp.asarray(seeds, jnp.uint32)))
+
+
+def jax_seeded_lcm_keys(seeds):
+    """The per-request LCM step-noise keys of the JAX pipelines'
+    `generate(seeds=...)`: `fold_in(PRNGKey(seed), 1)` each."""
+    import jax
+    import jax.numpy as jnp
+    return jax.vmap(lambda sd: jax.random.fold_in(jax.random.PRNGKey(sd), 1))(
+        jnp.asarray(seeds, jnp.uint32))
