@@ -136,6 +136,22 @@ Run from the root of a checkout. Phases:
      (`lcm=True`, the JAX bench's `lcm-sdxl` point: 4 steps, batch 2),
      timed, its latents on one injected step noise within its own floor,
      and a ServingEngine(batch_size=2) over it serving phase 7's requests;
+  2g. (run after 2f) kernels 2 and 3 at PixArt-512's shapes (DiT batch 4,
+     1024 tokens, 16 heads of 72; the cross kernel over T5's 120 keys in its
+     128-key tile) and at ragged D = 72 cases (S = 1000 and 77, a strided
+     view, 100, 77 and 1 valid keys), with the same times, bounds and
+     yardsticks as at SD1.5 and their sums over one DiT call;
+  15. (run after 13) PixArt-alpha at full width: `pixart_512_config(bf16)`
+     (the PixArt-XL-2-512 DiT and T5 v1.1 XXL, built on the card) with seeded
+     random weights, 2 requests of seeded caption ids with masks (17 and 40
+     of 120 positions tokens), DPM-Solver++ 2M at 20 steps with CFG 4.5,
+     decoded to 512 x 512: wall, img/s, peak memory, kernels 2 and 3 at 28
+     launches a DiT call, every other kernel and plain counter at 0;
+     `denoise` latents with kernels against plain versions after 3 and 20
+     steps within the card's own PixArt floor (an f32 copy of the DiT on the
+     bf16 T5 features); a mean-gate tapped generate and a neuron removal at
+     the highest mean gates (steps t <= 5), which moves the latents beyond
+     that floor; request 0 padded with itself bit-equal to co-batched;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -149,6 +165,7 @@ describing each kernel, its last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -263,6 +280,18 @@ WINO_SD21_UNET = tuple(((3 * side // 2, cin, cout), n)
                        for (side, cin, cout), n in WINO_UNET)
 WINO_SD21_VAE = tuple(((3 * side // 2, cin, cout), n)
                       for (side, cin, cout), n in WINO_VAE)
+# PixArt-512 (pixart_512_config: 64 x 64 latents in 2 x 2 patches): (tokens,
+# channels, heads) of its one attention level (16 heads of 72) and the 28
+# blocks of a DiT call; the cross keys are T5's 120 caption positions, all
+# attended (pads included, as the JAX DiT does)
+PIXART_ATTN = ((1024, 1152, 16),)
+PIXART_BLOCKS = (28,)
+T5_KEYS = 120
+# extra cases at D = 72 (8 heads): ragged S, kernel 5's column-third view,
+# fewer valid keys (77 of 120 and 1 take the 80-key tile)
+ATTN_EXTRA_PIXART = ((4, 1000, 72, "bsc", T5_KEYS), (4, 77, 72, "bsc", T5_KEYS),
+                     (4, 1024, 72, "bs3c", T5_KEYS), (4, 1024, 72, "bsc", 100),
+                     (4, 1024, 72, "bsc", 77), (4, 1024, 72, "bsc", 1))
 
 
 def implied_row_agreement(e: int) -> float:
@@ -617,11 +646,13 @@ ATTN_EXTRA = ((4, 77, 40, "bsc", 77), (4, 1000, 80, "bsc", 77),
 
 def check_attention(gen: torch.Generator, levels=SD15_ATTN,
                     extra=ATTN_EXTRA, label: str = "SD1.5",
-                    counts=LEVEL_BLOCKS) -> tuple[list, list]:
-    """Phase 2: kernels 2 and 3 against their plain versions at the four
-    shapes of each kind that `levels` gives (with SDPA on the same tensors
-    as the yardstick, and the wrapper's host time) and at `extra` (8
-    heads)."""
+                    counts=LEVEL_BLOCKS, text_keys: int = 77
+                    ) -> tuple[list, list]:
+    """Phase 2: kernels 2 and 3 against their plain versions at the shapes
+    of each kind that `levels` gives (with SDPA on the same tensors as the
+    yardstick, and the wrapper's host time) and at `extra` (8 heads); the
+    cross kernel over `text_keys` keys (CLIP's 77, T5's 120), all valid at
+    `levels`."""
     from diffusion_models_moe_tpu_torch.ops import _build
     from diffusion_models_moe_tpu_torch.ops import sd_flash
     dev = DEV
@@ -636,14 +667,14 @@ def check_attention(gen: torch.Generator, levels=SD15_ATTN,
         return t[..., c:2 * c].reshape(b, n, heads, d) if view == "bs3c" \
             else t.view(b, n, heads, d)
 
-    cases = [(kind, 2 * BATCH, s, heads, c // heads, "bsc", 77, True)
+    cases = [(kind, 2 * BATCH, s, heads, c // heads, "bsc", text_keys, True)
              for kind in ("self", "cross") for s, c, heads in levels]
     cases += [(kind, b, s, 8, d, view, kvv, False)
               for kind in ("self", "cross") for b, s, d, view, kvv in extra
-              if kind == "cross" or kvv == 77]
+              if kind == "cross" or kvv == text_keys]
     for kind, b, s, heads, d, view, kv_valid, main in cases:
         shapes = out.setdefault(kind, [])
-        s_kv = s if kind == "self" else 77
+        s_kv = s if kind == "self" else text_keys
         q, k, v = (heads4(b, n, d, view, heads) for n in (s, s_kv, s_kv))
         if view == "bs3c":
             assert not q.is_contiguous()
@@ -656,7 +687,9 @@ def check_attention(gen: torch.Generator, levels=SD15_ATTN,
                 q, k, v, scale, kv_valid, use_kernels=uk)
         check(sd_flash.attn_kernel_ok(q, k, None if kind == "self" else kv_valid),
               f"attn_kernel_ok refuses {kind} S={s} D={d} {view}")
-        plan = sd_flash.attn_plan(kind, b, heads, s, s_kv, d,
+        # the cross kernel's plan takes the valid keys, as its wrapper
+        plan = sd_flash.attn_plan(kind, b, heads, s,
+                                  s_kv if kind == "self" else kv_valid, d,
                                   _build.sm_count(q.device))
         o, o_plain = fn(True), fn(False)
         torch.cuda.synchronize()
@@ -672,8 +705,8 @@ def check_attention(gen: torch.Generator, levels=SD15_ATTN,
                    2 * 2 * b * heads * d * (s + s_kv), b * heads * s * keys)
         row = dict(shape=f"B={b},S={s},S_kv={s_kv},H={heads},D={d},{view},"
                          f"kv_valid={keys}", rows=plan.rows, run=plan.run,
-                   blocks=plan.blocks(b, heads), max_abs_err=abs_e,
-                   rel_err=rel, **bd)
+                   bkv=plan.bkv, blocks=plan.blocks(b, heads),
+                   max_abs_err=abs_e, rel_err=rel, **bd)
         if main:
             # device times from CUDA graphs (kernel and SDPA alike); beside
             # them the time of back-to-back calls, which the host paces
@@ -709,11 +742,11 @@ def check_attention(gen: torch.Generator, levels=SD15_ATTN,
         print(f"{what}: max_abs_err {abs_e:.6g} rel {rel:.3e} (tol "
               f"{ATTN_REL_TOL:g}); {timing}bound {bd['bound_ms']:.4f} ms by "
               f"{bd['binds']}; {plan.blocks(b, heads)} blocks of {plan.rows} "
-              f"rows x {plan.run} tiles", flush=True)
+              f"rows x {plan.run} tiles, {plan.bkv}-key tiles", flush=True)
         shapes.append(row)
     for kind in ("self", "cross"):
         rows = out[kind][:len(levels)]
-        print(f"{kind} ({label}): the {sum(counts)} launches of a UNet call "
+        print(f"{kind} ({label}): the {sum(counts)} launches of a model call "
               f"at batch {2 * BATCH} "
               f"sum to {per_call(rows, counts, 'ms'):.3f} ms in the kernel, "
               f"{per_call(rows, counts, 'library_ms'):.3f} ms in SDPA, bound "
@@ -1666,6 +1699,20 @@ def check_sdxl_kernels(gen: torch.Generator) -> tuple[dict, dict]:
     return out, dict(sdxl_vae=wino["SDXL"]["vae_decode"], sd21=wino["SD2.1-768"])
 
 
+# ---------------------------------------------------------------- phase 2g
+def check_pixart_kernels(gen: torch.Generator) -> dict:
+    """Phase 2g: kernels 2 and 3 against their plain versions at PixArt-512's
+    shapes (DiT batch 2 x BATCH, 1024 tokens, 16 heads of 72, T5's 120 keys)
+    and at ragged D = 72 cases, with the same times, bounds and yardsticks
+    as at SD1.5 and their sums over one DiT call. Returns {kernel: (rows,
+    sums over one DiT call)}."""
+    self_attn, cross_attn = check_attention(gen, PIXART_ATTN,
+                                            ATTN_EXTRA_PIXART, "PixArt-512",
+                                            PIXART_BLOCKS, T5_KEYS)
+    return {name: (rows, call_sums(rows, PIXART_BLOCKS)) for name, rows in (
+        ("sd_self_attention", self_attn), ("sd_cross_attention", cross_attn))}
+
+
 # ---------------------------------------------------------------- phase 10
 SD21_PROMPTS = ["a photo of a dog", "a house in the style of Van Gogh"]
 # the longer of phase 10's two kernels-vs-plain runs: the config's 50 steps
@@ -2375,6 +2422,180 @@ def run_sld(ivs, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+# caption tokens of PixArt's two requests (the rest of the 120 are pads,
+# masked in T5); the negative caption is T5's empty prompt, its EOS alone
+PIXART_CAPTION_TOKENS = (17, 40)
+T5_EOS = 1
+# the removal window of the reference's PixArt erasure (steps t <= 5) and the
+# share of each layer's neurons it removes, the highest mean gates: the JAX
+# CLI's skill ratio, as WANDA_SKILL_RATIO
+PIXART_REMOVAL_STEPS = 6
+PIXART_REMOVAL_SHARE = WANDA_SKILL_RATIO
+
+
+def pixart_requests(cfg) -> tuple:
+    """Seeded caption ids and masks (BATCH, 120) and the negative caption's:
+    request i holds PIXART_CAPTION_TOKENS[i] tokens, the rest pads (id 0,
+    mask 0)."""
+    tc = cfg.text_encoder
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.zeros((BATCH, tc.max_length), dtype=torch.long)
+    mask = torch.zeros_like(ids)
+    for i, n in enumerate(PIXART_CAPTION_TOKENS):
+        ids[i, :n - 1] = torch.randint(2, tc.vocab_size, (n - 1,),
+                                       generator=gen)
+        ids[i, n - 1] = T5_EOS
+        mask[i, :n] = 1
+    un_ids, un_mask = torch.zeros_like(ids), torch.zeros_like(ids)
+    un_ids[:, 0], un_mask[:, 0] = T5_EOS, 1
+    return tuple(t.to(DEV) for t in (ids, mask, un_ids, un_mask))
+
+
+def run_pixart(card: str) -> dict:
+    """Phase 15: PixArt-alpha at full width (`pixart_512_config(bf16)`:
+    PixArt-XL-2-512's DiT, 28 blocks of 16 heads of 72; T5 v1.1 XXL; seeded
+    random weights; 2 requests of seeded caption ids with masks, some pads),
+    DPM-Solver++ 2M at 20 steps with CFG 4.5, decoded to 512 x 512: wall,
+    img/s, peak memory, kernels 2 and 3 at 28 launches a DiT call, every
+    other kernel and every plain counter at 0; `denoise` latents with
+    kernels against plain versions after 3 and 20 steps within the card's
+    own PixArt floor (plain bf16 against an f32 copy of the DiT on the same
+    bf16 T5 features: an f32 T5 would take 19 GB); a mean-gate tapped
+    generate (28 layers of (T, 4608)); a generate with the highest 2% of
+    each layer's mean gates removed (fill 0.0) at steps t <= 5, its latents
+    apart from the plain generate's by more than that floor; request 0 in a
+    batch padded with itself bit-equal to request 0 co-batched. Returns the
+    launch counts of the timed generate."""
+    import copy
+    from diffusion_models_moe_tpu_torch import (LayerIntervention,
+                                                PixArtPipeline, TapSpec,
+                                                pixart_512_config)
+    from diffusion_models_moe_tpu_torch.models.layers import cast_model
+    from diffusion_models_moe_tpu_torch.models.pixart import \
+        PixArtTransformer2D
+    from diffusion_models_moe_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    cfg = pixart_512_config(torch.bfloat16)
+    pipe = PixArtPipeline(cfg, device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    steps, g = cfg.num_inference_steps, cfg.guidance_scale
+    dit = cfg.transformer
+    layers, hdim = dit.num_layers, dit.hidden_size * dit.ff_mult
+    ids, mask, un_ids, un_mask = pixart_requests(cfg)
+    torch.cuda.synchronize()
+    n_params = {k: sum(p.numel() for p in m.parameters())
+                for k, m in pipe.modules().items()}
+    print(f"pixart: PixArt-512 bf16 pipeline built on the card with seeded "
+          f"random weights in {time.perf_counter() - t0:.1f} s (parameters "
+          f"{json.dumps(n_params)}; heads of {dit.hidden_size // dit.num_heads}"
+          f", {cfg.text_encoder.max_length} caption positions, "
+          f"{PIXART_CAPTION_TOKENS} of them tokens)", flush=True)
+
+    def gen_(seed=None, cond=(ids, mask), **kw):
+        generator = (None if seed is None
+                     else torch.Generator(device=DEV).manual_seed(seed))
+        return pipe.generate(cond[0], un_ids, generator, cond_mask=cond[1],
+                             uncond_mask=un_mask, **kw)
+
+    per_gen = layers * steps
+    expect = {k: per_gen if k in ("sd_self_attention", "sd_cross_attention")
+              else 0 for k in _build.KERNELS}
+
+    def held(launches: dict, what: str) -> None:
+        for name, count in expect.items():
+            check(launches[name] == count,
+                  f"{what}: kernel {name} launched {launches[name]} times, "
+                  f"expected {count}")
+        check_no_plain(launches, what)
+
+    gen_(2, num_steps=1)                                     # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    images, _ = gen_(3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    side = 8 * cfg.sample_size
+    check(tuple(images.shape) == (BATCH, 3, side, side),
+          f"PixArt image shape {tuple(images.shape)}")
+    check(bool(torch.isfinite(images).all()), "PixArt: non-finite images")
+    check(images.min().item() >= 0.0 and images.max().item() <= 1.0,
+          "PixArt: image values outside [0, 1]")
+    print(f"PixArt-512 on {card}: generate {BATCH} requests {side}x{side}, "
+          f"{cfg.scheduler} {steps} steps ({steps} DiT calls at batch "
+          f"{2 * BATCH}), CFG {g}: wall {wall:.3f} s, {BATCH / wall:.4f} "
+          f"img/s, peak memory {peak_gib:.2f} GiB; images finite in "
+          f"[{images.min().item():.4f}, {images.max().item():.4f}]; launches "
+          f"{launches} (expected {expect})", flush=True)
+    held(launches, "PixArt")
+    del images
+
+    # kernels against plain versions, and the floor: an f32 copy of the DiT
+    with torch.device(DEV):
+        dit32 = cast_model(PixArtTransformer2D(
+            dataclasses.replace(dit, dtype=torch.float32), cfg.sample_size),
+            torch.float32).eval()
+    dit32.load_state_dict(pipe.transformer.state_dict())
+    pipe32 = copy.copy(pipe)
+    pipe32.transformer = dit32
+    ctx = torch.cat([pipe.encode_text(un_ids, un_mask),
+                     pipe.encode_text(ids, mask)])
+    lat = torch.randn((BATCH, dit.sample_channels, cfg.sample_size,
+                       cfg.sample_size), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(4)
+                      ) * pipe.scheduler.init_noise_sigma
+    for n in (3, steps):
+        _, floor, z_k = kernels_vs_plain(pipe, pipe32, ctx, ctx.float(), lat,
+                                         n, g, None, "PixArt-512, DPM")
+    del pipe32, dit32
+    torch.cuda.empty_cache()
+
+    # the mean-gate tap, then the removal of the highest mean gates
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    z_plain, taps = gen_(3, tap=TapSpec(mean_gate=True), decode=False)
+    torch.cuda.synchronize()
+    tap_wall = time.perf_counter() - t0
+    mg = taps["mean_gate"]
+    check(sorted(mg) == list(range(layers)), f"PixArt taps {sorted(mg)}")
+    for i, v in mg.items():
+        check(tuple(v.shape) == (steps, hdim) and bool(torch.isfinite(v).all()),
+              f"PixArt mean gate {i}: {tuple(v.shape)}")
+    held(_build.LAUNCHES, "PixArt, mean-gate taps")
+    n_rm = int(PIXART_REMOVAL_SHARE * hdim)
+    ivs = []
+    for i in range(layers):
+        top = mg[i][:PIXART_REMOVAL_STEPS].mean(0).topk(n_rm).indices
+        nm = torch.zeros((steps, hdim), dtype=torch.bool, device=DEV)
+        nm[:PIXART_REMOVAL_STEPS, top] = True
+        ivs.append(LayerIntervention(neuron_mask=nm, neuron_fill=0.0))
+    z_rm, _ = gen_(3, ivs=ivs, decode=False)
+    moved = ((z_rm - z_plain).norm() / z_plain.norm()).item()
+    print(f"PixArt mean-gate tapped generate: {layers} layers of {(steps, hdim)}"
+          f", wall {tap_wall:.3f} s; removing the highest {n_rm} mean gates of"
+          f" each layer at steps t < {PIXART_REMOVAL_STEPS} moves the latents "
+          f"{moved:.6f} (floor {floor:.6f})", flush=True)
+    check(moved > FLOOR_FACTOR * floor,
+          f"PixArt removal moved the latents {moved} <= {FLOOR_FACTOR} x "
+          f"floor {floor}")
+
+    # request 0 padded with itself equals request 0 co-batched
+    pad = lambda t: t[:1].repeat(BATCH, 1)  # noqa: E731
+    z_co, _ = gen_(seeds=[7, 3], decode=False)
+    z_alone, _ = gen_(cond=(pad(ids), pad(mask)), seeds=[7, 7], decode=False)
+    check(torch.equal(z_co[0], z_alone[0]),
+          "PixArt: request 0 alone differs from request 0 co-batched")
+    print("PixArt: request 0 padded with itself equals request 0 co-batched, "
+          "bit for bit", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -2435,6 +2656,8 @@ def main() -> None:
     phase_done("2e (kernels at SD2.1-768's shapes)")
     sdxl_kernels, wino_extra = check_sdxl_kernels(gen)
     phase_done("2f (kernels at SDXL's shapes; kernel 8 at SD2.1-768's)")
+    pixart_kernels = check_pixart_kernels(gen)
+    phase_done("2g (kernels 2 and 3 at PixArt-512's shapes)")
     pipe, ivs, cond, uncond, launches, images = run_slice(card)
     phase_done("3 (serving slice)")
     compare, modes_off = check_latents(pipe, ivs, cond, uncond)
@@ -2463,6 +2686,8 @@ def main() -> None:
     phase_done("12 (snapshot -> moefy -> routed generate -> bake -> checkpoint)")
     sdxl_launches = run_sdxl(card)
     phase_done("13 (SDXL and LCM-SDXL at full width)")
+    pixart_launches = run_pixart(card)
+    phase_done("15 (PixArt-512: T5-XXL, the DiT, taps and removal)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -2474,7 +2699,8 @@ def main() -> None:
         "sd21_modes_on": sd21_launches["modes_on"],
         **{f"sd15_{k}": v for k, v in other_launches.items()},
         "sld": sld_launches, "snapshot_routed": snapshot_launches,
-        **{f"sdxl_{k}": v for k, v in sdxl_launches.items()}}))
+        **{f"sdxl_{k}": v for k, v in sdxl_launches.items()},
+        "pixart": pixart_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -2538,6 +2764,12 @@ def main() -> None:
         if name == "winograd3x3_fused":
             k.update(sdxl_vae_decode=wino_extra["sdxl_vae"],
                      sd21_winograd=wino_extra["sd21"])
+        # phase 2g's shapes and sums over one PixArt DiT call, and the
+        # launches of phase 15's generate
+        if name in pixart_kernels:
+            rows_px, sums_px = pixart_kernels[name]
+            k.update(pixart_shapes=rows_px, pixart_dit_call=sums_px,
+                     pixart_launches=pixart_launches[name])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

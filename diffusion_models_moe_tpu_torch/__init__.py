@@ -4,7 +4,9 @@ This package covers the moefied SD1.5, SD2.1 and SDXL text-to-image slice:
 CLIP text encoders (SDXL's two towers and pooled projection), MoE-routed
 UNet (SDXL's added conditioning), every scheduler of the JAX package (PNDM,
 DDIM, Euler, DPM-Solver++ 2M, LCM with its guidance embedding) with
-classifier-free guidance and v-prediction, VAE decoder; Safe Latent
+classifier-free guidance and v-prediction, VAE decoder; PixArt-alpha
+(`PixArtPipeline`: the T5 v1.1 XXL encoder, the adaLN-single DiT whose
+non-gated GELU FFs carry the taps and interventions); Safe Latent
 Diffusion's safety guidance (`pipelines/sld.py`); the taps and
 interventions on its FF layers; skill attribution (`analysis/`) and concept
 erasure (`erasure/`); the MoEfication front end: diffusers snapshots and
@@ -22,6 +24,9 @@ from diffusion_models_moe_tpu_torch.config import (CLIPTextConfig,
                                                    tiny_config)
 from diffusion_models_moe_tpu_torch.moefication.moefy import \
     build_moe_interventions
+from diffusion_models_moe_tpu_torch.pipelines.pixart import (
+    PixArtPipeline, PixArtPipelineConfig, pixart_512_config,
+    tiny_pixart_pipeline_config)
 from diffusion_models_moe_tpu_torch.pipelines.sdxl import SDXLPipeline
 from diffusion_models_moe_tpu_torch.pipelines.sld import (SAFETY_CONCEPT,
                                                           SLDConfig,
@@ -37,9 +42,11 @@ from diffusion_models_moe_tpu_torch.taps import (GEGLU_REMOVAL_FILL,
 
 __all__ = [
     "CLIPTextConfig", "GEGLU_REMOVAL_FILL", "LayerIntervention",
-    "PipelineConfig", "SAFETY_CONCEPT", "SDXLPipeline", "SLDConfig",
+    "PipelineConfig", "PixArtPipeline", "PixArtPipelineConfig",
+    "SAFETY_CONCEPT", "SDXLPipeline", "SLDConfig",
     "StableDiffusionPipeline", "TapSpec", "UNetConfig", "VAEConfig",
     "build_moe_interventions", "layer_name", "no_interventions",
-    "patterns_from_labels", "routing_mask", "sd15_config", "sd21_config",
-    "sdxl_config", "sdxl_text_configs", "sld_generate", "tiny_config",
+    "patterns_from_labels", "pixart_512_config", "routing_mask",
+    "sd15_config", "sd21_config", "sdxl_config", "sdxl_text_configs",
+    "sld_generate", "tiny_config", "tiny_pixart_pipeline_config",
 ]

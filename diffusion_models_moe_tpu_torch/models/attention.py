@@ -23,6 +23,12 @@ FF call takes the unfused path, its routing still in the routing kernel.
 Parameter names follow diffusers (`attn1.to_q`, `attn1.to_out.0`, `ff.net.0.proj`,
 `ff.net.2`, `norm3`, ...) and do not depend on the mode.
 
+PixArt-alpha's blocks (`models/pixart.py`) take two more forms: `Attention`
+with `qkv_bias` (diffusers' `attention_bias=True`) and the non-gated FF
+(`activation="gelu"` or `"gelu-tanh"`, diffusers' `GELU` projection), which,
+as in the JAX module, never takes the fused FF kernel and routes through the
+plain `routing_mask` (both kernels are written for the gated FF).
+
 Tap statistics go into the `taps_out` dict a caller passes down, as
 `taps_out[stat][ff_index]`, the layout `denoise` stacks over steps.
 
@@ -78,13 +84,14 @@ class Attention(nn.Module):
     """Multi-head self- or cross-attention on (B, S, C) tokens."""
 
     def __init__(self, query_dim: int, heads: int = 8,
-                 context_dim: Optional[int] = None, quant: bool = False):
+                 context_dim: Optional[int] = None, quant: bool = False,
+                 qkv_bias: bool = False):
         super().__init__()
         self.heads = heads
         kv_dim = context_dim or query_dim
-        self.to_q = make_dense(query_dim, query_dim, False, quant)
-        self.to_k = make_dense(kv_dim, query_dim, False, quant)
-        self.to_v = make_dense(kv_dim, query_dim, False, quant)
+        self.to_q = make_dense(query_dim, query_dim, qkv_bias, quant)
+        self.to_k = make_dense(kv_dim, query_dim, qkv_bias, quant)
+        self.to_v = make_dense(kv_dim, query_dim, qkv_bias, quant)
         self.to_out = nn.ModuleList([make_dense(query_dim, query_dim,
                                                 quant=quant)])
 
@@ -102,7 +109,10 @@ class Attention(nn.Module):
         scale = 1.0 / d ** 0.5
         resid = None
         if ln is not None:
-            if is_self and attn_absorb_ok(s, c, self.heads) and (
+            # the absorbed kernels take bias-free q/k/v projections, as the
+            # JAX module's absorb does
+            if (is_self and self.to_q.bias is None
+                    and attn_absorb_ok(s, c, self.heads)) and (
                     x.device.type == "cpu" or x.dtype == torch.bfloat16):
                 out = self.to_out[0]
                 return absorbed_self_attention(
@@ -128,11 +138,17 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    """The GEGLU input projection: `proj` emits (hidden, gate), 2H wide."""
+    """The FF's input projection: `proj` emits (hidden, gate), 2H wide,
+    where `gated`; else the gate alone, H wide (diffusers' `GELU`)."""
 
-    def __init__(self, dim: int, hidden_dim: int, quant: bool = False):
+    def __init__(self, dim: int, hidden_dim: int, quant: bool = False,
+                 gated: bool = True):
         super().__init__()
-        self.proj = make_dense(dim, 2 * hidden_dim, quant=quant)
+        self.proj = make_dense(dim, (2 if gated else 1) * hidden_dim,
+                               quant=quant)
+
+
+FF_ACTIVATIONS = ("geglu", "geglu-relu", "gelu", "gelu-tanh")
 
 
 class GEGLUFeedForward(nn.Module):
@@ -142,19 +158,27 @@ class GEGLUFeedForward(nn.Module):
     dropout, `net.2` W2 (C, H). `forward(x, ln=...)` returns
     `x + ff(layernorm(x))` with the LayerNorm and residual absorbed.
     `ff_index` is the layer's place in the canonical FF order. With `quant`
-    both projections are int8 dots and no call takes the fused kernel."""
+    both projections are int8 dots and no call takes the fused kernel.
+    `activation`: "geglu" (exact GELU gate), "geglu-relu" (ReLU gate), or
+    the non-gated "gelu" / "gelu-tanh" (PixArt's), whose `net.0.proj` is
+    W1 (H, C) and whose activated projection is the gate itself; those take
+    the unfused path with its routing by `routing_mask`, as in the JAX
+    module."""
 
     def __init__(self, dim: int, mult: int = 4, activation: str = "geglu",
                  ff_index: int = 0, quant: bool = False):
         super().__init__()
-        if activation not in ("geglu", "geglu-relu"):
+        if activation not in FF_ACTIVATIONS:
             raise NotImplementedError(
-                f"ff activation {activation!r} is not ported (geglu, geglu-relu)")
+                f"ff activation {activation!r} is not ported {FF_ACTIVATIONS}")
+        self.activation = activation
+        self.gated = activation.startswith("geglu")
         self.relu = activation == "geglu-relu"
         self.ff_index = ff_index
         self.quant = quant
         hidden = dim * mult
-        self.net = nn.ModuleList([GEGLU(dim, hidden, quant), nn.Identity(),
+        self.net = nn.ModuleList([GEGLU(dim, hidden, quant, self.gated),
+                                  nn.Identity(),
                                   make_dense(hidden, dim, quant=quant)])
 
     def forward(self, x: torch.Tensor, *, step_idx: int = 0,
@@ -164,7 +188,7 @@ class GEGLUFeedForward(nn.Module):
                 use_kernels: bool = True) -> torch.Tensor:
         collecting = tap is not None and (tap.any_gate_stat()
                                           or tap.any_expert_stat())
-        if not self.quant and not collecting and (iv is None or (
+        if self.gated and not self.quant and not collecting and (iv is None or (
                 iv.neuron_mask is None and iv.out_weight_mask is None
                 and iv.expert_boost is None
                 and (iv.patterns is None or iv.k > 0))):
@@ -198,8 +222,13 @@ class GEGLUFeedForward(nn.Module):
         dt, resid = x.dtype, x
         if ln is not None:
             x = ln_apply(x, ln.weight, ln.bias, ln.eps).to(dt)
-        hidden, gate = self.net[0].proj(x).chunk(2, dim=-1)
-        gate = F.relu(gate) if self.relu else F.gelu(gate)
+        if self.gated:
+            hidden, gate = self.net[0].proj(x).chunk(2, dim=-1)
+            gate = F.relu(gate) if self.relu else F.gelu(gate)
+        else:
+            hidden, gate = None, F.gelu(
+                self.net[0].proj(x),
+                approximate="tanh" if self.activation == "gelu-tanh" else "none")
         hdim = gate.shape[-1]
         sink = {} if taps_out is None else taps_out
         idx = self.ff_index
@@ -214,7 +243,7 @@ class GEGLUFeedForward(nn.Module):
             patterns = _step_patterns(iv, t)
             boost = (None if iv.expert_boost is None
                      else step_row(iv.expert_boost, t))
-            if boost is None and not need_sel and _route_kernel(
+            if self.gated and boost is None and not need_sel and _route_kernel(
                     gate, patterns, use_kernels):
                 y = fused_route_multiply(
                     hidden.reshape(-1, hdim), gate.reshape(-1, hdim),
@@ -234,7 +263,7 @@ class GEGLUFeedForward(nn.Module):
             _, sel = routing_mask(g2, iv.patterns, abs(iv.k) or 1)
             _expert_stats(g2, sel, gate.shape, tap, iv, sink, idx)
         if y is None:
-            y = hidden * gate
+            y = gate if hidden is None else hidden * gate
         if tap is not None and tap.ff_out_colnorm_sq:
             y2 = y.reshape(-1, hdim).float()
             y2 = y2 / y2.norm(dim=-1, keepdim=True).clamp_min(1e-12)

@@ -41,10 +41,12 @@ from diffusion_models_moe_tpu_torch.ops.winograd_fused import (
 def cast_model(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Casts weights to the compute dtype and keeps norm parameters in f32
     (the JAX package keeps every parameter in f32 and casts weights at use,
-    norm parameters not at all)."""
+    norm parameters not at all), and those of every module whose class sets
+    `F32_PARAMS` (T5's RMSNorm and its position-bias table)."""
     module.to(dtype)
     for m in module.modules():
-        if isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+        if isinstance(m, (nn.GroupNorm, nn.LayerNorm)) or getattr(
+                m, "F32_PARAMS", False):
             m.float()
     return module
 

@@ -33,12 +33,14 @@
 //               outputs and the column thirds of kernel 5's (B, S, 3C) tensor
 //               without a copy. A row of D sits in chunks of 64 values in
 //               the TMA's 128-byte swizzle (D = 40, 64: one TMA row a key)
-//               or of 32 values in its 64-byte swizzle (D = 80, 160); D = 40
-//               and 80 are padded to 64 and 96 by the TMA's out-of-bounds
-//               zeros, in shared memory only
+//               or of 32 values in its 64-byte swizzle (D = 72, 80, 160);
+//               D = 40, 72 and 80 are padded to 64, 96 and 96 by the TMA's
+//               out-of-bounds zeros, in shared memory only (every load
+//               writes its whole box, so no step reads a stale pad)
 //   S = Q K^T   wgmma m64nBKVk16, both operands K-major in shared memory,
 //               ceil(D / 16) depth steps (the zero pad past D is skipped
-//               where it fills a whole step)
+//               where it fills a whole step; at D = 72 the fifth step
+//               multiplies 8 values of D by 8 zeros of the pad)
 //   softmax     in registers, exp2 of scores pre-multiplied by
 //               scale * log2(e); row max across the quad each tile, row sums
 //               per thread until the end
@@ -52,12 +54,15 @@
 //               exponentials (ping-pong)
 //   output      normalised O through shared memory (the warpgroup's Q tile,
 //               dead by then) and out by TMA stores, clipped at S and D
+//               (P V is wgmma m64nDk16 at the native D: n72 at D = 72)
 //
-// Cross-attention (77 text keys): one block holds the 80-row (zero-padded) K
-// and V of one (batch, head), loaded once by TMA, and walks a run of 64-row
-// query tiles that come through a 2-stage TMA ring; O leaves through shared
-// memory by TMA stores that overlap the next tile. S is wgmma m64n80k16 and
-// P V has a depth of 80 (5 steps). Bound by q reads and o writes.
+// Cross-attention (77 text keys of CLIP, 120 of T5): one block holds the
+// BKV-row (zero-padded) K and V of one (batch, head), loaded once by TMA, and
+// walks a run of 64-row query tiles that come through a 2-stage TMA ring; O
+// leaves through shared memory by TMA stores that overlap the next tile.
+// BKV is the plan's key tile: 80 (S is wgmma m64n80k16, P V a depth of 80 in
+// 5 steps) or 128 (m64n128k16, 8 steps; at D <= 80, where two blocks of
+// 57-87 KB still fit an SM). Bound by q reads and o writes.
 //
 // The launch plan (rows a block, keys a tile, the cross kernel's run of
 // query tiles) is the wrapper's (ops/sd_flash.py: attn_plan). No atomics and
@@ -72,17 +77,18 @@ namespace {
 constexpr int A_QROWS = 64;      // query rows a consumer warpgroup
 constexpr float A_LOG2E = 1.4426950408889634f;
 
-template <int D, int NWG, bool CROSS>
+// CKV: the cross kernel's key tile (80 or 128)
+template <int D, int NWG, bool CROSS, int CKV = 80>
 struct AttnCfg {
   // a row of D in chunks of ROW bytes in the TMA swizzle of that width: one
   // 128-byte chunk at D = 40 and 64 (one TMA row a key), 64-byte chunks at
-  // D = 80 and 160 (the pad to 96 and 160 stays small)
+  // D = 72, 80 and 160 (the pad to 96, 96 and 160 stays small)
   static constexpr int ROW = D <= 64 ? 128 : 64;
   static constexpr int CW = ROW / 2;               // D values a chunk
   static constexpr int NCH = (D + CW - 1) / CW;    // chunks of a row
   static constexpr int QTILE = A_QROWS * ROW;      // one chunk of 64 rows
   static constexpr int KSTEPS = (D + 15) / 16;     // depth steps of Q K^T
-  static constexpr int BKV = CROSS ? 80 : (D > 80 ? 64 : 128);
+  static constexpr int BKV = CROSS ? CKV : (D > 80 ? 64 : 128);
   static constexpr int PSTEPS = BKV / 16;          // depth steps of P V
   static constexpr int STAGES = 2;                 // the cross kernel's Q ring
   static constexpr int THREADS = 128 * NWG + 32;
@@ -383,17 +389,17 @@ sd_self_attn_kernel(const __grid_constant__ Maps maps, int seq, int stages,
 }
 
 // ----------------------------------------------------------------- cross
-template <int D>
-__global__ void __launch_bounds__(AttnCfg<D, 1, true>::THREADS, 2)
+template <int D, int BKV>
+__global__ void __launch_bounds__(AttnCfg<D, 1, true, BKV>::THREADS, 2)
 sd_cross_attn_kernel(const __grid_constant__ Maps maps, int sq, int kv_valid,
                      int run, float sl2) {
-  using Cfg = AttnCfg<D, 1, true>;
+  using Cfg = AttnCfg<D, 1, true, BKV>;
   constexpr int NCH = Cfg::NCH, STAGES = Cfg::STAGES, KVTILE = Cfg::KVTILE;
   constexpr int QTILE = Cfg::QTILE, ROW = Cfg::ROW, CW = Cfg::CW;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = wg::smem_base_1024(smem_raw);
   unsigned char* qs = smem;                          // [STAGES][NCH][64 rows]
-  unsigned char* ks = qs + Cfg::Q_BYTES;             // [NCH][80 rows]
+  unsigned char* ks = qs + Cfg::Q_BYTES;             // [NCH][BKV rows]
   unsigned char* vs = ks + Cfg::KV_STAGE;
   unsigned char* os = vs + Cfg::KV_STAGE;            // [NCH][64 rows]
   uint64_t* bars = reinterpret_cast<uint64_t*>(os + Cfg::O_BYTES);
@@ -546,20 +552,32 @@ int launch_self(const AttnArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int BKV>
 int launch_cross(const AttnArgs& a, int kv_valid) {
-  using Cfg = AttnCfg<D, 1, true>;
+  using Cfg = AttnCfg<D, 1, true, BKV>;
   static bool configured = false;
-  int err = configure(sd_cross_attn_kernel<D>, configured);
+  int err = configure(sd_cross_attn_kernel<D, BKV>, configured);
   if (err != 0) return err;
   Maps m;
   if (!encode_all(m, a, Cfg::ROW, A_QROWS, Cfg::BKV))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (a.sq + A_QROWS - 1) / A_QROWS;
   const dim3 grid((tiles + a.run - 1) / a.run, a.heads, a.batch);
-  sd_cross_attn_kernel<D><<<grid, Cfg::THREADS, Cfg::smem(1), a.stream>>>(
+  sd_cross_attn_kernel<D, BKV><<<grid, Cfg::THREADS, Cfg::smem(1), a.stream>>>(
       m, a.sq, kv_valid, a.run, a.sl2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the plan's key tile: 80, or 128 up to D = 80 (at D = 160 K and V of 128
+// keys alone take 80 KB, and two blocks an SM would not fit)
+template <int D>
+int dispatch_cross(const AttnArgs& a, int kv_valid) {
+  if (kv_valid > a.bkv) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.bkv == 80) return launch_cross<D, 80>(a, kv_valid);
+  if constexpr (D <= 80) {
+    if (a.bkv == 128) return launch_cross<D, 128>(a, kv_valid);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
@@ -575,7 +593,7 @@ extern "C" {
 
 // q, k, v, o: (B, S, H, D) bf16 with unit stride in D; `strides` holds
 // (batch, seq, head) element strides for q, k, v, o in that order (12 values),
-// each a multiple of 8, pointers 16-byte aligned; D in {40, 64, 80, 160}
+// each a multiple of 8, pointers 16-byte aligned; D in {40, 64, 72, 80, 160}
 // (the wrapper checks: ops/sd_flash.py attn_kernel_ok). `wgs` consumer
 // warpgroups a block (64 query rows each), `bkv` keys a tile (checked
 // against the instance) and `stages` of the K/V ring, from attn_plan.
@@ -588,6 +606,7 @@ int dmoe_sd_self_attention(const void* q, const void* k, const void* v, void* o,
   switch (d) {
     case 40: return dispatch_self<40>(a);
     case 64: return dispatch_self<64>(a);
+    case 72: return dispatch_self<72>(a);
     case 80: return dispatch_self<80>(a);
     case 160: return dispatch_self<160>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -595,21 +614,22 @@ int dmoe_sd_self_attention(const void* q, const void* k, const void* v, void* o,
 }
 
 // q, o: (B, S_q, H, D); k, v: (B, S_kv, H, D); keys at or past kv_valid
-// (1..80) are masked out, and only the first 80 key rows are read. A block
-// takes `run` consecutive 64-row query tiles of one (batch, head).
+// (1..bkv) are masked out, and only the first `bkv` key rows are read (80,
+// or 128 at D <= 80: the plan's key tile). A block takes `run` consecutive
+// 64-row query tiles of one (batch, head).
 int dmoe_sd_cross_attention(const void* q, const void* k, const void* v,
                             void* o, int batch, int heads, int sq, int s_kv,
-                            int kv_valid, int d, float scale, int run,
+                            int kv_valid, int d, float scale, int bkv, int run,
                             const long long* strides, void* stream) {
-  if (kv_valid < 1 || kv_valid > 80 || run < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const AttnArgs a{q, k, v, o, batch, heads, sq, s_kv, d, 1, 80, run, 0,
+  if (kv_valid < 1 || run < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const AttnArgs a{q, k, v, o, batch, heads, sq, s_kv, d, 1, bkv, run, 0,
                    scale * A_LOG2E, strides, static_cast<cudaStream_t>(stream)};
   switch (d) {
-    case 40: return launch_cross<40>(a, kv_valid);
-    case 64: return launch_cross<64>(a, kv_valid);
-    case 80: return launch_cross<80>(a, kv_valid);
-    case 160: return launch_cross<160>(a, kv_valid);
+    case 40: return dispatch_cross<40>(a, kv_valid);
+    case 64: return dispatch_cross<64>(a, kv_valid);
+    case 72: return dispatch_cross<72>(a, kv_valid);
+    case 80: return dispatch_cross<80>(a, kv_valid);
+    case 160: return dispatch_cross<160>(a, kv_valid);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

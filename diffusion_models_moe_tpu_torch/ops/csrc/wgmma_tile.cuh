@@ -418,7 +418,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
 // 16 bf16) * b^T (N x 16 bf16), both K-major through descriptors, N = 128,
 // 80 or 64 by the size of d (160 below). wgmma_rs_mn: d (64 x N f32) += a (64 x 16 bf16 in
 // registers, the layout of wgmma_m64n160k16_rs) * b (16 x N bf16, MN-major
-// through its descriptor), N = 40, 64, 80 or 160 by the size of d. The thread
+// through its descriptor), N = 40, 64, 72, 80 or 160 by the size of d. The thread
 // layout of d is that of the 160-wide product above.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a_desc,
                                          uint64_t b_desc, bool accumulate) {
@@ -518,6 +518,31 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[36],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b_desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(1));
 }
 

@@ -30,10 +30,14 @@ import torch
 
 from diffusion_models_moe_tpu_torch.ops import _build
 
-MAX_CROSS_KV = 80
-# head dims csrc/sd_attention.cu is instantiated for: SD1.x's 40, 80 and 160
-# and SD2.x's 64
-KERNEL_HEAD_DIMS = (40, 64, 80, 160)
+# head dims csrc/sd_attention.cu is instantiated for: SD1.x's 40, 80 and 160,
+# SD2.x's 64 and PixArt-alpha's 72
+KERNEL_HEAD_DIMS = (40, 64, 72, 80, 160)
+# the cross kernel's key tiles: 80 holds CLIP's 77 text tokens, 128 T5's 120;
+# a block holds its tile whole. 128 keys up to D = 80 only: at D = 160 the K
+# and V tiles alone would take 80 KB and two blocks an SM would not fit
+CROSS_KV_TILES = (80, 128)
+MAX_CROSS_KV = CROSS_KV_TILES[-1]
 Q_TILE = 64              # query rows of a consumer warpgroup
 STAGES_CROSS = 2         # the cross kernel's ring of query tiles
 # resident cross-attention blocks an SM (160 threads, <= 111 KB each)
@@ -50,6 +54,11 @@ def chunk_bytes(d: int) -> int:
     ROW): one 128-byte swizzled chunk of 64 values at D <= 64, 64-byte chunks
     of 32 values above."""
     return 128 if d <= 64 else 64
+
+
+def max_cross_kv(d: int) -> int:
+    """The most valid keys the cross kernel takes at head dim d."""
+    return CROSS_KV_TILES[0] if d > 80 else MAX_CROSS_KV
 
 
 def self_smem(d: int, wgs: int, bkv: int, stages: int) -> int:
@@ -83,12 +92,13 @@ class AttnPlan:
 def attn_plan(kind: str, b: int, h: int, s_q: int, s_kv: int, d: int,
               sms: int) -> AttnPlan:
     """The launch plan of `kind` ("self" or "cross") for q (b, s_q, h, d) and
-    s_kv keys on a card of `sms` SMs.
+    s_kv keys (cross: the valid ones) on a card of `sms` SMs.
 
     Self: blocks of 128 query rows (two consumer warpgroups) where that grid
     fills the card, else 64-row blocks (S = 256 and 64 at UNet batch 4); keys
     in tiles of 128, or 64 at D > 80 (registers), through a ring as deep as
-    SELF_SMEM_BUDGET holds (at most MAX_STAGES). Cross: 64-row query tiles,
+    SELF_SMEM_BUDGET holds (at most MAX_STAGES). Cross: the smallest key
+    tile of CROSS_KV_TILES that holds the s_kv keys, 64-row query tiles,
     each block walking a run of them so that the grid is about
     CROSS_BLOCKS_PER_SM blocks an SM (K and V are loaded once a block), and
     no fewer blocks than tiles where the tiles are fewer than that."""
@@ -106,9 +116,13 @@ def attn_plan(kind: str, b: int, h: int, s_q: int, s_kv: int, d: int,
             stages -= 1
         return AttnPlan(kind, rows, wgs, bkv, stages, 1, -(-s_q // rows))
     if kind == "cross":
+        if s_kv > max_cross_kv(d):
+            raise ValueError(f"the cross kernel holds at most "
+                             f"{max_cross_kv(d)} keys at D={d}, not {s_kv}")
+        bkv = next(n for n in CROSS_KV_TILES if n >= s_kv)
         per_bh = min(tiles, -(-CROSS_BLOCKS_PER_SM * sms // (b * h)))
         run = -(-tiles // per_bh)
-        return AttnPlan(kind, Q_TILE, 1, MAX_CROSS_KV, STAGES_CROSS, run,
+        return AttnPlan(kind, Q_TILE, 1, bkv, STAGES_CROSS, run,
                         -(-tiles // run))
     raise ValueError(f"kind {kind!r}: 'self' or 'cross'")
 
@@ -126,7 +140,7 @@ def attn_layout_ok(q: torch.Tensor, k: torch.Tensor,
     D), and v where given (else it is taken to be laid out as k), bf16 with
     D in KERNEL_HEAD_DIMS (so D % 8 == 0), unit stride in D and 16-byte
     aligned rows; for cross-attention (`kv_valid` given) at most
-    MAX_CROSS_KV valid keys."""
+    `max_cross_kv(D)` valid keys."""
     if (q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16
             or q.dim() != 4 or k.dim() != 4):
         return False
@@ -137,7 +151,7 @@ def attn_layout_ok(q: torch.Tensor, k: torch.Tensor,
     if v is not None and (v.dtype != torch.bfloat16 or v.shape != ks
                           or v.device != q.device or not _layout_ok(v)):
         return False
-    return kv_valid is None or 1 <= min(kv_valid, ks[1]) <= MAX_CROSS_KV
+    return kv_valid is None or 1 <= min(kv_valid, ks[1]) <= max_cross_kv(qs[3])
 
 
 def attn_kernel_ok(q: torch.Tensor, k: torch.Tensor,
@@ -185,10 +199,10 @@ def _refuse(q, k, v, kv_valid: Optional[int] = None) -> None:
     if k.shape != v.shape:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ")
     if d not in KERNEL_HEAD_DIMS or (
-            kv_valid is not None and not 1 <= kv_valid <= MAX_CROSS_KV):
+            kv_valid is not None and not 1 <= kv_valid <= max_cross_kv(d)):
         raise ValueError(f"head dim {d}, kv_valid {kv_valid}: the kernels take "
                          f"D in {KERNEL_HEAD_DIMS} and at most {MAX_CROSS_KV} "
-                         "keys (attn_kernel_ok)")
+                         "keys, 80 at D = 160 (attn_kernel_ok)")
     raise ValueError("attn_kernel_ok refuses these tensors")
 
 
@@ -218,8 +232,8 @@ def sd_self_attention(q, k, v, sm_scale: float,
 def sd_cross_attention(q, k, v, sm_scale: float, kv_valid: int,
                        use_kernels: bool = True) -> torch.Tensor:
     """q: (B, S_q, H, D); k, v: (B, S_kv, H, D) with few keys (text tokens).
-    Keys at or past `kv_valid` are masked out. A block holds the keys and
-    walks a run of query tiles."""
+    Keys at or past `kv_valid` are masked out. A block holds the keys (a
+    tile of 80 or 128, `attn_plan`) and walks a run of query tiles."""
     kv_valid = min(kv_valid, k.shape[1])
     if q.device.type == "cpu" or not use_kernels:
         return sd_cross_attention_reference(q, k, v, sm_scale, kv_valid)
@@ -244,12 +258,13 @@ def _launch_self(q, k, v, sm_scale: float) -> torch.Tensor:
 
 def _launch_cross(q, k, v, sm_scale: float, kv_valid: int) -> torch.Tensor:
     b, s, h, d = q.shape
-    plan = attn_plan("cross", b, h, s, k.shape[1], d, _build.sm_count(q.device))
+    plan = attn_plan("cross", b, h, s, kv_valid, d, _build.sm_count(q.device))
     o = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     _build.load_library().call(
         "dmoe_sd_cross_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), b, h, s, k.shape[1], kv_valid, d, float(sm_scale),
-        plan.run, _strides(q, k, v, o), _build.stream_ptr(q.device))
+        plan.bkv, plan.run, _strides(q, k, v, o),
+        _build.stream_ptr(q.device))
     _build.LAUNCHES["sd_cross_attention"] += 1
     return o
 

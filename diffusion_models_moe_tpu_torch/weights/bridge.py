@@ -7,7 +7,12 @@ UNet, CLIP text encoder and VAE decoder, so both run the same weights.
 Layouts: conv HWIO -> OIHW; Dense (in, out) -> Linear (out, in); Flax
 multi-head attention kernels (D, heads, hd) / (heads, hd, D) -> Linear;
 the GEGLU FF's `proj/kernel` and `out_proj_kernel` -> `ff.net.0.proj` and
-`ff.net.2`.
+`ff.net.2`. PixArt-alpha's trees (`t5_numpy_state_dict`,
+`pixart_numpy_state_dict`, `pixart_pipeline_state_dicts`) become the state
+dicts of the port's `T5Encoder` (transformers' `T5EncoderModel` names) and
+`PixArtTransformer2D` (diffusers' names; the patch embedding's dense kernel
+over (p, p, C) patches -> the stride-p conv `pos_embed.proj`, the position
+parameter -> `pos_embed.pos_embed`).
 """
 from __future__ import annotations
 
@@ -206,3 +211,70 @@ def pipeline_state_dicts(params: dict, config,
         out["text_projection_2"] = to_torch(
             {"weight": np.ascontiguousarray(_np(params["text_projection_2"]).T)})
     return out
+
+
+def t5_numpy_state_dict(params: dict, cfg) -> dict:
+    """T5Encoder params -> transformers T5EncoderModel numpy state dict."""
+    sd = {"shared.weight": _np(params["token_embedding"]),
+          "encoder.block.0.layer.0.SelfAttention.relative_attention_bias"
+          ".weight": _np(params["relative_attention_bias"]),
+          "encoder.final_layer_norm.weight": _np(
+              params["final_norm"]["weight"])}
+    for i in range(cfg.num_layers):
+        p, pre = params[f"block_{i}"], f"encoder.block.{i}.layer"
+        sd[f"{pre}.0.layer_norm.weight"] = _np(p["attn_norm"]["weight"])
+        sd[f"{pre}.1.layer_norm.weight"] = _np(p["ff_norm"]["weight"])
+        for name in ("q", "k", "v", "o"):
+            _emit(sd, f"{pre}.0.SelfAttention.{name}",
+                  _linear(p["attn"][name], use_bias=False))
+        for name in ("wi_0", "wi_1", "wo"):
+            _emit(sd, f"{pre}.1.DenseReluDense.{name}",
+                  _linear(p[name], use_bias=False))
+    return sd
+
+
+def pixart_numpy_state_dict(params: dict, cfg) -> dict:
+    """PixArtTransformer2D params -> diffusers PixArtTransformer2DModel
+    numpy state dict, with the port's `pos_embed.pos_embed` (1, S, D)."""
+    p, d = cfg.patch_size, cfg.hidden_size
+    k = _np(params["patch_embed"]["kernel"]).reshape(p, p, cfg.sample_channels, d)
+    sd = {"pos_embed.proj.weight": np.ascontiguousarray(
+              np.transpose(k, (3, 2, 0, 1))),
+          "pos_embed.proj.bias": _np(params["patch_embed"]["bias"]),
+          "pos_embed.pos_embed": _np(params["pos_embed"])[None],
+          "scale_shift_table": _np(params["final_scale_shift"])}
+    te = "adaln_single.emb.timestep_embedder"
+    for name in ("linear_1", "linear_2"):
+        _emit(sd, f"{te}.{name}", _linear(params["time_embedding"][name]))
+        if f"caption_{name}" in params:
+            _emit(sd, f"caption_projection.{name}",
+                  _linear(params[f"caption_{name}"]))
+    _emit(sd, "adaln_single.linear", _linear(params["adaln_single"]))
+    _emit(sd, "proj_out", _linear(params["proj_out"]))
+    for i in range(cfg.num_layers):
+        blk, pre = params[f"blocks_{i}"], f"transformer_blocks.{i}"
+        sd[f"{pre}.scale_shift_table"] = _np(blk["scale_shift_table"])
+        for attn in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                _emit(sd, f"{pre}.{attn}.{proj}", _linear(blk[attn][proj]))
+            _emit(sd, f"{pre}.{attn}.to_out.0", _linear(blk[attn]["to_out"]))
+        ff = blk["ff"]
+        _emit(sd, f"{pre}.ff.net.0.proj", _linear(ff["proj"]))
+        sd[f"{pre}.ff.net.2.weight"] = np.ascontiguousarray(
+            _np(ff["out_proj_kernel"]).T)
+        sd[f"{pre}.ff.net.2.bias"] = _np(ff["out_proj_bias"])
+    return sd
+
+
+def pixart_pipeline_state_dicts(params: dict, config) -> dict[str, dict]:
+    """A JAX PixArt pipeline's params {"transformer", "text_encoder", "vae"}
+    -> the port's state dicts, as `PixArtPipeline.load_state_dicts` takes
+    them."""
+    return {
+        "transformer": to_torch(pixart_numpy_state_dict(
+            params["transformer"], config.transformer)),
+        "text_encoder": to_torch(t5_numpy_state_dict(
+            params["text_encoder"], config.text_encoder)),
+        "vae": to_torch(vae_decoder_numpy_state_dict(params["vae"],
+                                                     config.vae)),
+    }

@@ -1056,3 +1056,108 @@ def test_tiny_snapshot_reads_onto_the_card(gen, tmp_path):
         got = pipe.modules()[key].state_dict()
         for name, t in module.state_dict().items():
             assert got[name].is_cuda and torch.equal(got[name], t), name
+
+
+# PixArt-alpha: heads of 72 (1152 / 16) and T5's 120 caption positions
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("s", [77, 1000, 1024])
+def test_attention_kernels_at_head_dim_72(gen, s, strided):
+    """Kernels 2 and 3 at D = 72 (three 64-byte chunks a row, the third
+    padded by the TMA's zeros) at ragged S; the cross kernel over 120 keys
+    with 120, 100 and 1 valid (its 128-key tile) and over 77 (the 80-key
+    tile)."""
+    b, h, d = 2, 3, 72
+    q, k, v = (_heads(gen, b, s, h, d, strided) for _ in range(3))
+    kc, vc = (_heads(gen, b, 120, h, d, strided) for _ in range(2))
+    _build.reset_launch_counts()
+    o = sd_flash.sd_self_attention(q, k, v, d ** -0.5)
+    ref = sd_flash.sd_self_attention(q, k, v, d ** -0.5, use_kernels=False)
+    assert _rel(o, ref) < REL_TOL
+    for n_kv, kv_valid, tile in ((120, 120, 128), (120, 100, 128),
+                                 (120, 1, 80), (77, 77, 80)):
+        kk, vv = kc[:, :n_kv], vc[:, :n_kv]
+        assert sd_flash.attn_kernel_ok(q, kk, kv_valid, vv)
+        assert sd_flash.attn_plan("cross", b, h, s, kv_valid, d,
+                                  _build.sm_count(q.device)).bkv == tile
+        o = sd_flash.sd_cross_attention(q, kk, vv, d ** -0.5, kv_valid)
+        ref = sd_flash.sd_cross_attention(q, kk, vv, d ** -0.5, kv_valid,
+                                          use_kernels=False)
+        assert _rel(o, ref) < REL_TOL, (n_kv, kv_valid)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sd_self_attention"] == 1
+    assert _build.LAUNCHES["sd_cross_attention"] == 4
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_cross_attention_key_tiles_at_every_head_dim(gen, d):
+    """SD's 77 keys keep the 80-key tile at every head dim; 120 keys take
+    the 128-key tile up to D = 80, and at D = 160 the predicate refuses them
+    and the wrapper raises."""
+    b, h, s = 2, 3, 200
+    q = _heads(gen, b, s, h, d, False)
+    k, v = (_heads(gen, b, 120, h, d, False) for _ in range(2))
+    sms = _build.sm_count(q.device)
+    assert sd_flash.attn_plan("cross", b, h, s, 77, d, sms).bkv == 80
+    o = sd_flash.sd_cross_attention(q, k, v, d ** -0.5, 77)
+    assert _rel(o, sd_flash.sd_cross_attention(
+        q, k, v, d ** -0.5, 77, use_kernels=False)) < REL_TOL
+    if d == 160:
+        assert not sd_flash.attn_kernel_ok(q, k, 120, v)
+        with pytest.raises(ValueError):
+            sd_flash.sd_cross_attention(q, k, v, d ** -0.5, 120)
+        return
+    assert sd_flash.attn_plan("cross", b, h, s, 120, d, sms).bkv == 128
+    o = sd_flash.sd_cross_attention(q, k, v, d ** -0.5, 120)
+    assert _rel(o, sd_flash.sd_cross_attention(
+        q, k, v, d ** -0.5, 120, use_kernels=False)) < REL_TOL
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_attention_kernels_at_pixart_shapes(gen, kind):
+    """Kernels 2 and 3 at PixArt-512's shapes: DiT batch 4, 16 heads of 72
+    over 1024 queries, self or over T5's 120 keys, all valid."""
+    q = _heads(gen, 4, 1024, 16, 72, False)
+    n_kv = 1024 if kind == "self" else 120
+    k, v = (_heads(gen, 4, n_kv, 16, 72, False) for _ in range(2))
+    scale = 72 ** -0.5
+    if kind == "self":
+        def fn(uk):
+            return sd_flash.sd_self_attention(q, k, v, scale, use_kernels=uk)
+    else:
+        def fn(uk):
+            return sd_flash.sd_cross_attention(q, k, v, scale, 120,
+                                               use_kernels=uk)
+    _build.reset_launch_counts()
+    o = fn(True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"sd_{kind}_attention"] == 1
+    assert _rel(o, fn(False)) < REL_TOL
+
+
+def test_pixart_dit_runs_the_attention_kernels(gen):
+    """A bf16 DiT of two blocks with heads of 72 and 120 caption positions:
+    every self- and cross-attention on kernels 2 and 3, no plain call (its
+    FFs are non-gated: no FF kernel applies), eps within 0.05 of the plain
+    versions'."""
+    from diffusion_models_moe_tpu_torch.models.layers import cast_model
+    from diffusion_models_moe_tpu_torch.models.pixart import (
+        PixArtConfig, PixArtTransformer2D)
+    from diffusion_models_moe_tpu_torch.pipelines.pixart import init_module
+    cfg = PixArtConfig(hidden_size=144, num_heads=2, num_layers=2,
+                       cross_attention_dim=144, text_in_dim=64,
+                       dtype=torch.bfloat16)
+    with torch.device("cuda"):
+        dit = cast_model(PixArtTransformer2D(cfg, 16), torch.bfloat16).eval()
+    init_module(dit, gen)
+    lat = torch.randn((2, 4, 16, 16), generator=gen, device="cuda")
+    ctx = _rn(gen, 2, 120, 64)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        eps = dit(lat, 500, ctx)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        ref = dit(lat, 500, ctx, use_kernels=False)
+    assert counts["sd_self_attention"] == counts["sd_cross_attention"] == 2
+    assert not any(counts[k] for k in _build.PLAIN)
+    assert torch.isfinite(eps).all()
+    assert ((eps - ref).norm() / ref.norm()).item() < 0.05

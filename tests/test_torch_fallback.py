@@ -33,7 +33,7 @@ def _bshd(b, s, h, d, dtype=BF16, width=None):
 @pytest.mark.parametrize("d,ok", [(40, True), (64, True), (80, True),
                                   (160, True), (8, False), (16, False),
                                   (32, False), (48, False), (128, False),
-                                  (44, False)])
+                                  (44, False), (72, True)])
 def test_attn_layout_ok_takes_the_instantiated_head_dims(d, ok):
     q = _bshd(2, 77, 4, d)
     assert sd_flash.attn_layout_ok(q, q) is ok
@@ -58,8 +58,16 @@ def test_attn_layout_ok_refuses_dtype_strides_and_key_count():
     k = _bshd(2, 100, 8, 40)
     assert sd_flash.attn_layout_ok(q, k, kv_valid=80)
     assert sd_flash.attn_layout_ok(q, k[:, :77], kv_valid=100)   # clamped to 77
-    assert not sd_flash.attn_layout_ok(q, k, kv_valid=81)
+    # up to 128 keys (T5's 120) at D <= 80, up to 80 at D = 160
+    assert sd_flash.attn_layout_ok(q, k, kv_valid=81)
+    k = _bshd(2, 130, 8, 40)
+    assert sd_flash.attn_layout_ok(q, k, kv_valid=128)
+    assert not sd_flash.attn_layout_ok(q, k, kv_valid=129)
+    q160, k160 = _bshd(2, 64, 2, 160), _bshd(2, 130, 2, 160)
+    assert sd_flash.attn_layout_ok(q160, k160, kv_valid=80)
+    assert not sd_flash.attn_layout_ok(q160, k160, kv_valid=81)
     assert not sd_flash.attn_layout_ok(q, k, kv_valid=0)
+    k = _bshd(2, 100, 8, 40)
     # v, where given, must be laid out as k; k must match q's B, H and D
     assert sd_flash.attn_layout_ok(q, k, 77, v=_bshd(2, 100, 8, 40))
     assert not sd_flash.attn_layout_ok(q, k, 77, v=_bshd(2, 99, 8, 40))

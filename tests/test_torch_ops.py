@@ -208,7 +208,7 @@ def _qkv(seed, b, s, h, d, s_kv=None):
     return q, k, v
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 72])
 def test_self_attention_plain_matches_jax_kernel(d):
     q, k, v = _qkv(d, 2, 128, 2, d)
     scale = d ** -0.5
@@ -220,7 +220,7 @@ def test_self_attention_plain_matches_jax_kernel(d):
                                atol=ATTN_TOL, rtol=ATTN_TOL)
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 80, 72])
 def test_cross_attention_plain_matches_jax_kernel(d):
     q, k, v = _qkv(d + 1, 2, 128, 2, d, s_kv=77)
     scale = d ** -0.5
@@ -228,6 +228,20 @@ def test_cross_attention_plain_matches_jax_kernel(d):
                              scale, 77, block_q=64, interpret=True)
     got = sd_cross_attention(torch.from_numpy(q), torch.from_numpy(k),
                              torch.from_numpy(v), scale, 77)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=ATTN_TOL, rtol=ATTN_TOL)
+
+
+@pytest.mark.parametrize("kv_valid", [120, 100])
+def test_cross_attention_plain_matches_jax_kernel_at_t5_keys(kv_valid):
+    """PixArt's cross-attention: D = 72 over T5's 120 caption positions
+    (all valid, as the JAX DiT attends to them), and fewer valid keys."""
+    q, k, v = _qkv(kv_valid, 2, 128, 2, 72, s_kv=120)
+    scale = 72 ** -0.5
+    ref = _sd_cross_fwd_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             scale, kv_valid, block_q=64, interpret=True)
+    got = sd_cross_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), scale, kv_valid)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                atol=ATTN_TOL, rtol=ATTN_TOL)
 

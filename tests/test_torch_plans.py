@@ -206,14 +206,21 @@ ATTN_RAGGED = [(kind, b, h, s, s if kind == "self" else 77, d)
                for b, h, s, d in ((2, 3, 200, 40), (1, 2, 1000, 80),
                                   (4, 8, 4100, 40), (1, 1, 77, 64),
                                   (2, 3, 200, 160))]
+# PixArt-512 at DiT batch 4: 16 heads of 72 over 1024 tokens, T5's 120
+# keys; ragged: S no multiple of the tiles, key counts either side of 80
+ATTN_PIXART = [("self", 4, 16, 1024, 1024, 72), ("cross", 4, 16, 1024, 120, 72)]
+ATTN_PIXART_RAGGED = [("self", 2, 3, 1000, 1000, 72), ("self", 1, 2, 77, 77, 72),
+                      ("cross", 2, 3, 1000, 100, 72), ("cross", 1, 2, 77, 81, 40),
+                      ("cross", 2, 3, 200, 128, 64), ("cross", 2, 3, 200, 1, 80)]
 
 
-@pytest.mark.parametrize("shape", ATTN_SD15 + ATTN_SD21 + ATTN_RAGGED)
+@pytest.mark.parametrize("shape", ATTN_SD15 + ATTN_SD21 + ATTN_RAGGED
+                         + ATTN_PIXART + ATTN_PIXART_RAGGED)
 def test_attn_plan_covers_every_query_and_key_once(shape):
     """Blocks of `run` tiles of `rows` query rows cover every query row of a
     (batch, head) once, no block is empty by the kernel's own count, and the
-    keys are covered once: in tiles of `bkv` (self) or in the one tile of
-    MAX_CROSS_KV that holds all valid keys (cross)."""
+    keys are covered once: in tiles of `bkv` (self) or in the one tile that
+    holds all valid keys (cross: the smaller of 80 and 128 that does)."""
     kind, b, h, s_q, s_kv, d = shape
     plan = sd_flash.attn_plan(*shape, H100_SMS)
     assert plan.rows == sd_flash.Q_TILE * plan.wgs and plan.wgs in (1, 2)
@@ -231,7 +238,8 @@ def test_attn_plan_covers_every_query_and_key_once(shape):
         assert (plan.stages == sd_flash.MAX_STAGES or sd_flash.self_smem(
             d, plan.wgs, plan.bkv, plan.stages + 1) > sd_flash.SELF_SMEM_BUDGET)
     else:
-        assert plan.wgs == 1 and plan.bkv == sd_flash.MAX_CROSS_KV >= 77
+        assert plan.wgs == 1 and plan.bkv == (80 if s_kv <= 80 else 128)
+        assert s_kv <= plan.bkv <= sd_flash.MAX_CROSS_KV
     assert plan.blocks(b, h) == b * h * plan.q_blocks
 
 
@@ -285,6 +293,30 @@ def test_attn_plans_on_the_h100_at_sd21():
                    ("cross", 2304, 1, 80, 2, 6, 240),
                    ("cross", 576, 1, 80, 2, 3, 240),
                    ("cross", 144, 1, 80, 2, 1, 240)]
+
+
+def test_attn_plans_on_the_h100_at_pixart():
+    """At PixArt-512's shapes (DiT batch 4, 16 heads of 72): 128-row self
+    blocks (512 of them) on 128-key tiles through a four-stage ring, the
+    deepest that SELF_SMEM_BUDGET holds at D = 72 (three 64-byte chunks a
+    row); the cross kernel holds T5's 120 keys in its 128-key tile, its
+    blocks walking 4 query tiles; SD's 77 keys keep the 80-key tile."""
+    got = [(k, s, p.wgs, p.bkv, p.stages, p.run, p.blocks(b, h)) for
+           (k, b, h, s, _, _), p in
+           ((sh, sd_flash.attn_plan(*sh, H100_SMS)) for sh in ATTN_PIXART)]
+    assert got == [("self", 1024, 2, 128, 4, 1, 512),
+                   ("cross", 1024, 1, 128, 2, 4, 256)]
+    assert sd_flash.self_smem(72, 2, 128, 4) <= sd_flash.SELF_SMEM_BUDGET
+    assert sd_flash.self_smem(72, 2, 128, 5) > sd_flash.SELF_SMEM_BUDGET
+    for keys, bkv in ((1, 80), (77, 80), (80, 80), (81, 128), (120, 128),
+                      (128, 128)):
+        assert sd_flash.attn_plan("cross", 4, 16, 1024, keys, 72,
+                                  H100_SMS).bkv == bkv
+    # D = 160 holds 80 keys at most; no plan past 128 keys
+    assert sd_flash.attn_plan("cross", 4, 8, 256, 80, 160, H100_SMS).bkv == 80
+    for keys, d in ((81, 160), (129, 72)):
+        with pytest.raises(ValueError):
+            sd_flash.attn_plan("cross", 4, 8, 256, keys, d, H100_SMS)
 
 
 # (N, C, H, E) of the four SD1.5 FFs at UNet batch 4 (20-neuron experts) and

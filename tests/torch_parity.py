@@ -309,3 +309,57 @@ def jax_seeded_lcm_keys(seeds):
     import jax.numpy as jnp
     return jax.vmap(lambda sd: jax.random.fold_in(jax.random.PRNGKey(sd), 1))(
         jnp.asarray(seeds, jnp.uint32))
+
+
+def pixart_pipelines(root: str, seed: int = 0) -> dict:
+    """The tiny PixArt weights in both packages: numpy weights drawn in the
+    port's state-dict layout (diffusers / transformers names) are written as
+    a diffusers snapshot under `root` by the port's own safetensors writer
+    (the T5 weights in two shards); the JAX package reads it through its
+    porter (`weights/port_pixart.py`), and the port's state dicts from the
+    bridge are checked bit for bit against the numpy weights and against
+    what the port's own porter reads from the snapshot. The position table
+    is not in a diffusers snapshot: both porters make the sincos table the
+    port's module is made with.
+    Returns the JAX and port configs, the JAX params, the numpy state dicts
+    and the port's pipeline."""
+    import os
+    from diffusion_models_moe_tpu.pipelines.pixart import \
+        tiny_pixart_pipeline_config as jax_tiny
+    from diffusion_models_moe_tpu.weights.port_pixart import \
+        port_pixart_pipeline as jax_port
+    from diffusion_models_moe_tpu_torch import (PixArtPipeline,
+                                                tiny_pixart_pipeline_config)
+    from diffusion_models_moe_tpu_torch.weights.export import save_safetensors
+    from diffusion_models_moe_tpu_torch.weights.port_pixart import \
+        port_pixart_pipeline
+    jax_cfg, port_cfg = jax_tiny(), tiny_pixart_pipeline_config()
+    port = PixArtPipeline(port_cfg, device="cpu")
+    rng = np.random.RandomState(seed)
+    sds = {k: _random_state(m, rng) for k, m in port.modules().items()}
+    del sds["transformer"]["pos_embed.pos_embed"]      # drawn, not used
+    t5 = sorted(sds["text_encoder"])
+    files = {"transformer/diffusion_pytorch_model": sds["transformer"],
+             "text_encoder/model-00001-of-00002": {
+                 k: sds["text_encoder"][k] for k in t5[:len(t5) // 2]},
+             "text_encoder/model-00002-of-00002": {
+                 k: sds["text_encoder"][k] for k in t5[len(t5) // 2:]},
+             "vae/diffusion_pytorch_model": sds["vae"]}
+    for name, sd in files.items():
+        save_safetensors({k: torch.from_numpy(v) for k, v in sd.items()},
+                         os.path.join(root, name + ".safetensors"))
+    params = jax_port(root, jax_cfg)
+    back = bridge.pixart_pipeline_state_dicts(params, port_cfg)
+    read = port_pixart_pipeline(root, port_cfg)
+    # the table the port's module was made with, which both porters make
+    sds["transformer"]["pos_embed.pos_embed"] = (
+        port.transformer.pos_embed.pos_embed.numpy().copy())
+    for key, sd in sds.items():
+        for got in (back[key], read[key]):
+            assert got.keys() == sd.keys(), key
+            for name, v in sd.items():
+                np.testing.assert_array_equal(got[name].numpy(), v,
+                                              err_msg=name)
+    port.load_state_dicts(back)
+    return dict(jax_cfg=jax_cfg, port_cfg=port_cfg, params=params, sds=sds,
+                port=port)
