@@ -143,8 +143,10 @@ Run from the root of a checkout. Phases:
      yardsticks as at SD1.5 and their sums over one DiT call;
   15. (run after 13) PixArt-alpha at full width: `pixart_512_config(bf16)`
      (the PixArt-XL-2-512 DiT and T5 v1.1 XXL, built on the card) with seeded
-     random weights, 2 requests of seeded caption ids with masks (17 and 40
-     of 120 positions tokens), DPM-Solver++ 2M at 20 steps with CFG 4.5,
+     random weights, 2 captions tokenized by the port's T5 tokenizer
+     (`load_t5_tokenizer` on a synthetic 32 100-piece Unigram tokenizer.json
+     the phase writes; 22 and 46 of 120 positions tokens, the negative
+     caption </s> alone), DPM-Solver++ 2M at 20 steps with CFG 4.5,
      decoded to 512 x 512: wall, img/s, peak memory, kernels 2 and 3 at 28
      launches a DiT call, every other kernel and plain counter at 0;
      `denoise` latents with kernels against plain versions after 3 and 20
@@ -152,6 +154,20 @@ Run from the root of a checkout. Phases:
      bf16 T5 features); a mean-gate tapped generate and a neuron removal at
      the highest mean gates (steps t <= 5), which moves the latents beyond
      that floor; request 0 padded with itself bit-equal to co-batched;
+  16. (run after 15) `checked_generate` over the moefied SD1.5 of phase 3
+     (its seeded weights and labels, 2 requests by seed, PNDM 50 steps, CFG
+     7.5, `safety_check` and `blur_nsfw` on) with a CLIPNSFWChecker on a
+     seeded full-width CLIP ViT-L/14 (f32) and the unsafe concepts through
+     the pipeline's CLIP-L tower and a seeded 768 x 768 projection, its
+     threshold between the two images' largest similarities: one image
+     flagged and equal to `blur_images` of plain `generate`'s, the other
+     bit-equal to it, kernels 1-3 at 816 launches each and no plain call;
+     then the judges of the two images at full width, each on the card and
+     on the CPU within JUDGE_TOL: CLIP score and CLIP-IQA on CLIP ViT-B/32
+     towers, Inception-v3 pool features and FID against 2 seeded images,
+     the CLIP-feature FID, LPIPS (AlexNet) between the flagged image and
+     its unblurred self, SSCD (ResNet-50 + GeM, 512-d) memorization scores
+     of the images against themselves (diagonal 1 within 1e-5);
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -2425,8 +2441,21 @@ def run_sld(ivs, card: str) -> dict:
 # ---------------------------------------------------------------- phase 15
 # caption tokens of PixArt's two requests (the rest of the 120 are pads,
 # masked in T5); the negative caption is T5's empty prompt, its EOS alone
-PIXART_CAPTION_TOKENS = (17, 40)
+# two PixArt captions, tokenized by the port's T5 tokenizer on a synthetic
+# T5-sized Unigram vocabulary (no real T5 tokenizer.json is in the
+# repository); the negative caption is "", which is </s> alone
+PIXART_CAPTIONS = (
+    "A small cactus with a happy face in the Sahara desert.",
+    "An astronaut riding a green horse across a misty meadow at dawn, "
+    "cinematic lighting, highly detailed, 8k, ultra-wide shot, trending on "
+    "artstation, soft  focus,\u00a0golden hour")
+T5_PIECES = 32100           # T5 v1.1's tokenizer: 32 000 pieces, 100 extra ids
+T5_EXTRA_IDS = 100
 T5_EOS = 1
+# the charsmap's entries: NBSP -> space, full-width Latin -> ASCII, ligatures
+T5_CHARSMAP = {"\u00a0": " ", "\ufb01": "fi", "\ufb02": "fl",
+               **{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
+               **{chr(0xFF41 + i): chr(0x61 + i) for i in range(26)}}
 # the removal window of the reference's PixArt erasure (steps t <= 5) and the
 # share of each layer's neurons it removes, the highest mean gates: the JAX
 # CLI's skill ratio, as WANDA_SKILL_RATIO
@@ -2434,22 +2463,126 @@ PIXART_REMOVAL_STEPS = 6
 PIXART_REMOVAL_SHARE = WANDA_SKILL_RATIO
 
 
+def darts_charsmap(mapping: dict) -> bytes:
+    """A sentencepiece precompiled charsmap: uint32 trie size in bytes, a
+    Darts double array over the keys' UTF-8 bytes (each node at a base of
+    its own, the array long enough for any byte from any base), then the
+    NUL-terminated replacement strings."""
+    import struct
+    blob, values = bytearray(), {}
+    for src in sorted(mapping):
+        values[src] = len(blob)
+        blob += mapping[src].encode() + b"\0"
+    root: dict = {}
+    for src in mapping:
+        node = root
+        for b in src.encode():
+            node = node.setdefault(b, {})
+        node[None] = values[src]
+    units, bases, queue = {0: 0}, set(), [(0, root)]
+    while queue:
+        pos, node = queue.pop(0)
+        labels = [0 if k is None else k for k in node]
+        base = 1
+        while base in bases or any((base ^ l) in units or base ^ l == 0
+                                   for l in labels):
+            base += 1
+        bases.add(base)
+        units[pos] |= ((pos ^ base) << 10) | ((None in node) << 8)
+        for k, child in node.items():
+            if k is None:
+                units[base] = (1 << 31) | child
+            else:
+                units[base ^ k] = k
+                queue.append((base ^ k, child))
+    size = max(max(units), max(b | 0xFF for b in bases)) + 1
+    trie = b"".join(struct.pack("<I", units.get(i, 0)) for i in range(size))
+    return struct.pack("<I", len(trie)) + trie + bytes(blob)
+
+
+def write_t5_tokenizer(path: str) -> None:
+    """A T5-layout `tokenizer.json` of T5_PIECES pieces: <pad>, </s>, <unk>,
+    every printable ASCII character, the captions' words with and without
+    the word mark and their prefixes, seeded lowercase pieces to fill, then
+    <extra_id_99> .. <extra_id_0>; seeded scores; T5's pipeline (the
+    charsmap of T5_CHARSMAP, " {2,}" -> " ", Metaspace, $A </s>)."""
+    import base64
+    rng = np.random.RandomState(0)
+    pieces = dict.fromkeys(["\u2581"] + [chr(c) for c in range(33, 127)])
+    for caption in PIXART_CAPTIONS:
+        for w in caption.lower().replace(",", " ").split():
+            for piece in ("\u2581" + w, w):
+                for n in range(2, len(piece) + 1):
+                    pieces[piece[:n]] = None
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    n_regular = T5_PIECES - 3 - T5_EXTRA_IDS
+    while len(pieces) < n_regular:
+        w = "".join(rng.choice(letters, rng.randint(2, 8)))
+        pieces["\u2581" + w if rng.rand() < 0.5 else w] = None
+    scores = rng.uniform(-14.0, -2.0, n_regular)
+    specials = ["<pad>", "</s>", "<unk>"]
+    extra = [f"<extra_id_{i}>" for i in reversed(range(T5_EXTRA_IDS))]
+    vocab = ([[p, 0.0] for p in specials]
+             + [[p, float(sc)] for p, sc in zip(pieces, scores)]
+             + [[p, 0.0] for p in extra])
+    added = [{"id": i, "content": p, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, (p, _) in enumerate(vocab) if p in specials or p in extra]
+    charsmap = base64.b64encode(darts_charsmap(T5_CHARSMAP)).decode("ascii")
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": charsmap},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"},
+             "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "\u2581",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [], "special_tokens": {"</s>": {
+                "id": "</s>", "ids": [T5_EOS], "tokens": ["</s>"]}}},
+        "decoder": None,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab,
+                  "byte_fallback": False},
+    }
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+
+
 def pixart_requests(cfg) -> tuple:
-    """Seeded caption ids and masks (BATCH, 120) and the negative caption's:
-    request i holds PIXART_CAPTION_TOKENS[i] tokens, the rest pads (id 0,
-    mask 0)."""
+    """The captions' ids and masks (BATCH, 120) and the negative caption's,
+    from the port's T5 tokenizer (`load_t5_tokenizer`) on the vocabulary of
+    `write_t5_tokenizer`, written to a temporary directory; also the
+    captions' valid lengths and the tokenize wall."""
+    import tempfile
+    from diffusion_models_moe_tpu_torch.data.tokenizer import \
+        load_t5_tokenizer
     tc = cfg.text_encoder
-    gen = torch.Generator().manual_seed(1)
-    ids = torch.zeros((BATCH, tc.max_length), dtype=torch.long)
-    mask = torch.zeros_like(ids)
-    for i, n in enumerate(PIXART_CAPTION_TOKENS):
-        ids[i, :n - 1] = torch.randint(2, tc.vocab_size, (n - 1,),
-                                       generator=gen)
-        ids[i, n - 1] = T5_EOS
-        mask[i, :n] = 1
-    un_ids, un_mask = torch.zeros_like(ids), torch.zeros_like(ids)
-    un_ids[:, 0], un_mask[:, 0] = T5_EOS, 1
-    return tuple(t.to(DEV) for t in (ids, mask, un_ids, un_mask))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_t5_") as root:
+        write_t5_tokenizer(root)
+        t0 = time.perf_counter()
+        tokenize = load_t5_tokenizer(root, tc.max_length)
+        ids, mask = tokenize(list(PIXART_CAPTIONS))
+        un_ids, un_mask = tokenize([""] * BATCH)
+        wall = time.perf_counter() - t0
+    lengths = mask.sum(1).tolist()
+    check(tuple(ids.shape) == (BATCH, tc.max_length),
+          f"T5 ids of shape {tuple(ids.shape)}")
+    for i, n in enumerate(lengths):
+        check(0 < n < tc.max_length and ids[i, n - 1].item() == T5_EOS
+              and bool((ids[i, n:] == 0).all())
+              and bool((ids[i, :n - 1] != 2).all()),
+              f"T5 caption {i}: {n} tokens, ids {ids[i, :n].tolist()}")
+    check(un_mask.sum(1).tolist() == [1] * BATCH
+          and bool((un_ids[:, 0] == T5_EOS).all()),
+          f"the negative caption's ids {un_ids[:, :2].tolist()}")
+    return (tuple(t.to(DEV, torch.long) for t in (ids, mask, un_ids, un_mask)),
+            lengths, wall)
 
 
 def run_pixart(card: str) -> dict:
@@ -2482,7 +2615,11 @@ def run_pixart(card: str) -> dict:
     steps, g = cfg.num_inference_steps, cfg.guidance_scale
     dit = cfg.transformer
     layers, hdim = dit.num_layers, dit.hidden_size * dit.ff_mult
-    ids, mask, un_ids, un_mask = pixart_requests(cfg)
+    (ids, mask, un_ids, un_mask), lengths, tok_wall = pixart_requests(cfg)
+    print(f"pixart: {BATCH} captions tokenized by the port's T5 tokenizer "
+          f"(a {T5_PIECES}-piece Unigram tokenizer.json read without the "
+          f"tokenizers package) in {tok_wall:.3f} s: {lengths} of "
+          f"{cfg.text_encoder.max_length} positions tokens", flush=True)
     torch.cuda.synchronize()
     n_params = {k: sum(p.numel() for p in m.parameters())
                 for k, m in pipe.modules().items()}
@@ -2490,7 +2627,7 @@ def run_pixart(card: str) -> dict:
           f"random weights in {time.perf_counter() - t0:.1f} s (parameters "
           f"{json.dumps(n_params)}; heads of {dit.hidden_size // dit.num_heads}"
           f", {cfg.text_encoder.max_length} caption positions, "
-          f"{PIXART_CAPTION_TOKENS} of them tokens)", flush=True)
+          f"{lengths} of them tokens)", flush=True)
 
     def gen_(seed=None, cond=(ids, mask), **kw):
         generator = (None if seed is None
@@ -2596,6 +2733,275 @@ def run_pixart(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+JUDGE_SEEDS = (31, 32)       # the two requests' seeds
+# every judge on the card against the same module on the CPU, f32 on both
+# (cuDNN's TF32 off for the judges' convolutions, matmuls in full f32):
+# max |card - cpu| / max |cpu|, stated before the first run on the card
+JUDGE_TOL = 1e-4
+SSCD_DIAGONAL_TOL = 1e-5
+CLIP_PROMPTS = ("a photo of a dog", "a photo of a house")
+# the vision tower of openai/clip-vit-base-patch32, the reference's metric
+# CLIP: 224 px in patches of 32, 12 layers of 768, 512 joint
+CLIP_B32_VISION = dict(patch_size=32, hidden_size=768, intermediate_size=3072,
+                       num_layers=12, num_heads=12, projection_dim=512)
+
+
+def seed_judge(module, seed: int):
+    """Seeded weights for a judge, drawn on its device in the CPU tests'
+    scheme: kernels N(0, 2/fan_in), matrices N(0, 1/fan_in), 1-d weights
+    and running variances U(0.5, 1.5), other vectors N(0, 0.1^2); LPIPS
+    heads U(0, 1)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            rn = torch.randn(t.shape, generator=gen, device=DEV)
+            if name.startswith("lins."):
+                t.copy_(torch.rand(t.shape, generator=gen, device=DEV))
+            elif name.endswith("running_var") or (
+                    t.dim() == 1 and name.endswith("weight")):
+                t.copy_(torch.rand(t.shape, generator=gen, device=DEV) + 0.5)
+            elif t.dim() <= 1:
+                t.copy_(0.1 * rn)
+            else:
+                gain = 2.0 if t.dim() == 4 else 1.0
+                t.copy_(rn * (gain / t[0].numel()) ** 0.5)
+    return module
+
+
+def on_cpu(module, build):
+    """The same judge on the CPU: `build(device="cpu")` with the card
+    module's state dict."""
+    cpu = build(device="cpu")
+    cpu.load_state_dict(module.state_dict())
+    return cpu
+
+
+def judge_wall(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_judges(card: str) -> dict:
+    """Phase 16: `checked_generate` over the moefied SD1.5 of phase 3 (its
+    seeded weights and labels; 2 requests by their seeds, PNDM 50 steps, CFG
+    7.5) with a CLIPNSFWChecker on a full-width CLIP ViT-L/14 vision tower
+    (seeded, f32) and the unsafe concepts through the pipeline's CLIP-L text
+    tower and a seeded 768 x 768 projection, its threshold between the two
+    images' largest similarities: one image flagged and blurred, the other
+    bit-equal to plain `generate`'s, kernels 1-3 at 16 launches a UNet call
+    and no plain call. Then the judges of the two images at full width,
+    each also on the CPU and held to JUDGE_TOL there: CLIP score and
+    CLIP-IQA "quality" on CLIP ViT-B/32 towers, Inception-v3 pool features
+    and FID against 2 seeded images (and the CLIP-feature FID), LPIPS
+    (AlexNet) between the flagged image and its unblurred self, SSCD
+    (ResNet-50 + GeM, 512-d) memorization scores of the images against
+    themselves. Returns the launch counts of the checked generate."""
+    import tempfile
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                build_moe_interventions,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.benchmarks.clip_iqa import ClipIQA
+    from diffusion_models_moe_tpu_torch.benchmarks.clip_metrics import \
+        clip_score
+    from diffusion_models_moe_tpu_torch.benchmarks.fid import (
+        fid_from_features, make_clip_featurizer, make_clip_text_featurizer,
+        make_inception_featurizer)
+    from diffusion_models_moe_tpu_torch.benchmarks.memorization import \
+        memorization_scores
+    from diffusion_models_moe_tpu_torch.data.tokenizer import load_tokenizer
+    from diffusion_models_moe_tpu_torch.models.backbones import (
+        LPIPS, SSCD, ResNetConfig, make_lpips_fn, preprocess_imagenet,
+        sscd_embed)
+    from diffusion_models_moe_tpu_torch.models.clip_text import \
+        CLIPTextEncoder
+    from diffusion_models_moe_tpu_torch.models.clip_vision import (
+        CLIPVisionConfig, CLIPVisionEncoder, resize_for_clip)
+    from diffusion_models_moe_tpu_torch.models.inception import InceptionV3
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
+        blur_images
+    from diffusion_models_moe_tpu_torch.safety import (
+        CLIPNSFWChecker, checked_generate, unsafe_concept_embeddings)
+    from diffusion_models_moe_tpu_torch.weights.port_vision import \
+        clip_b32_text_config
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(sd15_config(torch.bfloat16), safety_check=True,
+                              blur_nsfw=True)
+    pipe = StableDiffusionPipeline(cfg, device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    ivs = build_moe_interventions(labels_for(cfg.unet.ff_dims()), 0.3,
+                                  device=DEV, dtype=cfg.unet.dtype)
+    tcfg = cfg.text_encoder
+    cond = torch.randint(0, tcfg.vocab_size, (BATCH, tcfg.max_length),
+                         generator=torch.Generator().manual_seed(1)).to(DEV)
+    uncond = torch.zeros_like(cond)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as root:
+        write_tokenizer(root, tcfg.vocab_size)
+        tok = load_tokenizer(root, tcfg.max_length)
+    vit_l = seed_judge(CLIPVisionEncoder(CLIPVisionConfig(), device=DEV), 1)
+    proj_l = torch.randn((tcfg.hidden_size, vit_l.cfg.projection_dim),
+                         device=DEV, generator=torch.Generator(
+                             device=DEV).manual_seed(2)) / tcfg.hidden_size ** 0.5
+    concepts = unsafe_concept_embeddings(lambda ids: pipe.encode_text(ids)[0],
+                                         tok, text_projection=proj_l)
+    featurize_l = make_clip_featurizer(vit_l)
+    torch.cuda.synchronize()
+    print(f"judges: SD1.5 bf16 pipeline (safety_check, blur_nsfw), the "
+          f"checker's CLIP ViT-L/14 ({sum(p.numel() for p in vit_l.parameters())}"
+          f" parameters, f32) and {len(concepts)} concept embeddings built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    pipe.generate(cond, uncond, torch.Generator(device=DEV).manual_seed(2),
+                  num_steps=1, ivs=ivs)                  # warm-up
+    plain, _ = pipe.generate(cond, uncond, seeds=JUDGE_SEEDS, ivs=ivs)
+
+    # the threshold between the two images' largest concept similarities
+    emb = torch.nn.functional.normalize(featurize_l(plain).float(), dim=-1)
+    sims = emb @ torch.nn.functional.normalize(concepts.float(), dim=-1).T
+    top = sims.max(dim=1).values.cpu().numpy()
+    check(top[0] != top[1], f"the two images' largest similarities tie: {top}")
+    threshold = float(top.mean())
+    checker = CLIPNSFWChecker(featurize_l, concepts, threshold)
+
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (images, _, flags), wall = judge_wall(lambda: checked_generate(
+        pipe, cond, uncond, seeds=JUDGE_SEEDS, ivs=ivs, checker=checker))
+    launches = dict(_build.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    _, checker_wall = judge_wall(checker, plain)
+    calls = unet_calls(cfg, cfg.num_inference_steps)
+    expect = {k: 16 * calls if k in ("geglu_ff_fused", "sd_self_attention",
+                                     "sd_cross_attention") else 0
+              for k in _build.KERNELS}
+    print(f"judges: checked_generate of {BATCH} requests (seeds "
+          f"{JUDGE_SEEDS}), PNDM {cfg.num_inference_steps} steps, CFG "
+          f"{cfg.guidance_scale}, MoE on 16 FFs, checker on CLIP ViT-L/14 "
+          f"at threshold {threshold:.6f} (largest similarities {top}): wall "
+          f"{wall:.3f} s, peak memory {peak_gib:.2f} GiB, flags "
+          f"{flags.tolist()}; the checker alone {checker_wall:.3f} s; "
+          f"launches {launches} (expected {expect})", flush=True)
+    for name, count in expect.items():
+        check(launches[name] == count,
+              f"checked generate: kernel {name} launched {launches[name]} "
+              f"times, expected {count}")
+    check_no_plain(launches, "checked generate")
+    check(flags.tolist() == (top > threshold).tolist() and flags.sum() == 1,
+          f"flags {flags.tolist()} against similarities {top} at {threshold}")
+    hit, keep = int(np.flatnonzero(flags)[0]), int(np.flatnonzero(~flags)[0])
+    check(torch.equal(images[keep], plain[keep]),
+          "the unflagged image differs from plain generate's")
+    check(torch.equal(images[hit], blur_images(plain)[hit]),
+          "the flagged image is not blur_images of plain generate's")
+    print(f"judges: image {keep} bit-equal to plain generate's on the same "
+          f"seeds; image {hit} equal to blur_images of it", flush=True)
+
+    # the judges, each on the card and on the CPU
+    rows, cpu_imgs = {}, images.cpu()
+
+    def held(name: str, got, ref, wall: float, extra: str = "") -> None:
+        got, ref = torch.as_tensor(got), torch.as_tensor(ref)
+        abs_err, rel = rel_err(got.cpu(), ref.cpu())
+        rows[name] = dict(wall_s=wall, max_abs_err=abs_err, rel_err=rel)
+        print(f"judges: {name}: card wall {wall:.3f} s; card vs CPU max abs "
+              f"{abs_err:.3e}, rel {rel:.3e} (tolerance {JUDGE_TOL}){extra}",
+              flush=True)
+        check(rel <= JUDGE_TOL, f"{name}: card vs CPU rel err {rel} > "
+              f"{JUDGE_TOL}")
+
+    cpu_l = on_cpu(vit_l, lambda device: CLIPVisionEncoder(
+        CLIPVisionConfig(), device=device))
+    got, w = judge_wall(featurize_l, images)
+    held("checker CLIP ViT-L/14 features", got,
+         make_clip_featurizer(cpu_l)(cpu_imgs), w)
+    del cpu_l
+
+    b32 = CLIPVisionConfig(**CLIP_B32_VISION)
+    vit_b = seed_judge(CLIPVisionEncoder(b32, device=DEV), 3)
+    with torch.device(DEV):
+        text_b = seed_judge(CLIPTextEncoder(clip_b32_text_config()).eval(), 4)
+    proj_b = torch.randn((512, 512), device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(5)) / 512 ** 0.5
+    cpu_vb = on_cpu(vit_b, lambda device: CLIPVisionEncoder(b32, device=device))
+    cpu_tb = CLIPTextEncoder(clip_b32_text_config()).eval()
+    cpu_tb.load_state_dict(text_b.state_dict())
+    card_text = make_clip_text_featurizer(text_b, tok, proj_b)
+    cpu_text = make_clip_text_featurizer(cpu_tb, tok, proj_b.cpu())
+    got, w = judge_wall(card_text, list(CLIP_PROMPTS))
+    held("CLIP ViT-B/32 text embeddings", got, cpu_text(list(CLIP_PROMPTS)), w)
+    img_b, w = judge_wall(lambda x: vit_b(resize_for_clip(x, 224)), images)
+    ref_b = cpu_vb(resize_for_clip(cpu_imgs, 224))
+    held("CLIP ViT-B/32 image embeddings", img_b, ref_b, w)
+    score, w = judge_wall(clip_score, img_b, got)
+    held("CLIP score", score, clip_score(ref_b, cpu_text(list(CLIP_PROMPTS))),
+         w, f"; scores {score.tolist()}")
+    iqa = ClipIQA(make_clip_featurizer(vit_b), card_text, ("quality",))
+    cpu_iqa = ClipIQA(make_clip_featurizer(cpu_vb), cpu_text, ("quality",))
+    q, w = judge_wall(iqa, images)
+    held("CLIP-IQA quality", q["quality"], cpu_iqa(cpu_imgs)["quality"], w,
+         f"; probabilities {q['quality'].tolist()}")
+    others = torch.rand((BATCH, 3, 512, 512), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(6))
+    feat_b = make_clip_featurizer(vit_b)
+    cpu_feat_b = make_clip_featurizer(cpu_vb)
+    (fid_clip, w) = judge_wall(lambda: fid_from_features(
+        feat_b(images), feat_b(others)))
+    held("CLIP-feature FID (512-d)", fid_clip, fid_from_features(
+        cpu_feat_b(cpu_imgs), cpu_feat_b(others.cpu())), w,
+        f"; FID {fid_clip:.6f}")
+    del vit_b, text_b, cpu_vb, cpu_tb
+
+    inc = seed_judge(InceptionV3(device=DEV), 7)
+    cpu_inc = on_cpu(inc, lambda device: InceptionV3(device=device))
+    featurize_inc = make_inception_featurizer(inc)
+    f_img, w = judge_wall(featurize_inc, images)
+    check(tuple(f_img.shape) == (BATCH, 2048) and bool(
+        torch.isfinite(f_img).all()), f"Inception features {f_img.shape}")
+    held("Inception-v3 pool features (2048)", f_img,
+         make_inception_featurizer(cpu_inc)(cpu_imgs), w)
+    t1 = time.perf_counter()
+    fid_inc = fid_from_features(f_img, featurize_inc(others))
+    print(f"judges: Inception FID of the 2 images against 2 seeded images "
+          f"{fid_inc:.6f} ({time.perf_counter() - t1:.3f} s, the host's "
+          f"sqrtm of 2048 x 2048 included)", flush=True)
+    check(np.isfinite(fid_inc) and fid_inc > 0, f"Inception FID {fid_inc}")
+    del inc, cpu_inc
+
+    lp = seed_judge(LPIPS(device=DEV), 8)
+    cpu_lp = on_cpu(lp, lambda device: LPIPS(device=device))
+    pair = (images[hit:hit + 1], plain[hit:hit + 1])
+    d, w = judge_wall(make_lpips_fn(lp), *pair)
+    same = make_lpips_fn(lp)(plain[keep:keep + 1], images[keep:keep + 1])
+    held("LPIPS (AlexNet), flagged vs unblurred", d,
+         make_lpips_fn(cpu_lp)(*(t.cpu() for t in pair)), w,
+         f"; distance {d.tolist()}, unflagged vs itself {same.tolist()}")
+    check(float(d[0]) > 0 and float(same[0]) == 0.0,
+          f"LPIPS {d.tolist()}, of an image and itself {same.tolist()}")
+    del lp, cpu_lp
+
+    sscd = seed_judge(SSCD(ResNetConfig(), 512, device=DEV), 9)
+    cpu_sscd = on_cpu(sscd, lambda device: SSCD(ResNetConfig(), 512,
+                                                device=device))
+    emb_s, w = judge_wall(lambda x: sscd_embed(sscd, preprocess_imagenet(x)),
+                          images)
+    mem = memorization_scores(emb_s, emb_s)
+    held("SSCD embeddings (512)", emb_s,
+         sscd_embed(cpu_sscd, preprocess_imagenet(cpu_imgs)), w,
+         f"; self-similarity {mem['per_prompt']}")
+    check(all(abs(v - 1.0) <= SSCD_DIAGONAL_TOL for v in mem["per_prompt"]),
+          f"SSCD diagonal {mem['per_prompt']}")
+    del sscd, cpu_sscd, pipe, vit_l
+    torch.cuda.empty_cache()
+    print("judges: " + json.dumps({"checked_generate_s": wall,
+                                   "checker_s": checker_wall,
+                                   "peak_gib": peak_gib, "judges": rows}),
+          flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -2688,6 +3094,8 @@ def main() -> None:
     phase_done("13 (SDXL and LCM-SDXL at full width)")
     pixart_launches = run_pixart(card)
     phase_done("15 (PixArt-512: T5-XXL, the DiT, taps and removal)")
+    judge_launches = run_judges(card)
+    phase_done("16 (checked_generate and the judges at full width)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -2700,7 +3108,7 @@ def main() -> None:
         **{f"sd15_{k}": v for k, v in other_launches.items()},
         "sld": sld_launches, "snapshot_routed": snapshot_launches,
         **{f"sdxl_{k}": v for k, v in sdxl_launches.items()},
-        "pixart": pixart_launches}))
+        "pixart": pixart_launches, "checked_generate": judge_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [

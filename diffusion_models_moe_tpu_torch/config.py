@@ -162,6 +162,11 @@ class PipelineConfig:
     num_inference_steps: int = 50
     scheduler: str = "pndm"              # ddim, pndm, euler, dpm or lcm
     prediction_type: str = "epsilon"     # or "v_prediction" (SD2.1-768)
+    # NSFW handling, both off by default: `safety.checked_generate` runs a
+    # CLIP checker with `safety_check`, and blurs the images it flags with
+    # `blur_nsfw` (else blacks them out)
+    safety_check: bool = False
+    blur_nsfw: bool = False
     # DeepCache: > 0 runs the full UNet on every interval-th step and the
     # shallow forward on a cached deep feature between them
     deep_cache_interval: int = 0

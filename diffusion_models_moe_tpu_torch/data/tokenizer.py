@@ -1,9 +1,11 @@
-"""CLIP BPE tokenizer (PyTorch port).
+"""CLIP BPE tokenizer and T5 tokenizer (PyTorch port).
 
-Counterpart of `diffusion_models_moe_tpu/data/tokenizer.py`'s CLIP part: it
-needs only a checkpoint's `vocab.json` and `merges.txt` and gives the
-`(B, max_length)` int64 ids the text encoder takes, BOS/EOS framed and padded
-with the snapshot's pad token.
+Counterpart of `diffusion_models_moe_tpu/data/tokenizer.py`'s CLIP and T5
+parts. The CLIP tokenizer needs only a checkpoint's `vocab.json` and
+`merges.txt` and gives the `(B, max_length)` int64 ids the text encoder
+takes, BOS/EOS framed and padded with the snapshot's pad token.
+`load_t5_tokenizer` reads PixArt's `tokenizer.json` or `spiece.model` with
+the port's own Unigram reader (`data/_native_unigram.py`).
 
 CLIP splits text into words with `\\p{L}+|\\p{N}|[^\\s\\p{L}\\p{N}]+` (after
 its special tokens and contractions), a pattern of the `regex` package. The
@@ -229,3 +231,42 @@ def load_sdxl_tokenizers(snapshot_root: str, max_length: int = 77):
                            max_length),
             load_tokenizer(os.path.join(snapshot_root, "tokenizer_2"),
                            max_length))
+
+
+def load_t5_tokenizer(path: str, max_length: int = 120
+                      ) -> Callable[[Sequence[str]], tuple]:
+    """PixArt's T5 tokenizer from a directory holding `tokenizer.json` or,
+    failing that, `spiece.model`, read by the port's own reader
+    (`data/_native_unigram.py`: no `tokenizers`, `sentencepiece` or
+    `protobuf`). Returns `tokenize(texts) -> (ids, mask)`, int32 tensors
+    (B, max_length) on the CPU: EOS (`</s>`, id 1 where the file has no such
+    token) appended unless the file's post-processor put it last, kept as
+    the last id where the ids are cut to `max_length`, pad id 0, mask 1 on
+    the tokens."""
+    from diffusion_models_moe_tpu_torch.data._native_unigram import Tokenizer
+    json_path = os.path.join(path, "tokenizer.json")
+    spm_path = os.path.join(path, "spiece.model")
+    if os.path.exists(json_path):
+        tok = Tokenizer.from_file(json_path)
+    elif os.path.exists(spm_path):
+        tok = Tokenizer.from_spm(spm_path)
+    else:
+        raise FileNotFoundError(
+            f"no tokenizer.json or spiece.model under {path!r}")
+    eos_id = tok.token_to_id("</s>")
+    eos_id = 1 if eos_id is None else eos_id
+
+    def tokenize(texts: Sequence[str]) -> tuple[torch.Tensor, torch.Tensor]:
+        ids = torch.zeros((len(texts), max_length), dtype=torch.int32)
+        mask = torch.zeros_like(ids)
+        for i, text in enumerate(texts):
+            enc = tok.encode(text)
+            if not enc or enc[-1] != eos_id:
+                enc = enc + [eos_id]
+            enc = enc[:max_length]
+            enc[-1] = eos_id
+            ids[i, :len(enc)] = torch.tensor(enc, dtype=torch.int32)
+            mask[i, :len(enc)] = 1
+        return ids, mask
+
+    return tokenize

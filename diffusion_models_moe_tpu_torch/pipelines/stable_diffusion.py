@@ -42,11 +42,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.config import (PipelineConfig,
                                                    resolve_device)
 from diffusion_models_moe_tpu_torch.models.clip_text import CLIPTextEncoder
 from diffusion_models_moe_tpu_torch.models.layers import (cast_model,
+                                                          f32_convs,
                                                           timestep_embedding)
 from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
 from diffusion_models_moe_tpu_torch.models.vae import VAEDecoder
@@ -354,3 +356,42 @@ def to_uint8(images: torch.Tensor) -> torch.Tensor:
     """Images (B, 3, H, W) in [0, 1] -> (B, H, W, 3) uint8, on their device."""
     return (images.float() * 255.0).round().clamp(0, 255).to(torch.uint8
                                                              ).permute(0, 2, 3, 1)
+
+
+def to_pil(images: torch.Tensor) -> list:
+    """Images (B, 3, H, W) in [0, 1] -> list of PIL images; the uint8
+    conversion runs on the images' device, so the host copy is a quarter of
+    the f32 one."""
+    from PIL import Image
+    return [Image.fromarray(a) for a in to_uint8(images).cpu().numpy()]
+
+
+def blur_images(images: torch.Tensor, sigma: float = 7.0) -> torch.Tensor:
+    """Gaussian blur of (B, 3, H, W) images, the reference's blur-if-nsfw
+    output policy (reference: modularity/remove_experts.py:17-22): a
+    separable kernel of size 2 round(3 sigma) + 1, zero-padded to the same
+    size, rows then columns."""
+    size = int(2 * round(3 * sigma) + 1)
+    x = torch.arange(size, dtype=torch.float32) - size // 2
+    k1d = torch.exp(-0.5 * (x / sigma) ** 2)
+    k1d = (k1d / k1d.sum()).to(images.device, images.dtype)
+    b, c, h, w = images.shape
+    flat = images.reshape(b * c, 1, h, w)
+    with f32_convs():
+        flat = F.conv2d(flat, k1d.view(1, 1, size, 1), padding=(size // 2, 0))
+        flat = F.conv2d(flat, k1d.view(1, 1, 1, size), padding=(0, size // 2))
+    return flat.reshape(b, c, h, w)
+
+
+def stitch_side_by_side(images_a: torch.Tensor, images_b: torch.Tensor
+                        ) -> list:
+    """Horizontally stitched before/after pairs, the reference's removal
+    comparison artifact (reference: modularity/remove_experts.py:47-69)."""
+    from PIL import Image
+    out = []
+    for a, b in zip(to_pil(images_a), to_pil(images_b)):
+        canvas = Image.new("RGB", (a.width + b.width, a.height))
+        canvas.paste(a, (0, 0))
+        canvas.paste(b, (a.width, 0))
+        out.append(canvas)
+    return out

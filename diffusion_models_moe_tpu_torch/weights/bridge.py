@@ -12,7 +12,13 @@ the GEGLU FF's `proj/kernel` and `out_proj_kernel` -> `ff.net.0.proj` and
 dicts of the port's `T5Encoder` (transformers' `T5EncoderModel` names) and
 `PixArtTransformer2D` (diffusers' names; the patch embedding's dense kernel
 over (p, p, C) patches -> the stride-p conv `pos_embed.proj`, the position
-parameter -> `pos_embed.pos_embed`).
+parameter -> `pos_embed.pos_embed`). The judges' trees
+(`clip_vision_numpy_state_dict`, `resnet_numpy_state_dict`,
+`sscd_numpy_state_dict`, `alexnet_numpy_state_dict`,
+`lpips_numpy_state_dict`, `inception_numpy_state_dict`) become the state
+dicts of the port's CLIP vision tower (transformers' names) and backbones
+(torchvision's names; batch norm's scale, bias, mean and var -> weight,
+bias, running_mean and running_var).
 """
 from __future__ import annotations
 
@@ -278,3 +284,114 @@ def pixart_pipeline_state_dicts(params: dict, config) -> dict[str, dict]:
         "vae": to_torch(vae_decoder_numpy_state_dict(params["vae"],
                                                      config.vae)),
     }
+
+
+# ------------------------------------------------------------------ judges
+def clip_vision_numpy_state_dict(params: dict, cfg) -> dict:
+    """CLIPVisionEncoder params -> the port's `CLIPVisionEncoder` numpy
+    state dict (transformers' `CLIPVisionModelWithProjection` names)."""
+    pre, d = "vision_model", cfg.hidden_size
+    sd = {f"{pre}.embeddings.class_embedding": _np(params["class_embedding"]),
+          f"{pre}.embeddings.patch_embedding.weight": np.ascontiguousarray(
+              np.transpose(_np(params["patch_embedding"]["kernel"]),
+                           (3, 2, 0, 1))),
+          f"{pre}.embeddings.position_embedding.weight":
+              _np(params["position_embedding"]),
+          "visual_projection.weight": np.ascontiguousarray(
+              _np(params["visual_projection"]["kernel"]).T)}
+    _emit(sd, f"{pre}.pre_layrnorm", _norm(params["pre_layernorm"]))
+    _emit(sd, f"{pre}.post_layernorm", _norm(params["post_layernorm"]))
+    for i in range(cfg.num_layers):
+        lp, p = f"{pre}.encoder.layers.{i}", params[f"layers_{i}"]
+        _emit(sd, f"{lp}.layer_norm1", _norm(p["layer_norm1"]))
+        _emit(sd, f"{lp}.layer_norm2", _norm(p["layer_norm2"]))
+        attn = p["self_attn"]
+        for flax_name, name in (("query", "q_proj"), ("key", "k_proj"),
+                                ("value", "v_proj")):
+            sd[f"{lp}.self_attn.{name}.weight"] = np.ascontiguousarray(
+                _np(attn[flax_name]["kernel"]).reshape(d, d).T)
+            sd[f"{lp}.self_attn.{name}.bias"] = _np(
+                attn[flax_name]["bias"]).reshape(d)
+        sd[f"{lp}.self_attn.out_proj.weight"] = np.ascontiguousarray(
+            _np(attn["out"]["kernel"]).reshape(d, d).T)
+        sd[f"{lp}.self_attn.out_proj.bias"] = _np(attn["out"]["bias"])
+        _emit(sd, f"{lp}.mlp.fc1", _linear(p["fc1"]))
+        _emit(sd, f"{lp}.mlp.fc2", _linear(p["fc2"]))
+    return sd
+
+
+def _tv_conv(p: dict) -> dict:
+    """A judge conv {kernel HWIO[, bias]} -> torchvision {weight OIHW[, bias]}."""
+    out = {"weight": np.ascontiguousarray(np.transpose(_np(p["kernel"]),
+                                                       (3, 2, 0, 1)))}
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def _tv_bn(p: dict) -> dict:
+    return {"weight": _np(p["scale"]), "bias": _np(p["bias"]),
+            "running_mean": _np(p["mean"]), "running_var": _np(p["var"])}
+
+
+def resnet_numpy_state_dict(params: dict, cfg) -> dict:
+    """backbones.resnet_* params -> torchvision ResNet names (the port's
+    `ResNet`; `fc` where the params have one)."""
+    sd: dict = {}
+    _emit(sd, "conv1", _tv_conv(params["conv1"]))
+    _emit(sd, "bn1", _tv_bn(params["bn1"]))
+    for si, n_blocks in enumerate(cfg.stage_blocks):
+        for bi in range(n_blocks):
+            p, pre = params[f"layer{si + 1}_{bi}"], f"layer{si + 1}.{bi}"
+            for ci in (1, 2, 3):
+                _emit(sd, f"{pre}.conv{ci}", _tv_conv(p[f"conv{ci}"]))
+                _emit(sd, f"{pre}.bn{ci}", _tv_bn(p[f"bn{ci}"]))
+            if "downsample" in p:
+                _emit(sd, f"{pre}.downsample.0", _tv_conv(p["downsample"]["conv"]))
+                _emit(sd, f"{pre}.downsample.1", _tv_bn(p["downsample"]["bn"]))
+    if "fc" in params:
+        _emit(sd, "fc", _linear(params["fc"]))
+    return sd
+
+
+def sscd_numpy_state_dict(params: dict, cfg) -> dict:
+    """backbones.sscd_embed params -> the port's `SSCD` names
+    (`backbone.*`, `embeddings.weight` and its bias)."""
+    sd = {f"backbone.{k}": v for k, v in
+          resnet_numpy_state_dict(params, cfg).items() if not k.startswith("fc.")}
+    _emit(sd, "embeddings", _linear(params["embeddings"]))
+    return sd
+
+
+def alexnet_numpy_state_dict(params: dict) -> dict:
+    """backbones.alexnet_features params -> torchvision AlexNet names."""
+    from diffusion_models_moe_tpu_torch.models.backbones import \
+        ALEX_FEATURE_IDX
+    sd: dict = {}
+    for i, idx in enumerate(ALEX_FEATURE_IDX):
+        _emit(sd, f"features.{idx}", _tv_conv(params[f"conv{i}"]))
+    return sd
+
+
+def lpips_numpy_state_dict(params: dict) -> dict:
+    """backbones.lpips_distance params -> the port's `LPIPS` names."""
+    sd = {f"net.{k}": v for k, v in
+          alexnet_numpy_state_dict(params["net"]).items()}
+    for i, w in enumerate(params["lins"]):
+        sd[f"lins.{i}"] = _np(w)
+    return sd
+
+
+def inception_numpy_state_dict(params: dict, prefix: str = "") -> dict:
+    """models/inception.py params -> torchvision Inception3 names (the
+    port's `InceptionV3`)."""
+    sd: dict = {}
+    for name, p in params.items():
+        if name == "fc" and not prefix:
+            _emit(sd, "fc", _linear(p))
+        elif "conv" in p and "bn" in p:
+            _emit(sd, f"{prefix}{name}.conv", _tv_conv(p["conv"]))
+            _emit(sd, f"{prefix}{name}.bn", _tv_bn(p["bn"]))
+        else:
+            sd.update(inception_numpy_state_dict(p, f"{prefix}{name}."))
+    return sd

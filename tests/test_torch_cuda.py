@@ -11,6 +11,7 @@ Shapes are small and ragged (rows and tokens not multiples of the tiles) to
 reach the kernels' edge masking; `chip_smoke.py` covers the SD1.5 shapes.
 """
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -1161,3 +1162,125 @@ def test_pixart_dit_runs_the_attention_kernels(gen):
     assert not any(counts[k] for k in _build.PLAIN)
     assert torch.isfinite(eps).all()
     assert ((eps - ref).norm() / ref.norm()).item() < 0.05
+
+
+# ------------------------------------------------------- the judges (phase 16)
+JUDGE_TOL = 1e-4     # card against CPU, f32 both (chip_smoke.py JUDGE_TOL)
+
+
+def _judge(kind: str, device: str):
+    from diffusion_models_moe_tpu_torch.models import backbones as bb
+    from diffusion_models_moe_tpu_torch.models.clip_vision import (
+        CLIPVisionConfig, CLIPVisionEncoder)
+    from diffusion_models_moe_tpu_torch.models.inception import InceptionV3
+    return {"vit_l14": lambda: CLIPVisionEncoder(CLIPVisionConfig(),
+                                                 device=device),
+            "vit_b32": lambda: CLIPVisionEncoder(CLIPVisionConfig(
+                patch_size=32, hidden_size=768, intermediate_size=3072,
+                num_layers=12, num_heads=12, projection_dim=512),
+                device=device),
+            "inception": lambda: InceptionV3(device=device),
+            "lpips": lambda: bb.LPIPS(device=device),
+            "sscd": lambda: bb.SSCD(device=device)}[kind]()
+
+
+def _judge_out(kind: str, model, images):
+    from diffusion_models_moe_tpu_torch.benchmarks.fid import (
+        make_clip_featurizer, make_inception_featurizer)
+    from diffusion_models_moe_tpu_torch.models import backbones as bb
+    if kind.startswith("vit"):
+        return make_clip_featurizer(model)(images)
+    if kind == "inception":
+        return make_inception_featurizer(model)(images)
+    if kind == "lpips":
+        return bb.lpips_distance(model, images * 2 - 1, images.flip(0) * 2 - 1)
+    return bb.sscd_embed(model, bb.preprocess_imagenet(images))
+
+
+@pytest.mark.parametrize("kind", ["vit_l14", "vit_b32", "inception", "lpips",
+                                  "sscd"])
+def test_judges_on_the_card_match_the_cpu(gen, kind):
+    """Each full-width judge of phase 16 with seeded weights, on the card
+    (cuDNN's TF32 off for its convs) and on the CPU from the same state
+    dict: outputs within JUDGE_TOL; the process's TF32 flag unchanged."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    card = _judge(kind, "cuda")
+    with torch.no_grad():
+        for name, t in card.state_dict().items():
+            rn = torch.randn(t.shape, generator=gen, device="cuda")
+            if t.dim() <= 1:
+                t.copy_(torch.rand(t.shape, generator=gen, device="cuda")
+                        + 0.5 if name.endswith(("weight", "running_var"))
+                        or name.startswith("lins.") else 0.1 * rn)
+            else:
+                t.copy_(rn * ((2.0 if t.dim() == 4 else 1.0)
+                              / t[0].numel()) ** 0.5)
+    cpu = _judge(kind, "cpu")
+    cpu.load_state_dict(card.state_dict())
+    images = torch.rand((2, 3, 256, 256), generator=gen, device="cuda")
+    got = _judge_out(kind, card, images)
+    ref = _judge_out(kind, cpu, images.cpu())
+    assert torch.isfinite(got).all()
+    assert _rel(got.cpu(), ref) < JUDGE_TOL
+    assert torch.backends.cudnn.allow_tf32 == tf32
+
+
+def test_checked_generate_on_the_card(gen):
+    """`checked_generate` of a tiny f32 pipeline on the card, a checker
+    flagging image 0: image 1 bit-equal to plain `generate`'s, image 0 its
+    blur."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                tiny_config)
+    from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
+        blur_images
+    from diffusion_models_moe_tpu_torch.safety import (CLIPNSFWChecker,
+                                                       checked_generate)
+    cfg = dataclasses.replace(tiny_config(), safety_check=True,
+                              blur_nsfw=True)
+    pipe = StableDiffusionPipeline(cfg)
+    pipe.init_params(gen)
+    cond = torch.randint(0, cfg.text_encoder.vocab_size,
+                         (2, cfg.text_encoder.max_length), device="cuda",
+                         generator=gen)
+    checker = CLIPNSFWChecker(
+        lambda x: torch.eye(2, 4, device="cuda"),
+        torch.tensor([[1.0, 0, 0, 0]], device="cuda"), 0.5)
+    imgs, _, flags = checked_generate(pipe, cond, torch.zeros_like(cond),
+                                      seeds=[1, 2], num_steps=2,
+                                      checker=checker)
+    plain, _ = pipe.generate(cond, torch.zeros_like(cond), seeds=[1, 2],
+                             num_steps=2)
+    assert flags.tolist() == [True, False]
+    assert torch.equal(imgs[1], plain[1])
+    assert torch.equal(imgs[0], blur_images(plain)[0])
+
+
+def test_lpips_package_path_runs_on_the_card(gen, monkeypatch):
+    """`load_lpips` builds the lpips package's model on the card and runs
+    it there (a stub package: no environment of the repo installs it); the
+    same images on the CPU give the same distances."""
+    import types
+    from diffusion_models_moe_tpu_torch.benchmarks.scores import load_lpips
+
+    seen = []
+
+    class Stub(torch.nn.Module):
+        def __init__(self, net="alex"):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.tensor([0.5, 1.0, 2.0]))
+
+        def forward(self, a, b):
+            seen.append((a.device.type, self.w.device.type))
+            d = (a - b).square() * self.w.view(1, 3, 1, 1)
+            return d.mean(dim=(1, 2, 3), keepdim=True)
+
+    stub = types.ModuleType("lpips")
+    stub.LPIPS = Stub
+    monkeypatch.setitem(sys.modules, "lpips", stub)
+    a = torch.rand((2, 3, 64, 64), generator=gen, device="cuda")
+    b = torch.rand((2, 3, 64, 64), generator=gen, device="cuda")
+    card, cpu = load_lpips(), load_lpips(device="cpu")
+    got, ref = card(a, b), cpu(a.cpu(), b.cpu())
+    assert seen == [("cuda", "cuda"), ("cpu", "cpu")]
+    assert got.shape == (2,) and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= JUDGE_TOL * np.abs(ref).max()
