@@ -168,6 +168,27 @@ Run from the root of a checkout. Phases:
      the CLIP-feature FID, LPIPS (AlexNet) between the flagged image and
      its unblurred self, SSCD (ResNet-50 + GeM, 512-d) memorization scores
      of the images against themselves (diagonal 1 within 1e-5);
+  17. (run after 16) the erasure evaluation over the moefied SD1.5 of phase
+     3 (its seeded weights and labels) with phase 5's neuron removal: a
+     seeded full-width YOLOv8n (NudeNet's 18 classes at 320 px) written as
+     an ONNX file by the script's own writer and read by
+     `load_nudenet_native`, its boxes, probabilities and detections on the
+     card against the same module on the CPU within JUDGE_TOL; `run_eval`
+     over the first 4 I2P prompts (batch 4, PNDM 50 steps, CFG 7.5) through
+     the CLIP tokenizer of phase 16's vocabulary, the baseline generate
+     (MoE) on kernels 1-3 and the erased one (MoE + removal) on kernels 2-4,
+     816 launches each and no plain call; with no interventions a baseline
+     and its erased image bit-equal (shared noise); `i2p_protocol` over the
+     same directory skipping all 4 prompts, its count equal to the
+     detector's on the PNGs; a seeded full-width LLaVA-1.5-7B in f32 (CLIP
+     ViT-L/14-336, 32 layers of 4096, a hand-written llava-hf-layout
+     `tokenizer.json` of 32 000 pieces + <image> read by
+     `load_llama_tokenizer`) judging presence before and after through
+     `removal_score` (`vqa.batch`, 32 new tokens); its cached greedy tokens
+     equal to a teacher-forced forward's argmax, image 0 alone equal to
+     co-batched, the vision tower and the LM's embedding, first two layers,
+     norm and lm_head on the card against the CPU within JUDGE_TOL; walls of
+     the image features, prefill and decode per token, peak memory;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -381,24 +402,30 @@ FF_LAUNCHES = (("ln", ("ln_rows_kernel",)),
                ("ff_down", ("ff_down_kernel", "split_finish_kernel")))
 
 
-def launch_ms(fn, groups, iters: int = 20) -> dict:
-    """Device ms a call of fn() by group of kernel names, from torch.profiler
-    over `iters` calls."""
+def device_kernels(fn) -> dict:
+    """{device kernel name: (ms, launches)} of one call of fn(), from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        fn()
         torch.cuda.synchronize()
+    return {ev.key: (ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def launch_ms(fn, groups, iters: int = 20) -> dict:
+    """Device ms a call of fn() by group of kernel names, from torch.profiler
+    over `iters` calls."""
+    fn()
+    kernels = device_kernels(lambda: [fn() for _ in range(iters)])
     out = dict.fromkeys((g for g, _ in groups), 0.0)
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for key, (ms, _) in kernels.items():
         for g, keys in groups:
-            if any(k in ev.key for k in keys):
-                out[g] += ev.self_device_time_total / 1e3 / iters
+            if any(k in key for k in keys):
+                out[g] += ms / iters
     return out
 
 
@@ -1256,7 +1283,8 @@ def merge(moe, removal, fields):
 # ---------------------------------------------------------------- phase 5
 def run_attribution(pipe, ivs, compare, card: str) -> dict:
     """Phase 5: predictivity under MoE routing over the prompt pairs, the
-    t-test's neuron masks, and a neuron-erased generate of 2 requests."""
+    t-test's neuron masks, and a neuron-erased generate of 2 requests.
+    Returns the launch counts and the neuron-removal interventions."""
     from diffusion_models_moe_tpu_torch.analysis.collect import (
         collect_predictivity, t_test_pipeline)
     from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
@@ -1296,15 +1324,15 @@ def run_attribution(pipe, ivs, compare, card: str) -> dict:
     print(f"attribution: paired t-test (conf 0.05, {pred.n_prompts} pairs): "
           f"{n_skilled} skilled (step, neuron) entries over {len(masks)} "
           f"layers", flush=True)
-    erased = merge(ivs, neuron_removal_interventions(masks, device=DEV),
-                   ("neuron_mask", "neuron_fill"))
+    removal = neuron_removal_interventions(masks, device=DEV)
+    erased = merge(ivs, removal, ("neuron_mask", "neuron_fill"))
     cond = tok(ADJ).to(DEV)
     _, gen_launches = timed_generate(
         pipe, f"neuron erasure on {card}", cond, torch.zeros_like(cond),
         seed=5, ivs=erased,
         expect={"fused_route_multiply": 16 * calls, "geglu_ff_fused": 0})
     compare(erased, cfg.num_inference_steps, "skilled neurons removed, MoE")
-    return launches
+    return launches, removal
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3002,6 +3030,490 @@ def run_judges(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+LLAMA_PIECES = 32000         # Llama's vocabulary; <image> is added at 32000
+LLAMA_PRIORITY = "▁etaoinshrdlucmfwypvbgkqjxzETAOINSHRDLUCMFWYPVBGKQJXZ"
+EVAL_PROMPTS = 4             # the first I2P prompts, one batch of 4
+EVAL_SEED = 0
+EVAL_OBJECT = "person"
+VQA_NEW_TOKENS = 32
+LM_CHECK_TOKENS = 64         # tokens of the LM layers' card-vs-CPU check
+PROFILE_NEW_TOKENS = 8       # the profiled decode: its trace costs host time
+
+
+def write_llama_tokenizer(path: str) -> None:
+    """A llava-hf-layout `tokenizer.json` of LLAMA_PIECES pieces: <unk>,
+    <s>, </s>, the 256 byte tokens <0x00>..<0xFF> (ids 3-258), the word
+    mark and printable ASCII, every pair of those (a merge each), then
+    triples (a pair and a character, LLAMA_PRIORITY's characters first) to
+    fill; <image> added at LLAMA_PIECES. The legacy pipeline of
+    transformers' Llama converter: Prepend("▁") + Replace(" ",
+    "▁"), no pre-tokenizer, BPE with byte fallback and fused
+    unknowns, "<s> $A", decoder Replace, ByteFallback, Fuse, Strip."""
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    chars = list(dict.fromkeys(LLAMA_PRIORITY + "".join(
+        chr(c) for c in range(33, 127))))
+    for c in chars:
+        vocab[c] = len(vocab)
+    merges = []
+    for a in chars:
+        for b in chars:
+            merges.append([a, b])
+            vocab[a + b] = len(vocab)
+    done = False
+    for a in chars:
+        for b in chars:
+            for c in chars:
+                if len(vocab) == LLAMA_PIECES:
+                    done = True
+                    break
+                merges.append([a + b, c])
+                vocab[a + b + c] = len(vocab)
+            if done:
+                break
+        if done:
+            break
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(specials + ["<image>"])]
+    added[3]["id"] = LLAMA_PIECES
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "},
+             "content": "▁"}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [], "special_tokens": {"<s>": {
+                "id": "<s>", "ids": [1], "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"},
+             "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+
+
+def _pb_varint(n: int) -> bytes:
+    out = b""
+    while True:
+        b, n = n & 0x7F, n >> 7
+        if not n:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb_field(field: int, payload: bytes) -> bytes:
+    return _pb_varint(field << 3 | 2) + _pb_varint(len(payload)) + payload
+
+
+def write_yolo_onnx(sd: dict, cfg, path: str) -> int:
+    """The port's YOLOv8 state dict as a fused ONNX export: a ModelProto
+    whose graph holds one Conv node per conv in execution order (the DFL
+    conv last) and the f32 initializers under their module names (raw
+    data). Returns the bytes written."""
+    from diffusion_models_moe_tpu_torch.models.yolo import conv_execution_order
+    nodes, tensors = [], []
+    names = conv_execution_order(cfg) + ["model.22.dfl.conv"]
+    for i, name in enumerate(names):
+        inputs = [f"t{i}", f"{name}.weight"] + (
+            [f"{name}.bias"] if f"{name}.bias" in sd else [])
+        nodes.append(b"".join(_pb_field(1, x.encode()) for x in inputs)
+                     + _pb_field(2, f"t{i + 1}".encode())
+                     + _pb_field(4, b"Conv"))
+        for key in inputs[1:]:
+            arr = sd[key].detach().cpu().float().numpy()
+            tensors.append(
+                _pb_field(1, b"".join(_pb_varint(d) for d in arr.shape))
+                + _pb_varint(2 << 3) + _pb_varint(1)
+                + _pb_field(8, key.encode())
+                + _pb_field(9, np.ascontiguousarray(arr, "<f4").tobytes()))
+    graph = (b"".join(_pb_field(1, n) for n in nodes)
+             + b"".join(_pb_field(5, t) for t in tensors))
+    data = _pb_varint(1 << 3) + _pb_varint(8) + _pb_field(7, graph)
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def load_uint8(out_dir: str, prefix: str, n: int) -> list:
+    from PIL import Image
+    return [np.asarray(Image.open(os.path.join(out_dir, f"{prefix}_{i}.png")))
+            for i in range(n)]
+
+
+def lm_layers(lm, ids: torch.Tensor, n_layers: int) -> tuple:
+    """The LM's embedding, first `n_layers` decoder layers (causal, all
+    keys valid), final norm and lm_head on `ids` (B, S): (hidden, logits)."""
+    from diffusion_models_moe_tpu_torch.models.llama import (embed_tokens,
+                                                             rope_cos_sin)
+    cfg = lm.cfg
+    b, s = ids.shape
+    pos = torch.arange(s, device=ids.device).expand(b, s)
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    mask = torch.ones((b, s), dtype=torch.bool, device=ids.device)
+    with torch.no_grad():
+        x = embed_tokens(lm, ids).to(cfg.dtype)
+        for layer in lm.model.layers[:n_layers]:
+            x, _ = layer(x, cos, sin, mask)
+        h = lm.model.norm(x)
+        return x, lm.lm_head(h.float())
+
+
+def run_erasure_eval(removal, card: str) -> dict:
+    """Phase 17: the erasure evaluation over the moefied SD1.5 of phase 3
+    (its seeded weights and labels) with phase 5's neuron removal: NudeNet
+    (a seeded full-width YOLOv8n written as ONNX and read by
+    `load_nudenet_native`) on the card against the CPU; `run_eval` over the
+    first EVAL_PROMPTS I2P prompts (baseline and erased images, shared
+    noise), `i2p_protocol` resuming over them; a seeded full-width
+    LLaVA-1.5-7B in f32 judging presence before and after through
+    `removal_score`, its decode held to a teacher-forced forward and to a
+    solo decode, its vision tower and LM layers against the CPU. Returns
+    the launch counts of `run_eval`."""
+    import tempfile
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                build_moe_interventions,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.benchmarks.nudity import (
+        count_harmful, load_nudenet_native, make_native_detector)
+    from diffusion_models_moe_tpu_torch.benchmarks.protocols import \
+        i2p_protocol
+    from diffusion_models_moe_tpu_torch.benchmarks.runner import (
+        EvalRunConfig, run_eval)
+    from diffusion_models_moe_tpu_torch.benchmarks.vqa import (
+        object_question, removal_score)
+    from diffusion_models_moe_tpu_torch.data.prompts import i2p_prompts
+    from diffusion_models_moe_tpu_torch.data.tokenizer import (
+        load_llama_tokenizer, load_tokenizer)
+    from diffusion_models_moe_tpu_torch.models.clip_vision import \
+        CLIPVisionEncoder
+    from diffusion_models_moe_tpu_torch.models.llama import (
+        LlamaModel, embed_tokens, greedy_decode)
+    from diffusion_models_moe_tpu_torch.models.llava import (
+        LlavaForConditionalGeneration, build_vqa, image_features,
+        preprocess_image, prompt_template, splice_image)
+    from diffusion_models_moe_tpu_torch.models.yolo import (YOLOv8,
+                                                            yolov8n_config)
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.weights.port_llava import \
+        llava_7b_config
+    from diffusion_models_moe_tpu_torch.weights.port_nudenet import \
+        port_yolo_from_onnx
+    out: dict = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        # ---- NudeNet: a seeded YOLOv8n through its ONNX file
+        ycfg = yolov8n_config()
+        yolo_card = seed_judge(YOLOv8(ycfg, device=DEV), 41)
+        with torch.no_grad():    # the DFL conv stays the arange
+            yolo_card.model[22].dfl.conv.weight.copy_(
+                torch.arange(ycfg.reg_max, dtype=torch.float32).view(
+                    1, -1, 1, 1))
+        onnx_path = os.path.join(root, "320n.onnx")
+        n_bytes = write_yolo_onnx(yolo_card.state_dict(), ycfg, onnx_path)
+        detector = load_nudenet_native(onnx_path, device=DEV)
+        yolo_cpu = YOLOv8(ycfg, device="cpu")
+        yolo_cpu.load_state_dict(port_yolo_from_onnx(onnx_path, ycfg))
+        x = torch.rand((EVAL_PROMPTS, 3, ycfg.imgsz, ycfg.imgsz),
+                       generator=torch.Generator().manual_seed(42))
+        _, first = judge_wall(yolo_card, x.to(DEV))      # cuDNN's set-up
+        (boxes, probs), w = judge_wall(yolo_card, x.to(DEV))
+        ref_boxes, ref_probs = yolo_cpu(x)
+        for name, got, ref in (("boxes", boxes, ref_boxes),
+                               ("class probabilities", probs, ref_probs)):
+            abs_err, rel = rel_err(got.cpu(), ref)
+            print(f"eval: NudeNet YOLOv8n ({sum(p.numel() for p in yolo_card.parameters())}"
+                  f" parameters, {ycfg.num_anchors} anchors, ONNX "
+                  f"{n_bytes} bytes) {name}: card wall {w:.4f} s (first "
+                  f"call {first:.3f} s); card vs "
+                  f"CPU max abs {abs_err:.3e}, rel {rel:.3e} (tolerance "
+                  f"{JUDGE_TOL})", flush=True)
+            check(rel <= JUDGE_TOL, f"NudeNet {name}: card vs CPU rel err "
+                  f"{rel} > {JUDGE_TOL}")
+            out[f"nudenet_{name.split()[-1]}_rel_err"] = rel
+        imgs = list((x.permute(0, 2, 3, 1).numpy() * 255).round().astype(
+            np.uint8))
+        dets, w = judge_wall(detector.full, imgs)
+        cpu_dets = make_native_detector(yolo_cpu).full(imgs)
+        check([[d["class"] for d in a] for a in dets]
+              == [[d["class"] for d in a] for a in cpu_dets],
+              "NudeNet detections' labels differ between card and CPU")
+        score_err = max((abs(a["score"] - b["score"]) for da, db in
+                         zip(dets, cpu_dets) for a, b in zip(da, db)),
+                        default=0.0)
+        check(score_err <= JUDGE_TOL, f"NudeNet detection scores differ by "
+              f"{score_err} > {JUDGE_TOL}")
+        print(f"eval: NudeNet detections on {len(imgs)} seeded images: "
+              f"{[len(d) for d in dets]} after NMS, labels equal on card and "
+              f"CPU, scores within {score_err:.3e}; detector wall {w:.3f} s",
+              flush=True)
+        del yolo_cpu
+
+        # ---- the generates: baseline (moefied) and erased, shared noise
+        cfg = sd15_config(torch.bfloat16)
+        pipe = StableDiffusionPipeline(cfg, device=DEV)
+        pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+        moe = build_moe_interventions(labels_for(cfg.unet.ff_dims()), 0.3,
+                                      device=DEV, dtype=cfg.unet.dtype)
+        erased = merge(moe, removal, ("neuron_mask", "neuron_fill"))
+        tcfg = cfg.text_encoder
+        write_tokenizer(os.path.join(root, "clip"), tcfg.vocab_size)
+        tok = load_tokenizer(os.path.join(root, "clip"), tcfg.max_length)
+        per_call = []
+
+        def moefied(cond, uncond, generator, ivs=None, **kw):
+            """The moefied pipeline's generate: MoE routing unless the
+            caller's interventions (MoE + removal) replace it."""
+            before = dict(_build.LAUNCHES)
+            images, taps = pipe.generate(cond, uncond, generator,
+                                         ivs=moe if ivs is None else ivs, **kw)
+            torch.cuda.synchronize()
+            per_call.append({k: v - before.get(k, 0)
+                             for k, v in _build.LAUNCHES.items()})
+            return images, taps
+
+        prompts = i2p_prompts()[:EVAL_PROMPTS]
+        eval_dir = os.path.join(root, "i2p")
+        run_cfg = EvalRunConfig(out_dir=eval_dir, batch_size=EVAL_PROMPTS,
+                                seed=EVAL_SEED)
+        calls = unet_calls(cfg, run_cfg.num_steps)
+        _build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        summary, wall = judge_wall(lambda: run_eval(
+            pipe, tok, prompts, run_cfg, ivs=erased, generate_fn=moefied))
+        launches = dict(_build.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"eval: run_eval over {len(prompts)} I2P prompts (batch "
+              f"{EVAL_PROMPTS}, PNDM {run_cfg.num_steps} steps, CFG "
+              f"{run_cfg.guidance_scale}, seed {EVAL_SEED}): baseline "
+              f"(MoE) and erased (MoE + phase 5's removal) generates, wall "
+              f"{wall:.3f} s, peak memory {peak_gib:.2f} GiB; summary "
+              f"{summary}; launches {launches}; per generate {per_call}",
+              flush=True)
+        check(summary["generated"] == len(prompts) and summary["skipped"] == 0,
+              f"run_eval summary {summary}")
+        base_expect = {k: 16 * calls if k in (
+            "geglu_ff_fused", "sd_self_attention", "sd_cross_attention")
+            else 0 for k in _build.KERNELS}
+        erased_expect = {k: 16 * calls if k in (
+            "fused_route_multiply", "sd_self_attention",
+            "sd_cross_attention") else 0 for k in _build.KERNELS}
+        check(len(per_call) == 2, f"{len(per_call)} generate calls")
+        for what, got, expect in (("baseline", per_call[0], base_expect),
+                                  ("erased", per_call[1], erased_expect)):
+            for name, count in expect.items():
+                check(got[name] == count, f"{what} generate: kernel {name} "
+                      f"launched {got[name]} times, expected {count}")
+        check_no_plain(launches, "run_eval")
+        out.update(run_eval_s=wall, run_eval_peak_gib=peak_gib)
+
+        # shared noise: with ivs=None both calls take the MoE path alone
+        same_dir = os.path.join(root, "same")
+        run_eval(pipe, tok, prompts[:1],
+                 EvalRunConfig(out_dir=same_dir, batch_size=1,
+                               seed=EVAL_SEED), ivs=None,
+                 generate_fn=moefied)
+        a, b = load_uint8(same_dir, "sd", 1)[0], load_uint8(
+            same_dir, "removed", 1)[0]
+        check(np.array_equal(a, b), "with ivs=None sd_0 and removed_0 differ")
+        base_imgs = load_uint8(eval_dir, "sd", len(prompts))
+        erased_imgs = load_uint8(eval_dir, "removed", len(prompts))
+        moved = [float(np.abs(p.astype(np.int16) - q).mean())
+                 for p, q in zip(base_imgs, erased_imgs)]
+        print(f"eval: with ivs=None sd_0 and removed_0 bit-equal (shared "
+              f"noise); the removal moves the images by {moved} (mean "
+              f"|uint8 diff|)", flush=True)
+
+        # ---- the I2P count: resume skips every prompt
+        _build.reset_launch_counts()
+        result = i2p_protocol(pipe, tok, eval_dir, detector, ivs=erased,
+                              limit=EVAL_PROMPTS, batch_size=EVAL_PROMPTS,
+                              generate_fn=moefied)
+        with open(os.path.join(eval_dir, "run_summary.json")) as f:
+            resumed = json.load(f)
+        direct = count_harmful(detector(erased_imgs))
+        direct["n_prompts"] = len(prompts)
+        print(f"eval: i2p_protocol(limit={EVAL_PROMPTS}) resumed "
+              f"{resumed}: {result}; launches {sum(_build.LAUNCHES.values())}",
+              flush=True)
+        check(resumed["generated"] == 0 and resumed["skipped"] == len(prompts),
+              f"i2p_protocol did not skip every prompt: {resumed}")
+        check(sum(_build.LAUNCHES.values()) == 0,
+              "i2p_protocol launched kernels on a resumed run")
+        check(result == direct, f"I2P count {result} != the detector's on "
+              f"the PNGs {direct}")
+        out["i2p"] = result
+        del pipe, moe, erased
+        torch.cuda.empty_cache()
+
+        # ---- LLaVA-1.5-7B at full width, f32
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lcfg = llava_7b_config()
+        llava = seed_judge(LlavaForConditionalGeneration(lcfg, device=DEV), 43)
+        write_llama_tokenizer(os.path.join(root, "llava"))
+        encode, decode = load_llama_tokenizer(os.path.join(root, "llava"))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in llava.parameters())
+        print(f"eval: LLaVA-1.5-7B ({n_params} parameters, f32) built and "
+              f"seeded on the card, tokenizer ({LLAMA_PIECES} pieces + "
+              f"<image>) written and read in {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+        vqa = build_vqa(llava, encode, decode, max_new_tokens=VQA_NEW_TOKENS)
+        question = object_question(EVAL_OBJECT)
+        score, w = judge_wall(removal_score, vqa, base_imgs, erased_imgs,
+                              question)
+        print(f"eval: removal_score({question!r}) over {len(base_imgs)} "
+              f"baseline and {len(erased_imgs)} erased images: {score}; wall "
+              f"{w:.3f} s", flush=True)
+        out["removal_score"] = score
+
+        ids = encode(prompt_template(question))
+        pixels = torch.from_numpy(np.stack([
+            preprocess_image(img, lcfg.vision.image_size)
+            for img in base_imgs])).permute(0, 3, 1, 2).to(DEV)
+        feats, t_feat = judge_wall(image_features, llava, pixels)
+        embeds, length = splice_image(llava, ids, feats)
+        lengths = torch.full((len(base_imgs),), length, device=DEV)
+        lm = llava.language_model
+        _, t_prefill = judge_wall(greedy_decode, lm, embeds, lengths, 1,
+                                  lcfg.eos_id)
+        toks, t_full = judge_wall(greedy_decode, lm, embeds, lengths,
+                                  VQA_NEW_TOKENS, lcfg.eos_id)
+        answers = vqa.batch(base_imgs, question)
+        texts = [decode([int(t) for t in row if int(t) not in
+                         (0, lcfg.eos_id)]) for row in toks.tolist()]
+        check(answers == texts, f"vqa.batch answers {answers} != the decoded "
+              f"tokens {texts}")
+        # (a) the cached decode against a teacher-forced full forward
+        seq = torch.cat([embeds, embed_tokens(lm, toks[:, :-1]).to(
+            embeds.dtype)], dim=1)
+        pos = torch.arange(seq.shape[1], device=DEV).expand(len(toks), -1)
+        logits, _ = lm(seq, pos, torch.ones(pos.shape, dtype=torch.bool,
+                                             device=DEV))
+        tail = logits[:, length - 1:]
+        forced = tail.argmax(dim=-1)
+        top2 = tail.topk(2, dim=-1).values
+        margins = []
+        for r in range(len(toks)):
+            row = toks[r].tolist()
+            n = row.index(lcfg.eos_id) + 1 if lcfg.eos_id in row else len(row)
+            check(forced[r, :n].tolist() == row[:n],
+                  f"image {r}: cached greedy tokens {row[:n]} != the "
+                  f"teacher-forced argmax {forced[r, :n].tolist()}")
+            margins.append((top2[r, :n, 0] - top2[r, :n, 1]).min().item())
+        # (b) image 0 alone decodes as co-batched
+        solo = greedy_decode(lm, embeds[:1], lengths[:1], VQA_NEW_TOKENS,
+                             lcfg.eos_id)
+        check(torch.equal(solo[0], toks[0]), "image 0 alone decodes "
+              f"{solo[0].tolist()}, co-batched {toks[0].tolist()}")
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_token = (t_full - t_prefill) / (VQA_NEW_TOKENS - 1)
+        prompt_len = len(ids)
+        print(f"eval: LLaVA decode of {len(toks)} images, prompt {prompt_len}"
+              f" ids -> {length} positions with {lcfg.num_image_tokens} image"
+              f" tokens, {VQA_NEW_TOKENS} new tokens: image features "
+              f"{t_feat:.3f} s, prefill {t_prefill:.3f} s, decode "
+              f"{per_token * 1e3:.2f} ms a token; peak memory {peak_gib:.2f} "
+              f"GiB; cached tokens equal the teacher-forced argmax (smallest "
+              f"top-2 margin {min(margins):.4e}); image 0 alone equal to "
+              f"co-batched; answers {answers}", flush=True)
+        out.update(llava_params=n_params, image_features_s=t_feat,
+                   prefill_s=t_prefill, decode_ms_per_token=per_token * 1e3,
+                   llava_peak_gib=peak_gib, min_top2_margin=min(margins))
+
+        # (c) the vision tower and the LM layers against the CPU
+        tower = CLIPVisionEncoder(lcfg.vision, device="cpu")
+        tower.visual_projection = None
+        tower.load_state_dict({k[len("vision_tower."):]: v.cpu() for k, v in
+                               llava.state_dict().items()
+                               if k.startswith("vision_tower.")})
+        got, w = judge_wall(lambda: llava.vision_tower(
+            pixels[:1], feature_layer=lcfg.vision_feature_layer))
+        ref = tower(pixels[:1].cpu(), feature_layer=lcfg.vision_feature_layer)
+        abs_err, rel = rel_err(got.cpu(), ref)
+        print(f"eval: LLaVA vision tower (CLIP ViT-L/14-336, penultimate "
+              f"layer, 577 tokens) on one image: card wall {w:.3f} s; card "
+              f"vs CPU max abs {abs_err:.3e}, rel {rel:.3e} (tolerance "
+              f"{JUDGE_TOL})", flush=True)
+        check(rel <= JUDGE_TOL, f"LLaVA vision tower: card vs CPU {rel}")
+        out["vision_rel_err"] = rel
+        del tower
+        cpu_lm = LlamaModel(dataclasses.replace(lcfg.text, num_layers=2),
+                            device="cpu")
+        keep = ("model.embed_tokens.", "model.norm.", "lm_head.",
+                "model.layers.0.", "model.layers.1.")
+        cpu_lm.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()
+                                if k.startswith(keep)})
+        tok_ids = torch.randint(0, LLAMA_PIECES, (1, LM_CHECK_TOKENS),
+                                generator=torch.Generator().manual_seed(44))
+        (hid, log), w = judge_wall(lm_layers, lm, tok_ids.to(DEV), 2)
+        ref_hid, ref_log = lm_layers(cpu_lm, tok_ids, 2)
+        for key, name, got, ref in (
+                ("lm_layers", "two decoder layers' output", hid, ref_hid),
+                ("lm_logits", "lm_head logits", log, ref_log)):
+            abs_err, rel = rel_err(got.cpu(), ref)
+            print(f"eval: LLaMA-7B embedding + {name} on {LM_CHECK_TOKENS} "
+                  f"tokens: card wall {w:.3f} s; card vs CPU max abs "
+                  f"{abs_err:.3e}, rel {rel:.3e} (tolerance {JUDGE_TOL})",
+                  flush=True)
+            check(rel <= JUDGE_TOL, f"LLaMA {name}: card vs CPU {rel}")
+            out[f"{key}_rel_err"] = rel
+        # (d) a decode token's device time, by the profiler, against its
+        # unprofiled wall above: the difference between a 1-token and a
+        # PROFILE_NEW_TOKENS-token decode over the same prefill. Last in the
+        # phase: a process whose card the profiler has traced launches slower.
+        prefill_k = device_kernels(lambda: greedy_decode(
+            lm, embeds, lengths, 1, lcfg.eos_id))
+        decode_k = device_kernels(lambda: greedy_decode(
+            lm, embeds, lengths, PROFILE_NEW_TOKENS, lcfg.eos_id))
+        steps = PROFILE_NEW_TOKENS - 1
+        per_step = {k: ((ms - prefill_k.get(k, (0.0, 0))[0]) / steps,
+                        (n - prefill_k.get(k, (0.0, 0))[1]) / steps)
+                    for k, (ms, n) in decode_k.items()}
+        dev_ms = sum(ms for ms, _ in per_step.values())
+        step_launches = sum(n for _, n in per_step.values())
+        if dev_ms > 0:
+            top = sorted(per_step.items(), key=lambda kv: -kv[1][0])[:4]
+            print(f"eval: LLaVA decode, a token: device {dev_ms:.3f} ms (the "
+                  f"profiler) of {per_token * 1e3:.3f} ms of wall, busy share "
+                  f"{dev_ms / (per_token * 1e3):.4f}; {step_launches:.1f} "
+                  f"launches a token; the most device time: " + "; ".join(
+                      f"{k[:60]} {ms:.3f} ms x {n:.1f}"
+                      for k, (ms, n) in top), flush=True)
+            out.update(decode_device_ms_per_token=dev_ms,
+                       decode_busy_share=dev_ms / (per_token * 1e3),
+                       decode_launches_per_token=step_launches)
+        else:
+            print("eval: LLaVA decode, a token: device time not measured "
+                  "(the profiler saw no device kernels)", flush=True)
+        del cpu_lm, llava, lm, vqa
+        torch.cuda.empty_cache()
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    print("eval: " + json.dumps(out), flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -3070,7 +3582,7 @@ def main() -> None:
     phase_done("4 (latents)")
     run_off_kernels(modes_off.pop("pipe32"), cond, uncond, card)
     phase_done("4b (f32 and tiny_config generates on the plain versions)")
-    attribution_launches = run_attribution(pipe, ivs, compare, card)
+    attribution_launches, removal = run_attribution(pipe, ivs, compare, card)
     phase_done("5 (attribution and neuron erasure)")
     wanda_launches = run_wanda(pipe, ivs, images, card)
     phase_done("6 (wanda erasure and bake)")
@@ -3096,6 +3608,9 @@ def main() -> None:
     phase_done("15 (PixArt-512: T5-XXL, the DiT, taps and removal)")
     judge_launches = run_judges(card)
     phase_done("16 (checked_generate and the judges at full width)")
+    eval_launches = run_erasure_eval(removal, card)
+    del removal
+    phase_done("17 (the erasure evaluation: NudeNet, run_eval, I2P, LLaVA)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -3108,7 +3623,8 @@ def main() -> None:
         **{f"sd15_{k}": v for k, v in other_launches.items()},
         "sld": sld_launches, "snapshot_routed": snapshot_launches,
         **{f"sdxl_{k}": v for k, v in sdxl_launches.items()},
-        "pixart": pixart_launches, "checked_generate": judge_launches}))
+        "pixart": pixart_launches, "checked_generate": judge_launches,
+        "erasure_eval": eval_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [

@@ -1,9 +1,11 @@
-"""A reader of T5's tokenizer files that needs neither `tokenizers`,
-`sentencepiece` nor `protobuf` (the port's GPU host has none of them).
+"""A reader of T5's and Llama's tokenizer files that needs neither
+`tokenizers`, `sentencepiece` nor `protobuf` (the port's GPU host has none of
+them).
 
 `Tokenizer.from_file` reads an HF `tokenizer.json`, `Tokenizer.from_spm` a
 sentencepiece `spiece.model`; `encode(text)` gives the ids that `tokenizers`
-gives for the same file. The pipeline is that of `tokenizers`:
+gives for the same file, and `decode(ids)` the text its `decode` gives. The
+pipeline is that of `tokenizers`:
 
 1. the added tokens with `normalized: false` are split out of the text
    (leftmost, longest first; `lstrip`/`rstrip` take the whitespace beside
@@ -14,13 +16,23 @@ gives for the same file. The pipeline is that of `tokenizers`:
 3. the post-processor frames the ids.
 
 Components read: normalizers `Sequence`, `Precompiled` (a sentencepiece
-charsmap) and `Replace`; pre-tokenizers `Sequence`, `Metaspace`,
+charsmap), `Replace` and `Prepend`; pre-tokenizers `Sequence`, `Metaspace`
+(`split` or not; `prepend_scheme` always, first or never),
 `WhitespaceSplit` and `Whitespace`; models `Unigram` (Viterbi over the
 piece scores, unknown characters at the lowest score less 10, runs of them
-fused into one unknown id) and `WordLevel`; post-processor
-`TemplateProcessing` (its `single` template). Any other component, an
-added token with `single_word`, a Unigram with `byte_fallback`, or a file
-that sets `truncation` or `padding`, raises `NotImplementedError` naming it.
+fused into one unknown id), `WordLevel` and `BPE` (Llama's: merges by rank,
+as "a b" strings or as pairs, applied lowest rank first and leftmost among
+equal ranks, as `tokenizers`' priority queue does; a character outside the
+vocabulary as its UTF-8 bytes' `<0xXX>` tokens with `byte_fallback`, else
+as `unk_token`, runs of unknowns fused with `fuse_unk`; `ignore_merges`);
+post-processor `TemplateProcessing` (its `single` template); decoders
+`Sequence`, `Replace`, `ByteFallback` (a run of `<0xXX>` tokens becomes its
+UTF-8 text, or U+FFFD for each byte where it is not valid UTF-8), `Fuse`,
+`Strip` and `Metaspace`. Any other component, an added token with
+`single_word`, a Unigram with `byte_fallback`, a BPE with `dropout`,
+`continuing_subword_prefix` or `end_of_word_suffix` (a byte-level BPE
+shows as its `ByteLevel` pre-tokenizer), or a file that sets `truncation`
+or `padding`, raises `NotImplementedError` naming it.
 
 A `spiece.model` is a protobuf `ModelProto`, read here by a small wire
 reader: `pieces` (piece, score), `trainer_spec.unk_id`, `model_type` and
@@ -47,6 +59,7 @@ from __future__ import annotations
 import base64
 import bisect
 import functools
+import heapq
 import json
 import os
 import re
@@ -206,6 +219,10 @@ class _Chain:
         return text
 
 
+def _prepend(prefix: str):
+    return lambda text: prefix + text if text else text
+
+
 def _normalizer(spec: Optional[dict]):
     if spec is None:
         return None
@@ -216,6 +233,8 @@ def _normalizer(spec: Optional[dict]):
         return Precompiled(base64.b64decode(spec["precompiled_charsmap"]))
     if kind == "Replace":
         return Replace(spec)
+    if kind == "Prepend":
+        return _prepend(spec["prepend"])
     raise NotImplementedError(f"normalizer {kind!r}")
 
 
@@ -314,6 +333,9 @@ class Unigram:
         self.min_score = min((s for _, s in self.pieces), default=0.0)
         self.max_len = max((len(p) for p, _ in self.pieces), default=0)
 
+    def id_to_token(self, tid: int) -> Optional[str]:
+        return self.pieces[tid][0] if 0 <= tid < len(self.pieces) else None
+
     def tokenize(self, text: str) -> list[int]:
         n = len(text)
         if n == 0:
@@ -364,7 +386,11 @@ class Unigram:
 class WordLevel:
     def __init__(self, vocab: dict, unk_token: Optional[str]):
         self.ids = dict(vocab)
+        self.tokens = {i: t for t, i in self.ids.items()}
         self.unk_token = unk_token
+
+    def id_to_token(self, tid: int) -> Optional[str]:
+        return self.tokens.get(tid)
 
     def tokenize(self, text: str) -> list[int]:
         if text in self.ids:
@@ -375,6 +401,103 @@ class WordLevel:
         return [self.ids[self.unk_token]]
 
 
+class BPE:
+    """`tokenizers`' BPE model (`merge_word` and `Word::merge_all`): a word
+    is split into characters (each a vocabulary id, its UTF-8 bytes'
+    `<0xXX>` ids with `byte_fallback`, else the unknown id, a run of unknowns
+    fused into one with `fuse_unk`; a pending unknown is placed when the
+    next in-vocabulary character or the word's end comes, so byte tokens
+    may go before it, as there), then adjacent pairs merge lowest rank
+    first, the leftmost among equal ranks."""
+
+    def __init__(self, spec: dict):
+        for key in ("dropout", "continuing_subword_prefix",
+                    "end_of_word_suffix"):
+            if spec.get(key) is not None:
+                raise NotImplementedError(f"model 'BPE' with {key}")
+        self.ids = dict(spec["vocab"])
+        self.tokens = {i: t for t, i in self.ids.items()}
+        self.unk_token = spec.get("unk_token")
+        self.fuse_unk = bool(spec.get("fuse_unk", False))
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
+        self.ignore_merges = bool(spec.get("ignore_merges", False))
+        self.merges: dict[tuple[int, int], tuple[int, int]] = {}
+        for rank, merge in enumerate(spec.get("merges", [])):
+            a, b = merge.split(" ") if isinstance(merge, str) else merge
+            new_id = self.ids.get(a + b)
+            if a not in self.ids or b not in self.ids or new_id is None:
+                raise ValueError(f"BPE merge {a!r} {b!r}: a part or the "
+                                 "merged token is not in the vocabulary")
+            self.merges[(self.ids[a], self.ids[b])] = (rank, new_id)
+
+    def id_to_token(self, tid: int) -> Optional[str]:
+        return self.tokens.get(tid)
+
+    def _unk_id(self) -> int:
+        if self.unk_token not in self.ids:
+            raise ValueError(f"unk_token {self.unk_token!r} is not in the "
+                             "vocabulary")
+        return self.ids[self.unk_token]
+
+    def _symbols(self, word: str) -> list[int]:
+        syms: list[int] = []
+        unk: Optional[int] = None       # the pending unknown, not yet placed
+        for c in word:
+            tid = self.ids.get(c)
+            if tid is not None:
+                if unk is not None:
+                    syms.append(unk)
+                    unk = None
+                syms.append(tid)
+                continue
+            if self.byte_fallback:
+                codes = [self.ids.get(f"<0x{b:02X}>") for b in c.encode("utf-8")]
+                if all(t is not None for t in codes):
+                    syms.extend(codes)
+                    continue
+            if self.unk_token is not None:
+                if unk is not None and not self.fuse_unk:
+                    syms.append(unk)
+                unk = self._unk_id()
+        if unk is not None:
+            syms.append(unk)
+        return syms
+
+    def tokenize(self, word: str) -> list[int]:
+        if not word:
+            return []
+        if self.ignore_merges and word in self.ids:
+            return [self.ids[word]]
+        c = self._symbols(word)
+        n = len(c)
+        nxt = list(range(1, n)) + [-1]
+        prv = list(range(-1, n - 1))
+        alive = [True] * n
+        heap = [(m[0], i, m[1]) for i in range(n - 1)
+                if (m := self.merges.get((c[i], c[i + 1]))) is not None]
+        heapq.heapify(heap)
+        while heap:
+            _, pos, new_id = heapq.heappop(heap)
+            right = nxt[pos]
+            if not alive[pos] or right == -1:
+                continue
+            m = self.merges.get((c[pos], c[right]))
+            if m is None or m[1] != new_id:        # a stale entry
+                continue
+            c[pos] = new_id
+            alive[right] = False
+            nxt[pos] = nxt[right]
+            if nxt[pos] != -1:
+                prv[nxt[pos]] = pos
+            if prv[pos] != -1 and (m := self.merges.get(
+                    (c[prv[pos]], new_id))) is not None:
+                heapq.heappush(heap, (m[0], prv[pos], m[1]))
+            if nxt[pos] != -1 and (m := self.merges.get(
+                    (new_id, c[nxt[pos]]))) is not None:
+                heapq.heappush(heap, (m[0], pos, m[1]))
+        return [c[i] for i in range(n) if alive[i]]
+
+
 def _model(spec: dict):
     kind = spec.get("type")
     if kind == "Unigram":
@@ -382,7 +505,93 @@ def _model(spec: dict):
                        spec.get("byte_fallback", False))
     if kind == "WordLevel":
         return WordLevel(spec["vocab"], spec.get("unk_token"))
+    if kind == "BPE":
+        return BPE(spec)
     raise NotImplementedError(f"model {kind!r}")
+
+
+# -------------------------------------------------------------------- decoders
+# a decoder maps the list of token strings to another (`decode_chain`)
+def _byte_fallback(tokens: list[str]) -> list[str]:
+    out: list[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" * len(run))
+            run.clear()
+
+    for tok in tokens:
+        if len(tok) == 6 and tok.startswith("<0x") and tok.endswith(">"):
+            try:
+                run.append(int(tok[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        flush()
+        out.append(tok)
+    flush()
+    return out
+
+
+def _strip(content: str, start: int, stop: int):
+    def run(tokens):
+        out = []
+        for tok in tokens:
+            lead = 0
+            while lead < min(start, len(tok)) and tok[lead] == content:
+                lead += 1
+            trail = 0
+            while (trail < min(stop, len(tok) - lead)
+                   and tok[len(tok) - 1 - trail] == content):
+                trail += 1
+            out.append(tok[lead:len(tok) - trail])
+        return out
+    return run
+
+
+def _metaspace_decoder(spec: dict):
+    rep = spec.get("replacement", "▁")
+    scheme = spec.get("prepend_scheme")
+    if scheme is None:
+        scheme = "always" if spec.get("add_prefix_space", True) else "never"
+
+    def run(tokens):
+        # the first token loses every replacement character unless the
+        # scheme is "never"; elsewhere each becomes a space
+        return [tok.replace(rep, "" if i == 0 and scheme != "never" else " ")
+                for i, tok in enumerate(tokens)]
+    return run
+
+
+def _decoder(spec: Optional[dict]):
+    if spec is None:
+        return None
+    kind = spec["type"]
+    if kind == "Sequence":
+        parts = [_decoder(d) for d in spec["decoders"]]
+
+        def run(tokens):
+            for part in parts:
+                tokens = part(tokens)
+            return tokens
+        return run
+    if kind == "Replace":
+        rep = Replace(spec)
+        return lambda tokens: [rep(t) for t in tokens]
+    if kind == "ByteFallback":
+        return _byte_fallback
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Strip":
+        return _strip(spec["content"], spec.get("start", 0),
+                      spec.get("stop", 0))
+    if kind == "Metaspace":
+        return _metaspace_decoder(spec)
+    raise NotImplementedError(f"decoder {kind!r}")
 
 
 def _post_processor(spec: Optional[dict]):
@@ -468,9 +677,12 @@ class Tokenizer:
         self.pre_tokenizer = _pre_tokenizer(spec.get("pre_tokenizer"))
         self.model = _model(spec["model"])
         self.post_processor = _post_processor(spec.get("post_processor"))
+        self.decoder = _decoder(spec.get("decoder"))
         added = spec.get("added_tokens") or []
         self.added = _AddedTokens(added, self.normalizer)
         self.added_ids = {t["content"]: t["id"] for t in added}
+        self.added_tokens = {t["id"]: t["content"] for t in added}
+        self.special = {t["content"] for t in added if t.get("special")}
 
     @classmethod
     def from_file(cls, path: str) -> "Tokenizer":
@@ -523,6 +735,24 @@ class Tokenizer:
                 for part, _ in self.pre_tokenizer([(sub, at_origin and j == 0)]):
                     ids.extend(self.model.tokenize(part))
         return self.post_processor(ids)
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = True
+               ) -> str:
+        """Ids -> text as `tokenizers`' `decode`: each id's token (added
+        tokens first; unknown ids dropped, special ones too with
+        `skip_special_tokens`) through the decoder, or joined by spaces
+        where the file has none."""
+        tokens = []
+        for tid in ids:
+            tok = self.added_tokens.get(int(tid))
+            if tok is None:
+                tok = self.model.id_to_token(int(tid))
+            if tok is None or (skip_special_tokens and tok in self.special):
+                continue
+            tokens.append(tok)
+        if self.decoder is None:
+            return " ".join(tokens)
+        return "".join(self.decoder(tokens))
 
 
 # ------------------------------------------------------------------ protobuf

@@ -270,3 +270,36 @@ def load_t5_tokenizer(path: str, max_length: int = 120
         return ids, mask
 
     return tokenize
+
+
+def load_llama_tokenizer(path: str):
+    """Llama/Vicuna tokenizer of the LLaVA judge (`models/llava.py`) from a
+    snapshot's `tokenizer.json`, read by the port's own reader
+    (`data/_native_unigram.py`: its BPE with byte fallback, the legacy
+    `Prepend` + `Replace` normalizer and the newer `Metaspace` layout,
+    '<image>' as an added token; no `tokenizers`). Returns (encode,
+    decode): encode(text) -> 1-D int32 ids with BOS prepended where the
+    file's post-processor did not put it first; decode(ids) -> text,
+    special tokens skipped, stripped."""
+    from diffusion_models_moe_tpu_torch.data._native_unigram import Tokenizer
+    json_path = os.path.join(path, "tokenizer.json")
+    if not os.path.exists(json_path):
+        # tokenizer.model alone is sentencepiece BPE; every llava-hf
+        # snapshot ships tokenizer.json
+        raise FileNotFoundError(
+            f"no tokenizer.json under {path!r} (a raw tokenizer.model is not "
+            "read: re-save the tokenizer with transformers to produce "
+            "tokenizer.json)")
+    tok = Tokenizer.from_file(json_path)
+    bos_id = tok.token_to_id("<s>")
+
+    def encode(text: str) -> np.ndarray:
+        ids = tok.encode(text)
+        if bos_id is not None and (not ids or ids[0] != bos_id):
+            ids = [bos_id] + list(ids)
+        return np.asarray(ids, np.int32)
+
+    def decode(ids) -> str:
+        return tok.decode([int(i) for i in ids]).strip()
+
+    return encode, decode

@@ -18,7 +18,13 @@ parameter -> `pos_embed.pos_embed`). The judges' trees
 `lpips_numpy_state_dict`, `inception_numpy_state_dict`) become the state
 dicts of the port's CLIP vision tower (transformers' names) and backbones
 (torchvision's names; batch norm's scale, bias, mean and var -> weight,
-bias, running_mean and running_var).
+bias, running_mean and running_var). The erasure judges' trees
+(`yolo_numpy_state_dict`, `llama_numpy_state_dict`,
+`llava_numpy_state_dict`) become the state dicts of the port's `YOLOv8`
+(ultralytics' names, fused convs, the DFL arange), `LlamaModel`
+(transformers' `LlamaForCausalLM` names) and
+`LlavaForConditionalGeneration` (llava-hf names; its tower without the
+projection head).
 """
 from __future__ import annotations
 
@@ -296,12 +302,18 @@ def clip_vision_numpy_state_dict(params: dict, cfg) -> dict:
               np.transpose(_np(params["patch_embedding"]["kernel"]),
                            (3, 2, 0, 1))),
           f"{pre}.embeddings.position_embedding.weight":
-              _np(params["position_embedding"]),
-          "visual_projection.weight": np.ascontiguousarray(
-              _np(params["visual_projection"]["kernel"]).T)}
+              _np(params["position_embedding"])}
+    # LLaVA's tower (JAX `port_vision_tower`) has no projection and may lack
+    # the post-layernorm and its last layers
+    if "visual_projection" in params:
+        sd["visual_projection.weight"] = np.ascontiguousarray(
+            _np(params["visual_projection"]["kernel"]).T)
     _emit(sd, f"{pre}.pre_layrnorm", _norm(params["pre_layernorm"]))
-    _emit(sd, f"{pre}.post_layernorm", _norm(params["post_layernorm"]))
+    if "post_layernorm" in params:
+        _emit(sd, f"{pre}.post_layernorm", _norm(params["post_layernorm"]))
     for i in range(cfg.num_layers):
+        if f"layers_{i}" not in params:
+            break
         lp, p = f"{pre}.encoder.layers.{i}", params[f"layers_{i}"]
         _emit(sd, f"{lp}.layer_norm1", _norm(p["layer_norm1"]))
         _emit(sd, f"{lp}.layer_norm2", _norm(p["layer_norm2"]))
@@ -394,4 +406,62 @@ def inception_numpy_state_dict(params: dict, prefix: str = "") -> dict:
             _emit(sd, f"{prefix}{name}.bn", _tv_bn(p["bn"]))
         else:
             sd.update(inception_numpy_state_dict(p, f"{prefix}{name}."))
+    return sd
+
+
+def yolo_numpy_state_dict(params: dict) -> dict:
+    """models/yolo.py params (fused convs {kernel HWIO, bias}) -> the port's
+    `YOLOv8` state dict (ultralytics names, the DFL arange included)."""
+    sd: dict = {}
+    for idx, p in params["layers"].items():
+        if "kernel" in p:                               # a plain Conv module
+            _emit(sd, f"model.{idx}.conv", _tv_conv(p))
+            continue
+        for part, q in p.items():                       # C2f / SPPF
+            if part == "m":
+                for j, blk in enumerate(q):
+                    for name in ("cv1", "cv2"):
+                        _emit(sd, f"model.{idx}.m.{j}.{name}.conv",
+                              _tv_conv(blk[name]))
+            else:
+                _emit(sd, f"model.{idx}.{part}.conv", _tv_conv(q))
+    for branch in ("cv2", "cv3"):
+        for i, convs in enumerate(params["detect"][branch]):
+            for j, p in enumerate(convs):
+                _emit(sd, f"model.22.{branch}.{i}.{j}"
+                      + ("" if j == 2 else ".conv"), _tv_conv(p))
+    reg_max = _np(params["detect"]["cv2"][0][2]["kernel"]).shape[-1] // 4
+    sd["model.22.dfl.conv.weight"] = np.arange(
+        reg_max, dtype=np.float32).reshape(1, reg_max, 1, 1)
+    return sd
+
+
+def llama_numpy_state_dict(params: dict, cfg) -> dict:
+    """models/llama.py params (with `embed_tokens`) -> the port's
+    `LlamaModel` state dict (transformers' `LlamaForCausalLM` names)."""
+    sd = {"model.embed_tokens.weight": _np(params["embed_tokens"]),
+          "model.norm.weight": _np(params["norm"]["weight"]),
+          "lm_head.weight": np.ascontiguousarray(
+              _np(params["lm_head"]["kernel"]).T)}
+    for i in range(cfg.num_layers):
+        lp, p = f"model.layers.{i}", params[f"layers_{i}"]
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{lp}.{norm}.weight"] = _np(p[norm]["weight"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _emit(sd, f"{lp}.self_attn.{name}", _linear(p["self_attn"][name]))
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _emit(sd, f"{lp}.mlp.{name}", _linear(p[name]))
+    return sd
+
+
+def llava_numpy_state_dict(params: dict, cfg) -> dict:
+    """models/llava.py params ({vision, projector, language}) -> the port's
+    `LlavaForConditionalGeneration` state dict (llava-hf names)."""
+    sd = {f"vision_tower.{k}": v for k, v in
+          clip_vision_numpy_state_dict(params["vision"], cfg.vision).items()}
+    for i in (1, 2):
+        _emit(sd, f"multi_modal_projector.linear_{i}",
+              _linear(params["projector"][f"linear_{i}"]))
+    for k, v in llama_numpy_state_dict(params["language"], cfg.text).items():
+        sd[f"language_model.{k}"] = v
     return sd

@@ -31,6 +31,7 @@ from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import (
     absorbed_self_attention, attn_absorb_ok, attn_out_residual_fused,
     attn_out_residual_reference, ln_apply, ln_qkv_fused, ln_qkv_reference)
 from torch_parity import block_state_dict, rel_err
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 KERNEL_TOL = 2e-5   # max |diff| / max |ref|: the JAX kernel tests' own limit
 BLOCK_TOL = 2e-4    # the limit of the port's model parity tests

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import torch_parity
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu import config as jcfg
 from diffusion_models_moe_tpu.analysis import collect as jcollect
 from diffusion_models_moe_tpu.analysis import selectors as jsel

@@ -25,6 +25,7 @@ from diffusion_models_moe_tpu_torch.ops import _build
 from diffusion_models_moe_tpu_torch.ops.conv_chain_fused import (
     chain_ok, conv3x3_chain, conv3x3_chain_reference, gn_scale_shift)
 from torch_parity import block_state_dict, rel_err
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 KERNEL_TOL = 1e-5   # max |diff| / max |ref|
 BLOCK_TOL = 2e-4    # the limit of the port's model parity tests

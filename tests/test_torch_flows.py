@@ -25,6 +25,7 @@ from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
 from diffusion_models_moe_tpu_torch.taps import TapSpec
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _objective(p: dict) -> float:

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu import safety as jsafety
 from diffusion_models_moe_tpu.benchmarks import clip_iqa as jiqa
 from diffusion_models_moe_tpu.benchmarks import clip_metrics as jcm

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu.benchmarks import fid as jfid
 from diffusion_models_moe_tpu.benchmarks import memorization as jmem
 from diffusion_models_moe_tpu.benchmarks import scores as jscores

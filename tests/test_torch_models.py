@@ -36,6 +36,7 @@ from diffusion_models_moe_tpu_torch.moefication.moefy import \
 from diffusion_models_moe_tpu_torch.schedulers.pndm import PNDMScheduler
 from diffusion_models_moe_tpu_torch.taps import LayerIntervention, layer_name
 from diffusion_models_moe_tpu_torch.weights import bridge
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 2e-4
 

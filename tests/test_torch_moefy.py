@@ -20,6 +20,7 @@ from diffusion_models_moe_tpu_torch.moefication import (cluster, moefy,
                                                         native, routers)
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 # |plan_port - plan_jax| / max plan_jax after 50 float32 log-domain
 # iterations: a few hundred float32 ulps of the largest entry

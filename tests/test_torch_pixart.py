@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu.models.pixart import \
     PixArtTransformer2D as JaxDiT
 from diffusion_models_moe_tpu.pipelines.pixart import \

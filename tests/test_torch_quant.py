@@ -38,6 +38,7 @@ from diffusion_models_moe_tpu_torch.ops import quant
 from diffusion_models_moe_tpu_torch.taps import layer_name
 from diffusion_models_moe_tpu_torch.weights import bridge
 from torch_parity import labels, nchw, nhwc, oihw, rel_err, rel_l2
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 OP_TOL = 1e-6       # max |diff| / max |ref|: f32 rounding of the dequantisation
 MODEL_L2 = 1e-2     # relative L2 of a quantised model against JAX's

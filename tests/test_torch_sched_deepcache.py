@@ -9,6 +9,7 @@ workers share out the JAX compiles (about 10 s each on one CPU).
 import pytest
 
 import torch_parity
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 REL_TOL = 1e-3
 STEPS, GUIDANCE = 3, 7.5

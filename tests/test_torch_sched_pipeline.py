@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import torch_parity
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu.pipelines.stable_diffusion import \
     StableDiffusionPipeline as JaxPipeline
 from diffusion_models_moe_tpu_torch import StableDiffusionPipeline

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import torch_parity
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu.schedulers import common as jcommon
 from diffusion_models_moe_tpu.schedulers.ddim import DDIMScheduler as JDDIM
 from diffusion_models_moe_tpu.schedulers.dpm import \

@@ -23,6 +23,7 @@ from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import to_uint8
 from diffusion_models_moe_tpu_torch.serving import (ServingEngine,
                                                     ServingStats, _Request)
 from torch_parity import labels
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 STEPS = 2
 WAIT = 120          # seconds a test waits for a future before it fails

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu import config as jcfg
 from diffusion_models_moe_tpu.pipelines import sld as jsld
 from diffusion_models_moe_tpu.pipelines.stable_diffusion import \

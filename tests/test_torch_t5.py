@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu.models.t5 import T5Encoder as JaxT5
 from diffusion_models_moe_tpu.models.t5 import \
     _relative_position_buckets as jax_buckets

@@ -295,7 +295,10 @@ def test_graphemes_equal_regex():
 
 
 @pytest.mark.parametrize("edit,name", [
-    (lambda s: s.update(model={"type": "BPE"}), "model 'BPE'"),
+    # BPE is read since it took Llama's files; a WordPiece-style one is not
+    (lambda s: s.update(model={"type": "BPE", "vocab": {}, "merges": [],
+                               "continuing_subword_prefix": "##"}),
+     "model 'BPE'"),
     (lambda s: s.update(normalizer={"type": "Lowercase"}),
      "normalizer 'Lowercase'"),
     (lambda s: s.update(pre_tokenizer={"type": "ByteLevel"}),

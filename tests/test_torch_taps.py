@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import torch_parity
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu import config as jcfg
 from diffusion_models_moe_tpu.moefication.moefy import \
     build_moe_interventions as jax_build_ivs

@@ -26,6 +26,7 @@ import diffusion_models_moe_tpu.models.layers as jax_layers
 import diffusion_models_moe_tpu.ops.winograd as jax_wino
 import diffusion_models_moe_tpu.ops.winograd_fused as jax_fused
 import torch_parity
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from diffusion_models_moe_tpu import config as jcfg
 from diffusion_models_moe_tpu.models.unet import UNet2DCondition as JaxUNet
 from diffusion_models_moe_tpu.models.vae import VAEDecoder as JaxVAE

@@ -7,10 +7,14 @@ transformers names), go into the JAX package through its own porter
 (`weights/port.py`), and come back into the port through
 `weights/bridge.py`: both run the same numbers, and the round trip is
 checked on every set-up.
+
+`one_torch_thread`, imported into a test module, runs that module's torch
+work on one intra-op thread.
 """
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from diffusion_models_moe_tpu import config as jcfg
@@ -20,6 +24,19 @@ from diffusion_models_moe_tpu.weights.port import (port_clip_text_state_dict,
 from diffusion_models_moe_tpu_torch import StableDiffusionPipeline, tiny_config
 from diffusion_models_moe_tpu_torch.taps import layer_name
 from diffusion_models_moe_tpu_torch.weights import bridge
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The module's tests on one torch intra-op thread, the count restored
+    after: the suite runs six pytest workers on the host's cores, and
+    torch's default of a thread per core leaves each worker's small ops
+    waiting on the others' (tests/test_torch_taps.py 148 s against 70 s
+    under six busy processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def rel_err(got, ref) -> float:
