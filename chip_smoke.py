@@ -189,6 +189,33 @@ Run from the root of a checkout. Phases:
      co-batched, the vision tower and the LM's embedding, first two layers,
      norm and lm_head on the card against the CPU within JUDGE_TOL; walls of
      the image features, prefill and decode per token, peak memory;
+  18. (run after 17) the rest of the evaluation: (a) the port's Qwen2
+     tokenizer (`load_qwen_tokenizer`) on a 151 643-piece Qwen2-layout
+     byte-level BPE `tokenizer.json` the script writes (the 14 added tokens
+     at Qwen2-VL's ids), the chat template and the repo's prompt files
+     encoded and decoded back, timed; (b) a seeded full-width Qwen2-VL-7B
+     in f32 (its 32-block tower, the 28-layer Qwen2 LM with 3-D RoPE)
+     judging phase 17's images through `removal_score` and a
+     `MultipleChoiceScorer`, its cached greedy tokens (`.batch`, 4 images,
+     32 new tokens) equal to a teacher-forced forward's argmax under the
+     3-D positions, image 0 alone equal to co-batched, the tower (on a
+     224-px image) and the LM's embedding, first two layers, norm and
+     lm_head on the card against the CPU within JUDGE_TOL, walls of the
+     image features, prefill and decode per token, peak memory, and
+     `load_qwen2vl_native` at a tiny size from a snapshot the script
+     writes; (c) `debias_eval` over phase 3's moefied SD1.5 (2 professions
+     x 2 seeds, one image a generate, PNDM 50, CFG 7.5; before: MoE on
+     kernels 1-3, after: MoE + phase 5's removal on kernels 2-4) with a
+     seeded full-width CLIP ViT-L/14 featurizer; (d) `unified_editing_eval`
+     of 3 prompts routed by a memorized-prompt and a CLIP-text checker to
+     two of phase 6's Wanda mask sets (routed: kernels 2-4; the prompt
+     firing none: kernels 1-3); (e) the seeded weights written as a
+     snapshot with an ESD-style `.pt` and a Concept-Ablation `delta.bin`,
+     `load_baseline` of "esd" and "concept-ablation" (the files' tensors
+     in the loaded pipelines, a BASELINE_STEPS-step generate on kernels
+     1-3) and of "sld" through `run_eval(generate_fn=
+     make_protocol_generate(...))`; every generate's launches held to its
+     path, no plain call;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -1336,9 +1363,10 @@ def run_attribution(pipe, ivs, compare, card: str) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
-def run_wanda(pipe, ivs, images_before, card: str) -> dict:
+def run_wanda(pipe, ivs, images_before, card: str) -> tuple:
     """Phase 6: Wanda masks on the prompt pairs, a generate erasing with
-    them under MoE routing, and their union baked into the weights."""
+    them under MoE routing, and their union baked into the weights. Returns
+    the launch counts and two static (D, H) mask sets (phase 18)."""
     from diffusion_models_moe_tpu_torch.analysis.collect import wanda_pipeline
     from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
     from diffusion_models_moe_tpu_torch.erasure.masks import (
@@ -1382,7 +1410,10 @@ def run_wanda(pipe, ivs, images_before, card: str) -> dict:
           f"W2 entries; mean |image change| against the unbaked phase-3 "
           f"images (same prompts and noise) {moved:.6f}", flush=True)
     check(pruned > 0 and moved > 0, "the baked masks changed nothing")
-    return launches
+    # two static mask sets for phase 18's concept routing: the union over
+    # timesteps baked above and the last Wanda step's masks
+    return launches, {"wanda_union": static,
+                      "wanda_last_step": {l: m[-1] for l, m in masks.items()}}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2011,24 +2042,24 @@ def write_tokenizer(path: str, vocab_size: int) -> None:
                    "pad_token": "<|endoftext|>", "unk_token": "<|endoftext|>"}, f)
 
 
-def write_snapshot(pipe, root: str) -> int:
-    """`pipe`'s weights as a diffusers SD1.5 snapshot in f32 under `root`:
-    unet/, text_encoder/ (`text_model.` keys and the `position_ids`
-    buffer), vae/ (the decoder and a seeded encoder side), tokenizer/.
-    Returns the bytes written."""
+def write_snapshot(pipe, root: str, dtype=torch.float32) -> int:
+    """`pipe`'s weights as a diffusers SD1.5 snapshot in `dtype` (f32 by
+    default) under `root`: unet/, text_encoder/ (`text_model.` keys and the
+    `position_ids` buffer), vae/ (the decoder and a seeded encoder side),
+    tokenizer/. Returns the bytes written."""
     from diffusion_models_moe_tpu_torch.weights.export import save_safetensors
     cfg = pipe.config
     gen = torch.Generator().manual_seed(12)
-    vae = {k: v.float() for k, v in pipe.vae_decoder.state_dict().items()}
+    vae = {k: v.to(dtype) for k, v in pipe.vae_decoder.state_dict().items()}
     for k, shape in vae_encoder_shapes(cfg.vae).items():
         fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
-        vae[k] = torch.randn(shape, generator=gen) * fan_in ** -0.5
-    text = {k: v.float() for k, v in pipe.text_encoder.state_dict().items()}
+        vae[k] = (torch.randn(shape, generator=gen) * fan_in ** -0.5).to(dtype)
+    text = {k: v.to(dtype) for k, v in pipe.text_encoder.state_dict().items()}
     text["text_model.embeddings.position_ids"] = torch.arange(
         cfg.text_encoder.max_length)[None]
     for sub, name, sd in (
             ("unet", "diffusion_pytorch_model",
-             {k: v.float() for k, v in pipe.unet.state_dict().items()}),
+             {k: v.to(dtype) for k, v in pipe.unet.state_dict().items()}),
             ("text_encoder", "model", text),
             ("vae", "diffusion_pytorch_model", vae)):
         save_safetensors(sd, os.path.join(root, sub, f"{name}.safetensors"))
@@ -3187,7 +3218,8 @@ def run_erasure_eval(removal, card: str) -> dict:
     LLaVA-1.5-7B in f32 judging presence before and after through
     `removal_score`, its decode held to a teacher-forced forward and to a
     solo decode, its vision tower and LM layers against the CPU. Returns
-    the launch counts of `run_eval`."""
+    the launch counts of `run_eval` and its baseline and erased images
+    (uint8, phase 18's judge reads them)."""
     import tempfile
     from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
                                                 build_moe_interventions,
@@ -3511,6 +3543,640 @@ def run_erasure_eval(removal, card: str) -> dict:
         import shutil
         shutil.rmtree(root, ignore_errors=True)
     print("eval: " + json.dumps(out), flush=True)
+    return launches, (base_imgs, erased_imgs)
+
+
+# ---------------------------------------------------------------- phase 18
+QWEN_PIECES = 151643         # Qwen2's byte-level BPE vocabulary
+# Qwen2-VL's added tokens, in its tokenizer.json's order from QWEN_PIECES on
+QWEN_ADDED = ("<|endoftext|>", "<|im_start|>", "<|im_end|>",
+              "<|object_ref_start|>", "<|object_ref_end|>", "<|box_start|>",
+              "<|box_end|>", "<|quad_start|>", "<|quad_end|>",
+              "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>",
+              "<|image_pad|>", "<|video_pad|>")
+# the byte-alphabet characters merged first: space (Ġ), letters by
+# frequency, digits, punctuation, newline (Ċ)
+QWEN_PRIORITY = ("Ġetaoinshrdlucmfwypvbgkqjxz" "ETAOINSHRDLUCMFWYPVBGKQJXZ"
+                 "0123456789.,'!?-:;\"()Ċ")
+
+
+def write_qwen_tokenizer(path: str) -> None:
+    """A Qwen2-layout `tokenizer.json` of QWEN_PIECES byte-level BPE pieces:
+    the 256 characters of the byte alphabet (GPT-2's order), every pair of
+    them (a merge each, QWEN_PRIORITY's characters first), then triples (a
+    pair of priority characters and any character) to fill; QWEN_ADDED as
+    special added tokens from QWEN_PIECES on (<|im_end|> 151645,
+    <|vision_start|> 151652, <|image_pad|> 151655). The pipeline of Qwen2's
+    file: NFC, `Split` on Qwen2's pattern then `ByteLevel`, BPE without an
+    unknown token, `ByteLevel` post-processor and decoder."""
+    from diffusion_models_moe_tpu_torch.data._native_unigram import \
+        QWEN2_SPLIT
+    from diffusion_models_moe_tpu_torch.data.tokenizer import \
+        _bytes_to_unicode
+    alphabet = list(_bytes_to_unicode().values())
+    chars = list(dict.fromkeys(list(QWEN_PRIORITY) + alphabet))
+    vocab = {c: i for i, c in enumerate(alphabet)}
+    merges = []
+    for a in chars:
+        for b in chars:
+            merges.append([a, b])
+            vocab[a + b] = len(vocab)
+    prio = chars[:len(QWEN_PRIORITY)]
+    for a in prio:
+        for b in prio:
+            for c in chars:
+                if len(vocab) == QWEN_PIECES:
+                    break
+                merges.append([a + b, c])
+                vocab[a + b + c] = len(vocab)
+    added = [{"id": QWEN_PIECES + i, "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, t in enumerate(QWEN_ADDED)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": False, "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT},
+             "behavior": "Isolated", "invert": False}, byte_level]},
+        "post_processor": byte_level, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": False, "vocab": vocab, "merges": merges},
+    }
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+
+
+QWEN_CHECK_TOKENS = 64       # tokens of the LM layers' card-vs-CPU check
+# the tower's card-vs-CPU check runs on a 224-px image (256 patches, 64
+# merged tokens): the CPU pass over a 512-px image's 1296 would take ~20 s
+QWEN_CHECK_PX = 224
+MC_OBJECTS = ("person", "cat", "dog", "car")   # image i's ground truth
+DEBIAS_PROFESSIONS = ("doctor", "nurse")
+DEBIAS_SEEDS = (31, 32)      # the reference's removal sweep starts at 31
+UNIFIED_PROMPTS = ("a dog in the style of Van Gogh",
+                   "a house in the style of Van Gogh",
+                   "a photo of a red car")
+BASELINE_STEPS = 10          # the baselines' generates: every kernel shape
+BASELINE_PROMPTS = 2         # the first I2P prompts, one batch
+
+
+class MoefiedPipe:
+    """The moefied SD1.5 as the protocols see it: `generate` routes MoE on
+    every call and merges a caller's removal into it; each call's kernel
+    launches are recorded."""
+
+    def __init__(self, pipe, moe):
+        self.pipe, self.moe, self.device = pipe, moe, pipe.device
+        self.calls: list = []
+
+    def generate(self, cond, uncond, generator=None, ivs=None, **kw):
+        from diffusion_models_moe_tpu_torch.ops import _build
+        before = dict(_build.LAUNCHES)
+        out = self.pipe.generate(
+            cond, uncond, generator,
+            ivs=self.moe if ivs is None else merge(self.moe, ivs, (
+                "neuron_mask", "neuron_fill", "out_weight_mask")),
+            **kw)
+        torch.cuda.synchronize()
+        self.calls.append({k: v - before.get(k, 0)
+                           for k, v in _build.LAUNCHES.items()})
+        return out
+
+
+def expect_calls(calls: list, kinds: list, n_calls: int, what: str) -> dict:
+    """Each generate's launches against its kind: "moe" (kernels 1-3),
+    "removal" (kernels 2-4, the FF unfused under routing) or "no_moe"
+    (kernels 1-3, kernel 1 without routing), 16 a UNet call; no plain
+    version anywhere. Returns the launches summed by kernel."""
+    from diffusion_models_moe_tpu_torch.ops import _build
+    check(len(calls) == len(kinds), f"{what}: {len(calls)} generates, "
+          f"expected {len(kinds)}")
+    on = {"moe": ("geglu_ff_fused", "sd_self_attention",
+                  "sd_cross_attention"),
+          "removal": ("fused_route_multiply", "sd_self_attention",
+                      "sd_cross_attention")}
+    on["no_moe"] = on["moe"]
+    total: dict = {}
+    for i, (got, kind) in enumerate(zip(calls, kinds)):
+        for name in _build.KERNELS:
+            want = 16 * n_calls if name in on[kind] else 0
+            check(got.get(name, 0) == want, f"{what}, generate {i} ({kind}):"
+                  f" kernel {name} launched {got.get(name, 0)} times, "
+                  f"expected {want}")
+        check_no_plain({k: got.get(k, 0) for k in _build.PLAIN},
+                       f"{what}, generate {i}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def qwen_lm_layers(lm, ids: torch.Tensor, pos: torch.Tensor,
+                   n_layers: int) -> tuple:
+    """The Qwen2 LM's embedding, first `n_layers` decoder layers (causal,
+    3-D positions `pos` (3, B, S)), final norm and lm_head on `ids`:
+    (hidden, logits)."""
+    from diffusion_models_moe_tpu_torch.models.llama import (embed_tokens,
+                                                             mrope_cos_sin)
+    cfg = lm.cfg
+    cos, sin = mrope_cos_sin(pos, cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_section)
+    mask = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    with torch.no_grad():
+        x = embed_tokens(lm, ids).to(cfg.dtype)
+        for layer in lm.model.layers[:n_layers]:
+            x, _ = layer(x, cos, sin, mask)
+        return x, lm.lm_head(lm.model.norm(x).float())
+
+
+def run_qwen_judge(images: tuple, root: str, card: str) -> dict:
+    """Phase 18 (a, b): the Qwen2 tokenizer on a full-size synthetic file
+    and a seeded full-width Qwen2-VL-7B in f32 judging phase 17's images
+    (`removal_score`, `MultipleChoiceScorer`), its decode held to a
+    teacher-forced forward and to a solo decode, its tower and LM layers
+    against the CPU; `load_qwen2vl_native` at a tiny size."""
+    from PIL import Image
+    from diffusion_models_moe_tpu_torch.benchmarks.vqa import (
+        MultipleChoiceScorer, load_qwen2vl_native, object_question,
+        removal_score)
+    from diffusion_models_moe_tpu_torch.data.prompts import (
+        artist_names, i2p_prompts, memorized_captions)
+    from diffusion_models_moe_tpu_torch.data.tokenizer import \
+        load_qwen_tokenizer
+    from diffusion_models_moe_tpu_torch.models.llama import (LlamaModel,
+                                                             embed_tokens,
+                                                             greedy_decode)
+    from diffusion_models_moe_tpu_torch.models.qwen2vl import (
+        Qwen2VisionTower, Qwen2VLForConditionalGeneration, build_vqa,
+        image_features, preprocess_image, prompt_ids, rope_index,
+        tiny_qwen2vl_config)
+    from diffusion_models_moe_tpu_torch.weights.export import save_safetensors
+    from diffusion_models_moe_tpu_torch.weights.port_qwen2vl import \
+        qwen2vl_7b_config
+    base_imgs, erased_imgs = images
+    out: dict = {}
+
+    # ---- (a) the tokenizer
+    tok_dir = os.path.join(root, "qwen")
+    t0 = time.perf_counter()
+    write_qwen_tokenizer(tok_dir)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encode, decode = load_qwen_tokenizer(tok_dir)
+    t_load = time.perf_counter() - t0
+    qcfg = qwen2vl_7b_config()
+    chat = ("<|im_start|>system\nYou are a helpful assistant.<|im_end|>\n"
+            "<|im_start|>user\n<|vision_start|><|image_pad|><|vision_end|>"
+            "Is there a person in the image?<|im_end|>\n"
+            "<|im_start|>assistant\n")
+    ids = encode(chat).tolist()
+    for want in (151644, 151645, qcfg.vision_start_token_id,
+                 qcfg.vision_start_token_id + 1, qcfg.image_token_id):
+        check(want in ids, f"Qwen2 tokenizer: id {want} not in the chat "
+              f"template's ids {ids}")
+    texts = i2p_prompts() + memorized_captions() + artist_names()
+    t0 = time.perf_counter()
+    encoded = [encode(t) for t in texts]
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = [decode(e) for e in encoded]
+    t_dec = time.perf_counter() - t0
+    bad = [t for t, d in zip(texts, decoded) if d != t.strip()]
+    check(not bad, f"Qwen2 tokenizer round trip differs on {bad[:3]}")
+    n_ids = sum(len(e) for e in encoded)
+    print(f"qwen: tokenizer.json of {QWEN_PIECES} byte-level BPE pieces + "
+          f"{len(QWEN_ADDED)} added written in {t_write:.2f} s, read by "
+          f"load_qwen_tokenizer in {t_load:.2f} s; the chat template -> "
+          f"{len(ids)} ids with the special ids; {len(texts)} prompts "
+          f"(the I2P, memorized and artist files) -> {n_ids} ids: encode "
+          f"{t_enc:.3f} s, decode {t_dec:.3f} s, every text back as it "
+          f"was", flush=True)
+    out.update(tokenizer_load_s=t_load, tokenizer_encode_s=t_enc,
+               tokenizer_decode_s=t_dec)
+
+    # ---- (b) Qwen2-VL-7B at full width, f32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = seed_judge(Qwen2VLForConditionalGeneration(qcfg, device=DEV), 45)
+    torch.cuda.synchronize()
+    n_tower = sum(p.numel() for p in model.visual.parameters())
+    n_lm = sum(p.numel() for p in model.language_model.parameters())
+    print(f"qwen: Qwen2-VL-7B ({n_tower + n_lm} parameters: tower {n_tower},"
+          f" LM {n_lm}; f32) built and seeded on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    vqa = build_vqa(model, encode, decode, max_new_tokens=VQA_NEW_TOKENS)
+    question = object_question(EVAL_OBJECT)
+    score, w = judge_wall(removal_score, vqa, base_imgs, erased_imgs,
+                          question)
+    print(f"qwen: removal_score({question!r}) over {len(base_imgs)} "
+          f"baseline and {len(erased_imgs)} erased images: {score}; wall "
+          f"{w:.3f} s", flush=True)
+    scorer = MultipleChoiceScorer(vqa, MC_OBJECTS[:len(base_imgs)], "gender")
+    _, w_mc = judge_wall(lambda: (
+        scorer.score_images(base_imgs, label=2, before=True),
+        scorer.score_images(erased_imgs, label=2, before=False)))
+    mc = scorer.get_results()
+    print(f"qwen: MultipleChoiceScorer({list(MC_OBJECTS[:len(base_imgs)])}, "
+          f"'gender') before and after: {json.dumps(mc)}; wall {w_mc:.3f} s",
+          flush=True)
+    out.update(removal_score=score, multiple_choice=mc)
+
+    pre = [preprocess_image(img, qcfg.vision, max_pixels=28 * 28 * 576)
+           for img in base_imgs]
+    grid = pre[0][1]
+    check(all(g == grid for _, g in pre), f"grids {[g for _, g in pre]}")
+    m2 = qcfg.vision.spatial_merge_size ** 2
+    ids = prompt_ids(encode, question, pre[0][0].shape[0] // m2, qcfg)
+    patches = np.stack([p for p, _ in pre])
+    feats, t_feat = judge_wall(image_features, model, patches, grid)
+    lm = model.language_model
+    b, length = len(pre), len(ids)
+    img_pos = torch.from_numpy(np.nonzero(ids == qcfg.image_token_id)[0]
+                               ).to(DEV)
+    embeds = embed_tokens(lm, torch.from_numpy(ids))[None].repeat(b, 1, 1)
+    embeds[:, img_pos] = feats
+    pos, delta = rope_index(qcfg, ids, grid)
+    pos = torch.from_numpy(pos).long().to(DEV).expand(3, b, -1)
+    lengths = torch.full((b,), length, device=DEV)
+    offsets = torch.full((b,), delta, device=DEV)
+
+    def decode_n(n, e=embeds, ln=lengths, p=pos, o=offsets):
+        return greedy_decode(lm, e, ln, n, qcfg.eos_id, pad_id=qcfg.pad_id,
+                             prefill_positions=p, pos_offset=o)
+
+    _, t_prefill = judge_wall(decode_n, 1)
+    toks, t_full = judge_wall(decode_n, VQA_NEW_TOKENS)
+    answers = vqa.batch(base_imgs, question)
+    texts = [decode([int(t) for t in row
+                     if int(t) not in (qcfg.pad_id, qcfg.eos_id)])
+             for row in toks.tolist()]
+    check(answers == texts, f"vqa.batch answers {answers} != the decoded "
+          f"tokens {texts}")
+    # the cached decode against a teacher-forced forward: token j sits at
+    # slot length + j, at 3-D position slot + delta on every axis
+    seq = torch.cat([embeds, embed_tokens(lm, toks[:, :-1]).to(embeds.dtype)],
+                    dim=1)
+    tail = (torch.arange(length, seq.shape[1], device=DEV) + delta
+            ).expand(3, b, -1)
+    logits, _ = lm(seq, torch.cat([pos, tail], dim=2),
+                   torch.ones(seq.shape[:2], dtype=torch.bool, device=DEV))
+    forced = logits[:, length - 1:]
+    top2 = forced.topk(2, dim=-1).values
+    margins = []
+    for r in range(b):
+        row = toks[r].tolist()
+        n = row.index(qcfg.eos_id) + 1 if qcfg.eos_id in row else len(row)
+        check(forced[r, :n].argmax(dim=-1).tolist() == row[:n],
+              f"image {r}: cached greedy tokens {row[:n]} != the "
+              f"teacher-forced argmax")
+        margins.append((top2[r, :n, 0] - top2[r, :n, 1]).min().item())
+    del logits, forced, seq
+    solo = decode_n(VQA_NEW_TOKENS, embeds[:1], lengths[:1], pos[:, :1],
+                    offsets[:1])
+    check(torch.equal(solo[0], toks[0]), "image 0 alone decodes "
+          f"{solo[0].tolist()}, co-batched {toks[0].tolist()}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_token = (t_full - t_prefill) / (VQA_NEW_TOKENS - 1)
+    side = grid[1] * qcfg.vision.patch_size
+    print(f"qwen: Qwen2-VL decode of {b} images at {side} px ({grid} "
+          f"patches, {feats.shape[1]} image tokens), prompt {length} ids, "
+          f"{VQA_NEW_TOKENS} new tokens: image features {t_feat:.3f} s, "
+          f"prefill {t_prefill:.3f} s, decode {per_token * 1e3:.2f} ms a "
+          f"token; peak memory {peak_gib:.2f} GiB; cached tokens equal the "
+          f"teacher-forced argmax (smallest top-2 margin "
+          f"{min(margins):.4e}); image 0 alone equal to co-batched; answers "
+          f"{answers}", flush=True)
+    out.update(qwen_params=n_tower + n_lm, qwen_features_s=t_feat,
+               qwen_prefill_s=t_prefill,
+               qwen_decode_ms_per_token=per_token * 1e3,
+               qwen_peak_gib=peak_gib, qwen_min_top2_margin=min(margins))
+
+    # the tower and the LM layers against the CPU: built on the meta device
+    # and given the card's weights (a CPU initialisation of them takes ~20 s)
+    with torch.device("meta"):
+        tower = Qwen2VisionTower(qcfg.vision)
+    tower.load_state_dict({k[len("visual."):]: v.cpu() for k, v in
+                           model.state_dict().items()
+                           if k.startswith("visual.")}, assign=True)
+    small = np.asarray(Image.fromarray(base_imgs[0]).resize(
+        (QWEN_CHECK_PX, QWEN_CHECK_PX)))
+    p_small, g_small = preprocess_image(small, qcfg.vision)
+    got, w = judge_wall(model.visual, torch.from_numpy(p_small), g_small)
+    ref = tower(torch.from_numpy(p_small), g_small)
+    abs_err, rel = rel_err(got.cpu(), ref)
+    print(f"qwen: Qwen2-VL vision tower (32 blocks of 1280, 2-D RoPE, "
+          f"PatchMerger) on a {QWEN_CHECK_PX}-px image ({g_small} patches, "
+          f"{got.shape[0]} tokens): card wall {w:.3f} s; card vs CPU max abs "
+          f"{abs_err:.3e}, rel {rel:.3e} (tolerance {JUDGE_TOL})", flush=True)
+    check(rel <= JUDGE_TOL, f"Qwen2-VL vision tower: card vs CPU {rel}")
+    out["qwen_vision_rel_err"] = rel
+    del tower
+    cpu_lm = LlamaModel(dataclasses.replace(qcfg.text, num_layers=2),
+                        device="meta")
+    keep = ("model.embed_tokens.", "model.norm.", "lm_head.",
+            "model.layers.0.", "model.layers.1.")
+    cpu_lm.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()
+                            if k.startswith(keep)}, assign=True)
+    n_img = 16
+    check_ids = np.concatenate([
+        [151644, 872, 198, qcfg.vision_start_token_id],
+        [qcfg.image_token_id] * n_img,
+        np.random.RandomState(46).randint(
+            0, QWEN_PIECES, QWEN_CHECK_TOKENS - n_img - 4)])
+    check_pos, _ = rope_index(qcfg, check_ids, (1, 8, 8))
+    tok_ids = torch.from_numpy(check_ids)[None]
+    tok_pos = torch.from_numpy(check_pos).long()
+    (hid, log), w = judge_wall(qwen_lm_layers, lm, tok_ids.to(DEV),
+                               tok_pos.to(DEV), 2)
+    ref_hid, ref_log = qwen_lm_layers(cpu_lm, tok_ids, tok_pos, 2)
+    for key, name, got, ref in (
+            ("qwen_lm_layers", "two decoder layers' output", hid, ref_hid),
+            ("qwen_lm_logits", "lm_head logits", log, ref_log)):
+        abs_err, rel = rel_err(got.cpu(), ref)
+        print(f"qwen: Qwen2-7B embedding + {name} on {QWEN_CHECK_TOKENS} "
+              f"tokens (3-D positions of a 16-token image span): card wall "
+              f"{w:.3f} s; card vs CPU max abs {abs_err:.3e}, rel {rel:.3e} "
+              f"(tolerance {JUDGE_TOL})", flush=True)
+        check(rel <= JUDGE_TOL, f"Qwen2 {name}: card vs CPU {rel}")
+        out[f"{key}_rel_err"] = rel
+    del cpu_lm, model, lm, vqa, embeds, feats
+    torch.cuda.empty_cache()
+
+    # load_qwen2vl_native at a tiny size: a snapshot the script writes
+    tiny = tiny_qwen2vl_config()
+    tcfg = dataclasses.replace(
+        qcfg, vision=tiny.vision, text=dataclasses.replace(
+            tiny.text, vocab_size=QWEN_PIECES + len(QWEN_ADDED)))
+    snap = os.path.join(root, "qwen_tiny")
+    src = seed_judge(Qwen2VLForConditionalGeneration(tcfg, device=DEV), 47)
+    save_safetensors({(k[len("language_model."):] if k.startswith(
+        "language_model.") else k): v for k, v in src.state_dict().items()},
+        os.path.join(snap, "model.safetensors"))
+    write_qwen_tokenizer(snap)
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump({"hidden_size": tcfg.text.hidden_size}, f)
+    t0 = time.perf_counter()
+    native = load_qwen2vl_native(snap, config=tcfg, max_new_tokens=8,
+                                 device=DEV)
+    t_native = time.perf_counter() - t0
+    got = native.batch(base_imgs[:2], question)
+    ref = build_vqa(src, encode, decode, max_new_tokens=8).batch(
+        base_imgs[:2], question)
+    check(got == ref, f"load_qwen2vl_native answers {got} != the written "
+          f"model's {ref}")
+    print(f"qwen: load_qwen2vl_native(config=tiny, vocabulary "
+          f"{tcfg.text.vocab_size}) from the snapshot written here, in "
+          f"{t_native:.2f} s: answers {got} equal the written model's",
+          flush=True)
+    del src, native
+    return out
+
+
+def run_baselines(pipe, tok, root: str) -> tuple:
+    """Phase 18 (e): `pipe`'s seeded weights written as a diffusers snapshot
+    in their bf16 (phase 12's layout, half its bytes) under `root`, with
+    an ESD-style whole-UNet `.pt` (cross-attention projections perturbed,
+    fp16) and a Concept-Ablation `delta.bin` (K and V projections and the
+    whole text encoder); `load_baseline` of "esd" and "concept-ablation"
+    on them, each file's tensors checked in the loaded pipeline and a
+    BASELINE_STEPS-step generate of BASELINE_PROMPTS I2P prompts on
+    kernels 1-3; "sld" through `run_eval` with `make_protocol_generate`.
+    Returns the launches by baseline and the SLD run's wall."""
+    from diffusion_models_moe_tpu_torch.benchmarks.baselines import (
+        BASELINES, load_baseline, make_protocol_generate)
+    from diffusion_models_moe_tpu_torch.benchmarks.runner import (
+        EvalRunConfig, run_eval)
+    from diffusion_models_moe_tpu_torch.data.prompts import i2p_prompts
+    from diffusion_models_moe_tpu_torch.ops import _build
+    cfg = pipe.config
+    launches: dict = {}
+    snap = os.path.join(root, "snapshot")
+    t0 = time.perf_counter()
+    n_bytes = write_snapshot(pipe, snap, cfg.unet.dtype)
+    rng = torch.Generator().manual_seed(48)
+    unet_sd = {k: v.cpu() for k, v in pipe.unet.state_dict().items()}
+    edited = {f"unet.{k}": (v.float() * (1 + 0.05 * torch.randn(
+        v.shape, generator=rng))).half() if "attn2.to_" in k
+        else v.half() for k, v in unet_sd.items()}
+    torch.save(edited, os.path.join(root, "esd.pt"))
+    delta = {"unet": {k: v.float() * 1.5 for k, v in unet_sd.items()
+                      if "attn2.to_k" in k or "attn2.to_v" in k},
+             "text_encoder": {k[len("text_model."):]: v.cpu().float()
+                              + 0.01 for k, v in
+                              pipe.text_encoder.state_dict().items()}}
+    torch.save(delta, os.path.join(root, "delta.bin"))
+    print(f"baselines: the seeded SD1.5 as a snapshot ({n_bytes} bytes), "
+          f"esd.pt and delta.bin written in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    del unet_sd
+    prompts = i2p_prompts()[:BASELINE_PROMPTS]
+    cond = tok(prompts).to(DEV)
+    uncond = tok([""] * len(prompts)).to(DEV)
+    bcalls = unet_calls(cfg, BASELINE_STEPS)
+    for name, kw, key in (
+            ("esd", {"edited_unet": os.path.join(root, "esd.pt")},
+             "down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k."
+             "weight"),
+            ("concept-ablation",
+             {"delta": os.path.join(root, "delta.bin")},
+             "up_blocks.3.attentions.2.transformer_blocks.0.attn2.to_v."
+             "weight")):
+        (bpipe, gen_kw), t_load = judge_wall(
+            lambda: load_baseline(name, snap, device=DEV, **kw))
+        want = (edited[f"unet.{key}"] if name == "esd"
+                else delta["unet"][key])
+        check(gen_kw == {} and torch.equal(
+            bpipe.unet.state_dict()[key].cpu(),
+            want.to(cfg.unet.dtype)), f"{name}: the UNet's {key} is not "
+            "the file's")
+        if name == "concept-ablation":
+            te = bpipe.text_encoder.state_dict()
+            k = "text_model.final_layer_norm.weight"
+            check(torch.equal(te[k].cpu(), delta["text_encoder"][
+                k[len("text_model."):]].to(te[k].dtype)),
+                "concept-ablation: the delta's text encoder not loaded")
+        _build.reset_launch_counts()
+        (imgs, _), w = judge_wall(lambda: bpipe.generate(
+            cond, uncond, torch.Generator(device=DEV).manual_seed(5),
+            num_steps=BASELINE_STEPS))
+        check(bool(torch.isfinite(imgs).all()), f"{name}: non-finite")
+        launches[f"baseline_{name}"] = expect_calls(
+            [dict(_build.LAUNCHES)], ["no_moe"], bcalls,
+            f"baseline {name}")
+        print(f"baselines: load_baseline({name!r}, {list(kw)}) "
+              f"({BASELINES[name].description}) in {t_load:.2f} s; a "
+              f"{BASELINE_STEPS}-step generate of {len(prompts)} I2P "
+              f"prompts {w:.3f} s; launches "
+              f"{launches[f'baseline_{name}']}", flush=True)
+        del bpipe, imgs
+        torch.cuda.empty_cache()
+    (bpipe, gen_kw), t_load = judge_wall(
+        lambda: load_baseline("sld", snap, device=DEV))
+    check(gen_kw == {"use_sld": True}, f"sld kwargs {gen_kw}")
+    sld_gen = make_protocol_generate(bpipe, gen_kw, tok)
+    sld_calls = []
+
+    def counted(*a, **kw):
+        before = dict(_build.LAUNCHES)
+        res = sld_gen(*a, **kw)
+        torch.cuda.synchronize()
+        sld_calls.append({k: v - before.get(k, 0)
+                          for k, v in _build.LAUNCHES.items()})
+        return res
+
+    sld_dir = os.path.join(root, "sld")
+    _build.reset_launch_counts()
+    summary, w = judge_wall(lambda: run_eval(
+        bpipe, tok, prompts, EvalRunConfig(
+            out_dir=sld_dir, batch_size=len(prompts),
+            num_steps=BASELINE_STEPS), generate_fn=counted))
+    launches["baseline_sld"] = expect_calls(sld_calls, ["no_moe"] * 2,
+                                            bcalls, "baseline sld")
+    same = all(np.array_equal(a, b) for a, b in zip(
+        load_uint8(sld_dir, "sd", len(prompts)),
+        load_uint8(sld_dir, "removed", len(prompts))))
+    check(summary["generated"] == len(prompts) and same,
+          f"sld run_eval {summary}; sd_ and removed_ equal: {same}")
+    print(f"baselines: load_baseline('sld') in {t_load:.2f} s; run_eval "
+          f"over {len(prompts)} I2P prompts "
+          f"through make_protocol_generate (sld_generate, "
+          f"SLDConfig.medium(), UNet batch {3 * len(prompts)}, "
+          f"{BASELINE_STEPS} steps): {summary['generated']} generated, "
+          f"wall {w:.3f} s, sd_ and removed_ bit-equal (no "
+          f"interventions, shared noise); launches "
+          f"{launches['baseline_sld']}", flush=True)
+    del bpipe
+    torch.cuda.empty_cache()
+    return launches, w
+
+
+def run_rest_of_eval(removal, wanda_masks: dict, images: tuple,
+                     card: str) -> dict:
+    """Phase 18: the Qwen2-VL judge (`run_qwen_judge`), then `debias_eval`,
+    `unified_editing_eval` and the baselines over phase 3's moefied SD1.5
+    (its seeded weights and labels), each generate's launches of kernels
+    1-4 held to its path with no plain call. Returns the launches by
+    path."""
+    import shutil
+    import tempfile
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                build_moe_interventions,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.benchmarks.clip_metrics import (
+        ConceptChecker, MemorizedPromptChecker, pooled_text_embedding)
+    from diffusion_models_moe_tpu_torch.benchmarks.debias import debias_eval
+    from diffusion_models_moe_tpu_torch.benchmarks.fid import \
+        make_clip_featurizer
+    from diffusion_models_moe_tpu_torch.benchmarks.unified_editing import (
+        ConceptBank, unified_editing_eval)
+    from diffusion_models_moe_tpu_torch.data.tokenizer import load_tokenizer
+    from diffusion_models_moe_tpu_torch.models.clip_vision import (
+        CLIPVisionConfig, CLIPVisionEncoder)
+    from diffusion_models_moe_tpu_torch.ops import _build
+    launches: dict = {}
+    out: dict = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    try:
+        out.update(run_qwen_judge(images, root, card))
+
+        # ---- (c) debias_eval over the moefied SD1.5, phase 5's removal
+        cfg = sd15_config(torch.bfloat16)
+        pipe = StableDiffusionPipeline(cfg, device=DEV)
+        pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+        moe = build_moe_interventions(labels_for(cfg.unet.ff_dims()), 0.3,
+                                      device=DEV, dtype=cfg.unet.dtype)
+        moefied = MoefiedPipe(pipe, moe)
+        tcfg = cfg.text_encoder
+        write_tokenizer(os.path.join(root, "clip"), tcfg.vocab_size)
+        tok = load_tokenizer(os.path.join(root, "clip"), tcfg.max_length)
+        proj = torch.randn((tcfg.hidden_size, 768), device=DEV,
+                           generator=torch.Generator(device=DEV).manual_seed(2)
+                           ) / tcfg.hidden_size ** 0.5
+
+        def text_emb(texts):
+            ids = tok(list(texts)).to(DEV)
+            return pooled_text_embedding(pipe.encode_text(ids)[0].float(),
+                                         ids, proj)
+
+        vit_l = seed_judge(CLIPVisionEncoder(CLIPVisionConfig(), device=DEV),
+                           1)
+        man, woman = text_emb(["a photo of a man", "a photo of a woman"])
+        calls = unet_calls(cfg, cfg.num_inference_steps)
+        _build.reset_launch_counts()
+        summary, w = judge_wall(lambda: debias_eval(
+            moefied, tok, make_clip_featurizer(vit_l), man, woman,
+            ivs=removal, seeds=DEBIAS_SEEDS, professions=DEBIAS_PROFESSIONS,
+            num_steps=cfg.num_inference_steps,
+            out_path=os.path.join(root, "debias.json")))
+        kinds = (["moe"] * len(DEBIAS_SEEDS) + ["removal"] * len(DEBIAS_SEEDS)
+                 ) * len(DEBIAS_PROFESSIONS)
+        launches["debias"] = expect_calls(moefied.calls, kinds, calls,
+                                          "debias_eval")
+        for prof, r in summary["per_profession"].items():
+            check(0.0 <= r["before_woman_frac"] <= 1.0
+                  and 0.0 <= r["after_woman_frac"] <= 1.0,
+                  f"debias {prof}: {r}")
+        n_gen = len(moefied.calls)
+        print(f"debias: debias_eval over {list(DEBIAS_PROFESSIONS)} x seeds "
+              f"{list(DEBIAS_SEEDS)} (PNDM {cfg.num_inference_steps} steps, "
+              f"CFG {cfg.guidance_scale}, one image a generate; before: MoE, "
+              f"after: MoE + phase 5's removal; gender by a seeded CLIP "
+              f"ViT-L/14 featurizer against the pipeline's CLIP-L text "
+              f"embeddings): {n_gen} generates in {w:.3f} s "
+              f"({w / n_gen:.3f} s each); {json.dumps(summary)}; launches "
+              f"{launches['debias']}", flush=True)
+        out["debias_s"] = w
+        del vit_l
+
+        # ---- (d) unified editing: two mask sets of phase 6, 3 prompts
+        prompt_embs = text_emb(UNIFIED_PROMPTS)
+        bank = ConceptBank(
+            checkers={"van_gogh": MemorizedPromptChecker(UNIFIED_PROMPTS[:2]),
+                      "house": ConceptChecker("house", prompt_embs[1].cpu(),
+                                              prompt_embs[2].cpu())},
+            masks={"van_gogh": wanda_masks["wanda_union"],
+                   "house": wanda_masks["wanda_last_step"]})
+        embs = prompt_embs.cpu().numpy()
+        routes = bank.route(embs, list(UNIFIED_PROMPTS))
+        check(routes[1] == ("house", "van_gogh") and routes[2] == (),
+              f"unified editing routes {routes}")
+        moefied.calls = []
+        _build.reset_launch_counts()
+        result, w = judge_wall(lambda: unified_editing_eval(
+            moefied, tok, list(UNIFIED_PROMPTS), embs, bank,
+            os.path.join(root, "unified"),
+            num_steps=cfg.num_inference_steps))
+        kinds = ["removal" if r else "moe" for r in routes]
+        launches["unified_editing"] = expect_calls(
+            moefied.calls, kinds, calls, "unified_editing_eval")
+        files = sorted(os.listdir(os.path.join(root, "unified")))
+        check(result["n_prompts"] == 3 and result["n_routed"] == sum(
+            1 for r in routes if r) and files == sorted(
+            f"{i}_{'_'.join(r) if r else 'none'}.png"
+            for i, r in enumerate(routes)),
+              f"unified editing result {result}, files {files}")
+        print(f"unified: unified_editing_eval over {len(UNIFIED_PROMPTS)} "
+              f"prompts (PNDM {cfg.num_inference_steps} steps, concepts "
+              f"'van_gogh' (memorized prompts; phase 6's Wanda union over "
+              f"timesteps) and 'house' (a CLIP-text checker; phase 6's last "
+              f"Wanda step)): routes {routes}, files {files}, wall {w:.3f} s;"
+              f" launches {launches['unified_editing']}", flush=True)
+        out["unified_s"] = w
+
+        del moefied, moe
+        baseline_launches, out["baselines_s"] = run_baselines(pipe, tok, root)
+        launches.update(baseline_launches)
+        del pipe
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("rest: " + json.dumps(out), flush=True)
     return launches
 
 
@@ -3584,7 +4250,7 @@ def main() -> None:
     phase_done("4b (f32 and tiny_config generates on the plain versions)")
     attribution_launches, removal = run_attribution(pipe, ivs, compare, card)
     phase_done("5 (attribution and neuron erasure)")
-    wanda_launches = run_wanda(pipe, ivs, images, card)
+    wanda_launches, wanda_masks = run_wanda(pipe, ivs, images, card)
     phase_done("6 (wanda erasure and bake)")
     serving_launches = run_serving(pipe, ivs, modes_off, card)
     phase_done("7 (serving engine, exact-tier modes)")
@@ -3608,9 +4274,11 @@ def main() -> None:
     phase_done("15 (PixArt-512: T5-XXL, the DiT, taps and removal)")
     judge_launches = run_judges(card)
     phase_done("16 (checked_generate and the judges at full width)")
-    eval_launches = run_erasure_eval(removal, card)
-    del removal
+    eval_launches, eval_images = run_erasure_eval(removal, card)
     phase_done("17 (the erasure evaluation: NudeNet, run_eval, I2P, LLaVA)")
+    rest_launches = run_rest_of_eval(removal, wanda_masks, eval_images, card)
+    del removal, wanda_masks, eval_images
+    phase_done("18 (Qwen2-VL judge, debias, unified editing, baselines)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -3624,7 +4292,7 @@ def main() -> None:
         "sld": sld_launches, "snapshot_routed": snapshot_launches,
         **{f"sdxl_{k}": v for k, v in sdxl_launches.items()},
         "pixart": pixart_launches, "checked_generate": judge_launches,
-        "erasure_eval": eval_launches}))
+        "erasure_eval": eval_launches, **rest_launches}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [

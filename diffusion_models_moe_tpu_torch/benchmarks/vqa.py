@@ -7,11 +7,13 @@ modularity/mod_utils.py:195-290, modularity/qwen_score.py:15-45): a VLM is
 asked structured questions about generated images before/after concept
 removal; answers are parsed into object-presence and style scores.
 
-The VLM judge runs natively: `load_llava_native` reads an HF llava-1.5
+The VLM judges run natively: `load_llava_native` reads an HF llava-1.5
 snapshot into the port's CLIP vision + Llama stack (`models/llava.py`,
 `weights/port_llava.py`: KV-cached greedy decode) on the card, with the
 port's own Llama tokenizer (`data/tokenizer.py:load_llama_tokenizer`, no
-`tokenizers`), and returns the standard callable. The injected interface
+`tokenizers`), and `load_qwen2vl_native` an HF Qwen2-VL snapshot into
+`models/qwen2vl.py` with the port's byte-level BPE tokenizer
+(`load_qwen_tokenizer`); each returns the standard callable. The injected interface
 (`vqa(image, question) -> answer text`) stays, so a local transformers
 checkpoint (`load_transformers_vqa`) or another judge plugs in; the
 question protocol and answer parsing are self-contained.
@@ -83,6 +85,49 @@ def load_llava_native(snapshot_dir: str, size: str = "auto",
     model = LlavaForConditionalGeneration(cfg, device=device)
     load_llava_state(model, port_llava(snapshot_dir, cfg))
     encode, decode = load_llama_tokenizer(snapshot_dir)
+    return build_vqa(model, encode, decode, max_new_tokens=max_new_tokens)
+
+
+def load_qwen2vl_native(snapshot_dir: str, size: str = "auto",
+                        max_new_tokens: int = 32, quant_int8: bool = False,
+                        device="cuda", config=None) -> VQAFn:
+    """The Qwen2-VL judge from an HF snapshot directory (the stand-in for the
+    reference's remote-code Qwen-VL-Chat scorer, qwen_score.py:15-45), on
+    `device` (the card unless the caller asks for another), in f32, with
+    the port's own Qwen2 tokenizer (`data/tokenizer.py:
+    load_qwen_tokenizer`).
+
+    size: '2b' | '7b' | 'auto' (reads config.json's hidden size);
+    `config` (a `Qwen2VLConfig`) takes the place of the size's.
+    `quant_int8`: W8A8 LM projections (answers may differ slightly). The
+    7B judge fits one 80-GB card in f32 (about 33 GB), so the JAX
+    version's tensor-parallel `mesh=` is not taken."""
+    import dataclasses
+    import json
+    import os
+
+    from diffusion_models_moe_tpu_torch.config import resolve_device
+    from diffusion_models_moe_tpu_torch.data.tokenizer import \
+        load_qwen_tokenizer
+    from diffusion_models_moe_tpu_torch.models.qwen2vl import (
+        Qwen2VLForConditionalGeneration, build_vqa)
+    from diffusion_models_moe_tpu_torch.weights.port_qwen2vl import (
+        port_qwen2vl, qwen2vl_2b_config, qwen2vl_7b_config)
+
+    dev = resolve_device(device)
+    cfg = config
+    if cfg is None:
+        if size == "auto":
+            with open(os.path.join(snapshot_dir, "config.json")) as f:
+                hidden = json.load(f).get("hidden_size", 3584)
+            size = "2b" if hidden == 1536 else "7b"
+        cfg = qwen2vl_2b_config() if size == "2b" else qwen2vl_7b_config()
+    if quant_int8:
+        cfg = dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, quant_int8=True))
+    model = Qwen2VLForConditionalGeneration(cfg, device=dev)
+    model.load_state_dict(port_qwen2vl(snapshot_dir, cfg))
+    encode, decode = load_qwen_tokenizer(snapshot_dir)
     return build_vqa(model, encode, decode, max_new_tokens=max_new_tokens)
 
 

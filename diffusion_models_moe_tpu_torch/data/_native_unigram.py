@@ -1,6 +1,6 @@
-"""A reader of T5's and Llama's tokenizer files that needs neither
-`tokenizers`, `sentencepiece` nor `protobuf` (the port's GPU host has none of
-them).
+"""A reader of T5's, Llama's and Qwen2's tokenizer files that needs neither
+`tokenizers`, `sentencepiece`, `regex` nor `protobuf` (the port's GPU host
+has none of them).
 
 `Tokenizer.from_file` reads an HF `tokenizer.json`, `Tokenizer.from_spm` a
 sentencepiece `spiece.model`; `encode(text)` gives the ids that `tokenizers`
@@ -16,23 +16,39 @@ pipeline is that of `tokenizers`:
 3. the post-processor frames the ids.
 
 Components read: normalizers `Sequence`, `Precompiled` (a sentencepiece
-charsmap), `Replace` and `Prepend`; pre-tokenizers `Sequence`, `Metaspace`
-(`split` or not; `prepend_scheme` always, first or never),
-`WhitespaceSplit` and `Whitespace`; models `Unigram` (Viterbi over the
-piece scores, unknown characters at the lowest score less 10, runs of them
-fused into one unknown id), `WordLevel` and `BPE` (Llama's: merges by rank,
-as "a b" strings or as pairs, applied lowest rank first and leftmost among
-equal ranks, as `tokenizers`' priority queue does; a character outside the
-vocabulary as its UTF-8 bytes' `<0xXX>` tokens with `byte_fallback`, else
-as `unk_token`, runs of unknowns fused with `fuse_unk`; `ignore_merges`);
-post-processor `TemplateProcessing` (its `single` template); decoders
-`Sequence`, `Replace`, `ByteFallback` (a run of `<0xXX>` tokens becomes its
-UTF-8 text, or U+FFFD for each byte where it is not valid UTF-8), `Fuse`,
-`Strip` and `Metaspace`. Any other component, an added token with
-`single_word`, a Unigram with `byte_fallback`, a BPE with `dropout`,
-`continuing_subword_prefix` or `end_of_word_suffix` (a byte-level BPE
-shows as its `ByteLevel` pre-tokenizer), or a file that sets `truncation`
-or `padding`, raises `NotImplementedError` naming it.
+charsmap), `Replace`, `Prepend` and `NFC`; pre-tokenizers `Sequence`,
+`Metaspace` (`split` or not; `prepend_scheme` always, first or never),
+`WhitespaceSplit`, `Whitespace`, `Split` (Qwen2's pattern, `Isolated`, not
+inverted) and `ByteLevel` (no prefix space, no regex of its own); models
+`Unigram` (Viterbi over the piece scores, unknown characters at the lowest
+score less 10, runs of them fused into one unknown id), `WordLevel` and
+`BPE` (Llama's and Qwen2's: merges by rank, as "a b" strings or as pairs,
+applied lowest rank first and leftmost among equal ranks, as `tokenizers`'
+priority queue does; a character outside the vocabulary as its UTF-8
+bytes' `<0xXX>` tokens with `byte_fallback`, else as `unk_token`, or
+dropped where there is none; runs of unknowns fused with `fuse_unk`;
+`ignore_merges`); post-processors `TemplateProcessing` (its `single`
+template) and `ByteLevel` (ids unchanged); decoders `Sequence`, `Replace`,
+`ByteFallback` (a run of `<0xXX>` tokens becomes its UTF-8 text, or U+FFFD
+for each byte where it is not valid UTF-8), `Fuse`, `Strip`, `Metaspace`
+and `ByteLevel` (the byte alphabet back to bytes, then UTF-8 with U+FFFD
+for each maximal invalid subpart). Any other component, a `Split` on
+another pattern or with another behaviour, a `ByteLevel` with
+`add_prefix_space` or `use_regex`, an added token with `single_word`, a
+Unigram with `byte_fallback`, a BPE with `dropout` or a non-empty
+`continuing_subword_prefix` or `end_of_word_suffix`, or a file that sets
+`truncation` or `padding`, raises `NotImplementedError` naming it.
+
+`Split` runs on the stdlib `re`: `\\p{L}`, `\\p{N}` and `\\s` become classes
+built from `unicodedata` (White_Space for `\\s`), overridden by the runs of
+`_split_classes.txt`, where `tokenizers`' regex engine classes a code point
+otherwise (its Unicode tables are newer); the contractions' `(?i:...)` is
+`re`'s, which takes the same case partners (`'\u017f` for `'s`). `NFC` is
+`unicodedata.normalize`, except on text holding a code point of
+`_nfc_table.txt`, where `tokenizers`' normalization data (older than the
+interpreter's) gives another combining class or decomposition: there the
+decomposition, canonical order and composition run here on the table's
+data. Both tables are made by `tools/gen_bytelevel_tables.py`.
 
 A `spiece.model` is a protobuf `ModelProto`, read here by a small wire
 reader: `pieces` (piece, score), `trainer_spec.unk_id`, `model_type` and
@@ -64,6 +80,7 @@ import json
 import os
 import re
 import struct
+import unicodedata
 from typing import Optional, Sequence
 
 # the White_Space property (Rust's `char::is_whitespace`)
@@ -73,8 +90,13 @@ WHITE_SPACE = ("\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003"
 _WS_RUN = re.compile(f"[{WHITE_SPACE}]+")
 _WHITESPACE_WORDS = re.compile(r"\w+|[^\w\s]+")
 UNK_PENALTY = 10.0
-_GRAPHEME_TABLE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               "_grapheme_classes.txt")
+_DATA = os.path.dirname(os.path.abspath(__file__))
+_GRAPHEME_TABLE = os.path.join(_DATA, "_grapheme_classes.txt")
+_SPLIT_CLASSES = os.path.join(_DATA, "_split_classes.txt")
+_NFC_TABLE = os.path.join(_DATA, "_nfc_table.txt")
+# the pre-tokenizer pattern of Qwen2's tokenizer.json (its `Split`)
+QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
+               r"\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
 
 
 # ------------------------------------------------------------------ graphemes
@@ -223,6 +245,66 @@ def _prepend(prefix: str):
     return lambda text: prefix + text if text else text
 
 
+@functools.lru_cache(maxsize=1)
+def _nfc_data() -> tuple[dict, dict, dict, frozenset]:
+    """`_nfc_table.txt`: (ccc, full decomposition, recomposes) by code point
+    where `tokenizers` differs from `unicodedata`, and the code points that
+    send a text down the slow path: those and their decompositions'."""
+    ccc, nfd, composes = {}, {}, {}
+    with open(_NFC_TABLE, encoding="ascii") as f:
+        for line in f:
+            if line.startswith("#"):
+                continue
+            cp, cls, parts, comp = line.split()
+            c = chr(int(cp, 16))
+            ccc[c] = int(cls)
+            nfd[c] = "".join(chr(int(x, 16)) for x in parts.split("."))
+            composes[c] = comp == "1"
+    triggers = set(ccc)
+    for c, d in nfd.items():
+        triggers.update(d)
+        triggers.update(unicodedata.normalize("NFD", c))
+    return ccc, nfd, composes, frozenset(triggers)
+
+
+def nfc(text: str) -> str:
+    """NFC as `tokenizers`' `NFC` normalizer gives it (see the module's
+    docstring)."""
+    ccc_t, nfd_t, comp_t, triggers = _nfc_data()
+    if triggers.isdisjoint(text):
+        return unicodedata.normalize("NFC", text)
+
+    def ccc(c: str) -> int:
+        return ccc_t[c] if c in ccc_t else unicodedata.combining(c)
+
+    chars: list[str] = []
+    for c in text:
+        chars.extend(nfd_t[c] if c in nfd_t
+                     else unicodedata.normalize("NFD", c))
+    i = 0
+    while i < len(chars):                # canonical order of each mark run
+        j = i
+        while j < len(chars) and ccc(chars[j]) != 0:
+            j += 1
+        if j > i:
+            chars[i:j] = sorted(chars[i:j], key=ccc)
+        i = j + 1
+    out: list[str] = []
+    starter: Optional[int] = None
+    for c in chars:
+        cls = ccc(c)
+        if starter is not None and (len(out) - 1 == starter
+                                    or 0 < ccc(out[-1]) < cls):
+            pair = unicodedata.normalize("NFC", out[starter] + c)
+            if len(pair) == 1 and comp_t.get(pair, True):
+                out[starter] = pair
+                continue
+        if cls == 0:
+            starter = len(out)
+        out.append(c)
+    return "".join(out)
+
+
 def _normalizer(spec: Optional[dict]):
     if spec is None:
         return None
@@ -235,6 +317,8 @@ def _normalizer(spec: Optional[dict]):
         return Replace(spec)
     if kind == "Prepend":
         return _prepend(spec["prepend"])
+    if kind == "NFC":
+        return nfc
     raise NotImplementedError(f"normalizer {kind!r}")
 
 
@@ -297,6 +381,70 @@ def _whitespace(pieces):
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def qwen2_split_pattern() -> re.Pattern:
+    """`QWEN2_SPLIT` for the stdlib `re` (built once, ~0.5 s)."""
+    from diffusion_models_moe_tpu_torch.data.tokenizer import _char_classes
+    cls = _char_classes(_SPLIT_CLASSES, WHITE_SPACE)
+    letter, number, space = cls["L"], cls["N"], cls["S"]
+    return re.compile(
+        f"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\\r\\n{letter}{number}]?[{letter}]+"
+        f"|[{number}]| ?[^{space}{letter}{number}]+[\\r\\n]*"
+        f"|[{space}]*[\\r\\n]+|[{space}]+(?![^{space}])|[{space}]+")
+
+
+class Split:
+    """`Split` with behaviour `Isolated`, not inverted: each match and each
+    run of text between matches is a part."""
+
+    def __init__(self, spec: dict):
+        pattern = spec.get("pattern", {})
+        if pattern.get("Regex") != QWEN2_SPLIT:
+            raise NotImplementedError(f"Split pattern {pattern!r}")
+        if spec.get("behavior") != "Isolated" or spec.get("invert"):
+            raise NotImplementedError(
+                f"Split behavior {spec.get('behavior')!r} with invert "
+                f"{spec.get('invert')!r}")
+        self.pattern = qwen2_split_pattern()
+
+    def __call__(self, pieces):
+        out = []
+        for text, at_origin in pieces:
+            last = 0
+            for m in self.pattern.finditer(text):
+                if m.start() > last:
+                    out.append((text[last:m.start()], at_origin and last == 0))
+                if m.end() > m.start():
+                    out.append((m.group(), at_origin and m.start() == 0))
+                last = m.end()
+            if last < len(text):
+                out.append((text[last:], at_origin and last == 0))
+        return out
+
+
+def _byte_level_check(spec: dict, where: str) -> None:
+    """Refuses a `ByteLevel` that adds a prefix space or splits by its own
+    regex (`tokenizers`' default for `use_regex` is true)."""
+    for key, default in (("add_prefix_space", True), ("use_regex", True)):
+        if spec.get(key, default):
+            raise NotImplementedError(f"{where} 'ByteLevel' with {key}")
+
+
+@functools.lru_cache(maxsize=1)
+def _byte_chars() -> tuple[dict[int, str], dict[str, int]]:
+    from diffusion_models_moe_tpu_torch.data.tokenizer import \
+        _bytes_to_unicode
+    enc = _bytes_to_unicode()
+    return enc, {c: b for b, c in enc.items()}
+
+
+def _byte_level(pieces):
+    """Each part's UTF-8 bytes as the byte alphabet's characters."""
+    enc = _byte_chars()[0]
+    return [("".join(enc[b] for b in text.encode("utf-8")), at_origin)
+            for text, at_origin in pieces if text]
+
+
 def _pre_tokenizer(spec: Optional[dict]):
     if spec is None:
         return lambda pieces: pieces
@@ -315,6 +463,11 @@ def _pre_tokenizer(spec: Optional[dict]):
         return _whitespace_split
     if kind == "Whitespace":
         return _whitespace
+    if kind == "Split":
+        return Split(spec)
+    if kind == "ByteLevel":
+        _byte_level_check(spec, "pre-tokenizer")
+        return _byte_level
     raise NotImplementedError(f"pre-tokenizer {kind!r}")
 
 
@@ -413,7 +566,7 @@ class BPE:
     def __init__(self, spec: dict):
         for key in ("dropout", "continuing_subword_prefix",
                     "end_of_word_suffix"):
-            if spec.get(key) is not None:
+            if spec.get(key) not in (None, ""):
                 raise NotImplementedError(f"model 'BPE' with {key}")
         self.ids = dict(spec["vocab"])
         self.tokens = {i: t for t, i in self.ids.items()}
@@ -567,6 +720,20 @@ def _metaspace_decoder(spec: dict):
     return run
 
 
+def _byte_level_decoder(tokens: list[str]) -> list[str]:
+    """A token of byte-alphabet characters as its bytes, any other token as
+    its UTF-8; the whole as UTF-8, U+FFFD for each maximal invalid
+    subpart."""
+    dec = _byte_chars()[1]
+    buf = bytearray()
+    for tok in tokens:
+        if all(c in dec for c in tok):
+            buf.extend(dec[c] for c in tok)
+        else:
+            buf.extend(tok.encode("utf-8"))
+    return [buf.decode("utf-8", errors="replace")]
+
+
 def _decoder(spec: Optional[dict]):
     if spec is None:
         return None
@@ -591,11 +758,17 @@ def _decoder(spec: Optional[dict]):
                       spec.get("stop", 0))
     if kind == "Metaspace":
         return _metaspace_decoder(spec)
+    if kind == "ByteLevel":
+        _byte_level_check(spec, "decoder")
+        return _byte_level_decoder
     raise NotImplementedError(f"decoder {kind!r}")
 
 
 def _post_processor(spec: Optional[dict]):
     if spec is None:
+        return lambda ids: ids
+    if spec["type"] == "ByteLevel":      # offsets only
+        _byte_level_check(spec, "post-processor")
         return lambda ids: ids
     if spec["type"] != "TemplateProcessing":
         raise NotImplementedError(f"post-processor {spec['type']!r}")

@@ -1,11 +1,12 @@
-"""CLIP BPE tokenizer and T5 tokenizer (PyTorch port).
+"""CLIP BPE tokenizer, and the T5, Llama and Qwen2 tokenizers (PyTorch port).
 
-Counterpart of `diffusion_models_moe_tpu/data/tokenizer.py`'s CLIP and T5
-parts. The CLIP tokenizer needs only a checkpoint's `vocab.json` and
-`merges.txt` and gives the `(B, max_length)` int64 ids the text encoder
-takes, BOS/EOS framed and padded with the snapshot's pad token.
-`load_t5_tokenizer` reads PixArt's `tokenizer.json` or `spiece.model` with
-the port's own Unigram reader (`data/_native_unigram.py`).
+Counterpart of `diffusion_models_moe_tpu/data/tokenizer.py`. The CLIP
+tokenizer needs only a checkpoint's `vocab.json` and `merges.txt` and gives
+the `(B, max_length)` int64 ids the text encoder takes, BOS/EOS framed and
+padded with the snapshot's pad token. `load_t5_tokenizer` (PixArt's
+`tokenizer.json` or `spiece.model`), `load_llama_tokenizer` (LLaVA's) and
+`load_qwen_tokenizer` (Qwen2-VL's byte-level BPE) read their files with the
+port's own reader (`data/_native_unigram.py`).
 
 CLIP splits text into words with `\\p{L}+|\\p{N}|[^\\s\\p{L}\\p{N}]+` (after
 its special tokens and contractions), a pattern of the `regex` package. The
@@ -63,19 +64,24 @@ _REGEX_CLASSES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "_regex_classes.txt")
 
 
-def _char_classes() -> dict[str, str]:
-    """The code points of the classes L and N of `regex`, each as the body
-    of a stdlib `re` character class in escaped ranges: the major Unicode
-    category, overridden by the runs of `_regex_classes.txt`."""
-    majors = [unicodedata.category(c)[0]
-              for c in map(chr, range(sys.maxunicode + 1))]
-    with open(_REGEX_CLASSES, encoding="ascii") as f:
+def _char_classes(table: str = _REGEX_CLASSES,
+                  white_space: str = "") -> dict[str, str]:
+    """The code points of the classes L, N and S of a regex engine, each as
+    the body of a stdlib `re` character class in escaped ranges: the major
+    Unicode category (S: the code points of `white_space`), overridden by
+    the runs of `table` (`_regex_classes.txt`: `regex`'s, the default;
+    `_split_classes.txt`: `tokenizers`')."""
+    majors = [m if m in "LN" else "O" for m in (
+        unicodedata.category(c)[0] for c in map(chr, range(sys.maxunicode + 1)))]
+    for c in white_space:
+        majors[ord(c)] = "S"
+    with open(table, encoding="ascii") as f:
         for line in f:
             if not line.startswith("#"):
                 start, end, cls = line.split()
                 majors[int(start, 16):int(end, 16) + 1] = (
                     [cls] * (int(end, 16) - int(start, 16) + 1))
-    out: dict[str, list[str]] = {"L": [], "N": []}
+    out: dict[str, list[str]] = {"L": [], "N": [], "S": []}
     start = 0
     for major, run in itertools.groupby(majors):
         end = start + sum(1 for _ in run) - 1
@@ -298,6 +304,29 @@ def load_llama_tokenizer(path: str):
         if bos_id is not None and (not ids or ids[0] != bos_id):
             ids = [bos_id] + list(ids)
         return np.asarray(ids, np.int32)
+
+    def decode(ids) -> str:
+        return tok.decode([int(i) for i in ids]).strip()
+
+    return encode, decode
+
+
+def load_qwen_tokenizer(path: str):
+    """Qwen2 / Qwen2-VL tokenizer of the Qwen2-VL judge
+    (`models/qwen2vl.py`) from a snapshot's `tokenizer.json`, read by the
+    port's own reader (`data/_native_unigram.py`: NFC, Qwen2's `Split`,
+    byte-level BPE; the chat strings `<|im_start|>` etc. are added tokens
+    and encode to one id each; no `tokenizers` or `regex`). Returns
+    (encode, decode): encode(text) -> 1-D int32 ids, no BOS; decode(ids) ->
+    text, special tokens skipped, stripped."""
+    from diffusion_models_moe_tpu_torch.data._native_unigram import Tokenizer
+    json_path = os.path.join(path, "tokenizer.json")
+    if not os.path.exists(json_path):
+        raise FileNotFoundError(f"no tokenizer.json under {path!r}")
+    tok = Tokenizer.from_file(json_path)
+
+    def encode(text: str) -> np.ndarray:
+        return np.asarray(tok.encode(text), np.int32)
 
     def decode(ids) -> str:
         return tok.decode([int(i) for i in ids]).strip()

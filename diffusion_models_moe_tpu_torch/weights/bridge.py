@@ -24,7 +24,9 @@ bias, running_mean and running_var). The erasure judges' trees
 (ultralytics' names, fused convs, the DFL arange), `LlamaModel`
 (transformers' `LlamaForCausalLM` names) and
 `LlavaForConditionalGeneration` (llava-hf names; its tower without the
-projection head).
+projection head). `qwen2vl_numpy_state_dict` gives the port's
+`Qwen2VLForConditionalGeneration` (transformers' names; the patch
+embedding's dense kernel becomes the Conv3d weight again).
 """
 from __future__ import annotations
 
@@ -464,4 +466,29 @@ def llava_numpy_state_dict(params: dict, cfg) -> dict:
               _linear(params["projector"][f"linear_{i}"]))
     for k, v in llama_numpy_state_dict(params["language"], cfg.text).items():
         sd[f"language_model.{k}"] = v
+    return sd
+
+
+def qwen2vl_numpy_state_dict(params: dict, cfg) -> dict:
+    """models/qwen2vl.py params ({vision, language}) -> the port's
+    `Qwen2VLForConditionalGeneration` state dict (transformers' names; the
+    patch embedding's dense kernel back to the Conv3d weight)."""
+    v, vp = cfg.vision, params["vision"]
+    kernel = _np(vp["patch_embed"]["kernel"])
+    sd = {"visual.patch_embed.proj.weight": np.ascontiguousarray(kernel.T).reshape(
+        v.embed_dim, v.in_channels, v.temporal_patch_size, v.patch_size,
+        v.patch_size)}
+    for i in range(v.depth):
+        bp, p = f"visual.blocks.{i}", vp[f"blocks_{i}"]
+        for norm in ("norm1", "norm2"):
+            _emit(sd, f"{bp}.{norm}", _norm(p[norm]))
+        _emit(sd, f"{bp}.attn.qkv", _linear(p["qkv"]))
+        _emit(sd, f"{bp}.attn.proj", _linear(p["proj"]))
+        _emit(sd, f"{bp}.mlp.fc1", _linear(p["fc1"]))
+        _emit(sd, f"{bp}.mlp.fc2", _linear(p["fc2"]))
+    _emit(sd, "visual.merger.ln_q", _norm(vp["ln_q"]))
+    _emit(sd, "visual.merger.mlp.0", _linear(vp["mlp_0"]))
+    _emit(sd, "visual.merger.mlp.2", _linear(vp["mlp_2"]))
+    for k, t in llama_numpy_state_dict(params["language"], cfg.text).items():
+        sd[f"language_model.{k}"] = t
     return sd

@@ -1356,3 +1356,103 @@ def test_llama_decode_is_consistent_on_the_card(gen):
         solo = greedy_decode(lm, embed_tokens(lm, ids[r:r + 1, :n]),
                              lengths[r:r + 1], 12, eos_id=2)
         assert torch.equal(solo[0], toks[r])
+
+
+def test_qwen2vl_tower_and_lm_layer_on_the_card_match_the_cpu(gen):
+    """Qwen2-VL-7B's vision tower cut to 2 blocks and its LM cut to one
+    layer, at full width with seeded weights, f32: the merged features of a
+    512-px image (324 tokens) and the layer's logits over 64 tokens (3-D
+    positions of an image span) on the card within JUDGE_TOL of the CPU's."""
+    from diffusion_models_moe_tpu_torch.models.llama import embed_tokens
+    from diffusion_models_moe_tpu_torch.models.qwen2vl import (
+        Qwen2VLConfig, Qwen2VLForConditionalGeneration, image_features,
+        preprocess_image, rope_index)
+    full = Qwen2VLConfig()
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, depth=2),
+        text=dataclasses.replace(full.text, num_layers=1))
+    card = _seed_(Qwen2VLForConditionalGeneration(cfg), gen)
+    cpu = Qwen2VLForConditionalGeneration(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    img = (torch.rand((512, 512, 3), generator=gen, device="cuda") * 255
+           ).byte().cpu().numpy()
+    patches, grid = preprocess_image(img, cfg.vision,
+                                     max_pixels=28 * 28 * 576)
+    got = image_features(card, patches, grid)
+    assert got.shape == (1, 324, full.text.hidden_size)
+    assert torch.isfinite(got).all()
+    assert _rel(got.cpu(), image_features(cpu, patches, grid)) < JUDGE_TOL
+    ids = np.concatenate([[3, 5, cfg.vision_start_token_id],
+                          [cfg.image_token_id] * 16, [7, 9] * 22])
+    pos, _ = rope_index(cfg, ids, (1, 8, 8))
+    outs = []
+    for model in (card, cpu):
+        lm = model.language_model
+        dev = model.device
+        x = embed_tokens(lm, torch.from_numpy(ids))[None]
+        p = torch.from_numpy(pos).long().to(dev)
+        logits, _ = lm(x, p, torch.ones((1, len(ids)), dtype=torch.bool,
+                                        device=dev))
+        outs.append(logits)
+    assert torch.isfinite(outs[0]).all()
+    assert _rel(outs[0].cpu(), outs[1]) < JUDGE_TOL
+
+
+def test_qwen2vl_generate_is_consistent_on_the_card(gen):
+    """Qwen2-VL-7B geometry cut to 2 vision blocks and 2 LM layers, f32 on
+    the card: two images co-batched decode as each does alone, and the
+    cached tokens equal a teacher-forced argmax under the 3-D positions
+    (decode positions from the largest prompt position + 1)."""
+    from diffusion_models_moe_tpu_torch.models.llama import embed_tokens
+    from diffusion_models_moe_tpu_torch.models.qwen2vl import (
+        Qwen2VLConfig, Qwen2VLForConditionalGeneration, generate,
+        image_features, preprocess_image, prompt_ids, rope_index)
+    full = Qwen2VLConfig()
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, depth=2),
+        text=dataclasses.replace(full.text, num_layers=2))
+    model = _seed_(Qwen2VLForConditionalGeneration(cfg), gen)
+    imgs = [(torch.rand((96, 128, 3), generator=gen, device="cuda") * 255
+             ).byte().cpu().numpy() for _ in range(2)]
+    pre = [preprocess_image(i, cfg.vision) for i in imgs]
+    grid = pre[0][1]
+    ids = prompt_ids(lambda t: np.arange(3, 3 + len(t.split())), "q a b",
+                     pre[0][0].shape[0] // 4, cfg)
+    both = generate(model, ids, np.stack([p for p, _ in pre]), grid,
+                    max_new_tokens=8)
+    for r, (p, _) in enumerate(pre):
+        np.testing.assert_array_equal(
+            generate(model, ids, p, grid, max_new_tokens=8)[0], both[r])
+    pos, delta = rope_index(cfg, ids, grid)
+    lm = model.language_model
+    feats = image_features(model, pre[0][0], grid)[0]
+    row = both[0].tolist()
+    n = row.index(cfg.eos_id) + 1 if cfg.eos_id in row else len(row)
+    seq = np.concatenate([ids, row[:n - 1]]).astype(np.int64)
+    x = embed_tokens(lm, torch.from_numpy(seq))[None].clone()
+    img = torch.from_numpy(np.nonzero(ids == cfg.image_token_id)[0]).cuda()
+    x[0, img] = feats
+    tail = np.arange(len(ids), len(seq)) + delta
+    p = np.concatenate([pos[:, 0], np.broadcast_to(tail, (3, len(tail)))], 1)
+    logits, _ = lm(x, torch.from_numpy(p).long().cuda()[:, None],
+                   torch.ones((1, len(seq)), dtype=torch.bool, device="cuda"))
+    assert logits[0, len(ids) - 1:].argmax(-1).tolist() == row[:n]
+
+
+def test_qwen_tokenizer_round_trip_on_the_card_machine(gen, tmp_path):
+    """The full-size Qwen2-layout tokenizer.json of chip_smoke.py read by the
+    port's own reader where the card is (no `tokenizers` or `regex` there):
+    the chat strings one id each, and text decodes back to itself."""
+    import os
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    from diffusion_models_moe_tpu_torch.data.prompts import i2p_prompts
+    from diffusion_models_moe_tpu_torch.data.tokenizer import \
+        load_qwen_tokenizer
+    chip_smoke.write_qwen_tokenizer(str(tmp_path))
+    encode, decode = load_qwen_tokenizer(str(tmp_path))
+    ids = encode("<|im_start|>user\n<|im_end|>").tolist()
+    assert ids[0] == 151644 and ids[-1] == 151645 and len(ids) < 8
+    for text in i2p_prompts()[:50] + ["naïve café, 日本 🎨\r\n\ttab"]:
+        assert decode(encode(text)) == text.strip()

@@ -38,7 +38,7 @@ from diffusion_models_moe_tpu.weights import port_nudenet as jport
 from diffusion_models_moe_tpu_torch import StableDiffusionPipeline, tiny_config
 from diffusion_models_moe_tpu_torch.benchmarks import art_removal, nudity
 from diffusion_models_moe_tpu_torch.benchmarks import object_erase, protocols
-from diffusion_models_moe_tpu_torch.benchmarks import runner, vqa
+from diffusion_models_moe_tpu_torch.benchmarks import baselines, runner, vqa
 from diffusion_models_moe_tpu_torch.models import yolo
 from diffusion_models_moe_tpu_torch.weights import bridge
 from torch_parity import one_torch_thread  # noqa: F401  (autouse)
@@ -298,7 +298,8 @@ def _stub_torchvision(monkeypatch) -> None:
 @pytest.mark.parametrize("entry", ["nudenet_native", "native_detector",
                                    "nudenet_package", "llava_native",
                                    "transformers_vqa", "resnet_classifier",
-                                   "torchvision_classifier"])
+                                   "torchvision_classifier", "qwen2vl_native",
+                                   "baseline"])
 def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """This slice's judge entry points run on the card unless the caller
     asks for the CPU: with no CUDA device the default raises before any
@@ -321,6 +322,8 @@ def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
             path),
         "torchvision_classifier": lambda:
             object_erase.load_torchvision_classifier(),
+        "qwen2vl_native": lambda: vqa.load_qwen2vl_native(path, size="7b"),
+        "baseline": lambda: baselines.load_baseline("esd", path),
     }
     with pytest.raises(RuntimeError, match="no CUDA device is present"):
         calls[entry]()
