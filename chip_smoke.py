@@ -216,6 +216,23 @@ Run from the root of a checkout. Phases:
      1-3) and of "sld" through `run_eval(generate_fn=
      make_protocol_generate(...))`; every generate's launches held to its
      path, no plain call;
+  19. (run after 18) training on the ReLUfied SD1.5 (`sd15_config(bf16,
+     relufied=True)`, seeded weights): (a) 4 seeded 512-px images and
+     captions through a seeded full-width VAE encoder and the CLIP text
+     encoder to scaled latents (`training.trainer.encode_batch`), timed, the
+     encoder's f32 copy on the card against the CPU at 64 px within
+     JUDGE_TOL; (b) `make_train_step` AdamW steps at batch 4 (f32 masters,
+     moments and EMA, the bf16 working copy through kernels 2 and 3), 5
+     after a warm-up with `remat` off and 5 with it on: step seconds
+     (median), peak memory, the losses, kernels 2 and 3 at 16 launches a
+     step (32 with remat: the checkpointed forward runs again in the
+     backward), kernel 1's plain version as often (no backward kernel),
+     nothing else; (c) one step's gradients through kernels 2 and 3 against
+     the plain path's, both bf16, within GRAD_FLOOR_FACTOR x the card's
+     floor (plain bf16 against plain f32); (d) at tiny_config on the card:
+     an Adafactor step, an accumulation cycle of 2 with the EMA, and
+     `train_relufied` for 6 steps with validation images against 4, a
+     checkpoint and a resume to 6, bit-equal (cuDNN deterministic);
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -4180,6 +4197,379 @@ def run_rest_of_eval(removal, wanda_masks: dict, images: tuple,
     return launches
 
 
+
+# ------------------------------------------------------------ phase 19
+TRAIN_BATCH = 4          # images a step at 512 px
+TRAIN_STEPS = 5          # timed steps after one warm-up, remat off and on
+TRAIN_PEAK_GIB = 70.0    # above this the no-remat step drops to batch 2
+# ||grads kernels 2, 3 - grads plain|| / ||grads plain||, both bf16: within
+# GRAD_FLOOR_FACTOR x the card's own gradient floor, plain bf16 against
+# plain f32 on the same step (set before the first run, as the latents'
+# FLOOR_FACTOR)
+GRAD_FLOOR_FACTOR = 1.5
+
+
+def seed_module(module, seed: int):
+    """The pipelines' init scheme on `module`: weights N(0, 1/fan_in), zero
+    biases, unit norm scales; drawn on the card from `seed`."""
+    import torch.nn as nn
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            owner = module.get_submodule(name.rpartition(".")[0])
+            if name.endswith("bias"):
+                p.zero_()
+            elif isinstance(owner, (nn.GroupNorm, nn.LayerNorm)):
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device=DEV)
+                        * p[0].numel() ** -0.5)
+    return module
+
+
+def grads_of(unet, batch: dict, draws: dict, tcfg, use_kernels: bool) -> dict:
+    """One step's gradients of every UNet parameter, in f32."""
+    from diffusion_models_moe_tpu_torch.schedulers.common import NoiseTables
+    from diffusion_models_moe_tpu_torch.training.train import loss_fn
+    loss = loss_fn(unet, batch["latents"], batch["text_emb"], draws, tcfg,
+                   NoiseTables.create(), use_kernels=use_kernels)
+    loss.backward()
+    out = {n: p.grad.float() for n, p in unet.named_parameters()}
+    unet.zero_grad(set_to_none=True)
+    return out
+
+
+def grad_distance(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every gradient."""
+    num = sum(float((a[n] - b[n]).double().pow(2).sum()) for n in b)
+    den = sum(float(b[n].double().pow(2).sum()) for n in b)
+    return (num / den) ** 0.5
+
+
+def expect_train_launches(got: dict, per_step: int, steps: int,
+                          what: str) -> None:
+    """Kernels 2 and 3 at `per_step` launches a step, kernel 1's plain
+    version as often (its FFs have no backward kernel), nothing else."""
+    from diffusion_models_moe_tpu_torch.ops import _build
+    want = {k: 0 for k in _build.KERNELS + _build.PLAIN}
+    want.update({"sd_self_attention": per_step * steps,
+                 "sd_cross_attention": per_step * steps,
+                 "plain:geglu_ff_fused": per_step * steps})
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    check(not bad, f"{what}: launches (got, expected) {bad}")
+
+
+def encode_phase(pipe, card: str) -> tuple:
+    """(a): seeded 512-px images and captions through the VAE encoder and
+    the CLIP text encoder on the card; the encoder's f32 copy on the card
+    against the same module on the CPU at 64 px within JUDGE_TOL."""
+    from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
+    from diffusion_models_moe_tpu_torch.models.layers import (cast_model,
+                                                              f32_convs)
+    from diffusion_models_moe_tpu_torch.models.vae import VAEEncoder
+    from diffusion_models_moe_tpu_torch.training.trainer import (
+        build_vae_encoder, encode_batch)
+    cfg = pipe.config
+    venc = build_vae_encoder(pipe)
+    seed_module(venc, 19)
+    n_enc = sum(p.numel() for p in venc.parameters())
+    rng = np.random.RandomState(19)
+    side = 8 * cfg.sample_size                     # 512 px at SD1.5
+    images = rng.uniform(-1, 1, (TRAIN_BATCH, side, side, 3)).astype(
+        np.float32)
+    tok = hash_tokenize(cfg.text_encoder.vocab_size, cfg.text_encoder.max_length)
+    ids = tok([f"a training caption number {i}" for i in range(TRAIN_BATCH)])
+    gen = torch.Generator(device=DEV).manual_seed(190)
+    encode_batch(pipe, venc, images[:1], ids[:1], gen)      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = encode_batch(pipe, venc, images, ids, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat, emb = batch["latents"], batch["text_emb"]
+    tc = cfg.text_encoder
+    check(tuple(lat.shape) == (TRAIN_BATCH, 4, side // 8, side // 8)
+          and tuple(emb.shape) == (TRAIN_BATCH, tc.max_length, tc.hidden_size)
+          and bool(torch.isfinite(lat).all() and torch.isfinite(emb).all()),
+          f"encode: latents {tuple(lat.shape)}, text {tuple(emb.shape)}")
+    # the same weights in f32, on the card and on the CPU, at 64 px
+    f32_cfg = dataclasses.replace(cfg.vae, dtype=torch.float32)
+    with torch.device(DEV):
+        card32 = cast_model(VAEEncoder(f32_cfg), torch.float32).eval()
+    card32.load_state_dict(venc.state_dict())
+    cpu32 = on_cpu(card32, lambda device: cast_model(
+        VAEEncoder(f32_cfg), torch.float32).to(device).eval())
+    small = torch.from_numpy(images[:1, :64, :64]).permute(0, 3, 1, 2)
+    with torch.no_grad(), f32_convs():
+        got = card32(small.to(DEV))
+        ref = cpu32(small)
+        full32 = card32(torch.from_numpy(images).permute(0, 3, 1, 2).to(DEV))
+        full16 = venc(torch.from_numpy(images).permute(0, 3, 1, 2).to(DEV))
+    errs = [rel_err(g.cpu(), r)[1] for g, r in zip(got, ref)]
+    check(max(errs) <= JUDGE_TOL, f"encoder card vs CPU: {errs}")
+    bf16_err = [rel_err(g, r)[1] for g, r in zip(full16, full32)]
+    print(f"encode on {card}: VAE encoder ({n_enc} parameters, seeded) and "
+          f"CLIP text encoder, {TRAIN_BATCH} images {side}x{side} -> latents "
+          f"{tuple(lat.shape)}, text {tuple(emb.shape)} in {wall:.4f} s; "
+          f"f32 encoder card vs CPU at 64 px (mean, logvar) rel err "
+          f"{errs[0]:.3e}, {errs[1]:.3e} (limit {JUDGE_TOL}); bf16 vs f32 "
+          f"on the card at {side} px {bf16_err[0]:.3e}, {bf16_err[1]:.3e}",
+          flush=True)
+    del card32, cpu32, venc
+    return batch, wall
+
+
+def timed_train_steps(unet, state, step_fn, batch: dict, seed: int) -> tuple:
+    """One warm-up step, then TRAIN_STEPS timed ones, each on its own
+    generator's draws: (step seconds, losses, launches of the timed steps,
+    peak GiB over them)."""
+    from diffusion_models_moe_tpu_torch.ops import _build
+    step_fn(state, batch, generator=torch.Generator(device=DEV).manual_seed(
+        seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    secs, losses = [], []
+    for i in range(TRAIN_STEPS):
+        gen = torch.Generator(device=DEV).manual_seed(seed + 1 + i)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(
+            float(metrics["grad_norm"])), f"train step {i}: {metrics}")
+    return (secs, losses, dict(_build.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def train_full_width(pipe, batch: dict, card: str) -> dict:
+    """(b): AdamW steps of the ReLUfied SD1.5 UNet (f32 masters, optimizer
+    state and EMA; the bf16 working copy through kernels 2 and 3), remat
+    off and on."""
+    from diffusion_models_moe_tpu_torch.training.train import (
+        TrainConfig, create_train_state, make_train_step)
+    unet = pipe.unet
+    n_par = sum(p.numel() for p in unet.parameters())
+    tcfg = TrainConfig(learning_rate=1e-5, snr_gamma=5.0)
+    state = create_train_state(unet, tcfg)
+    step_fn = make_train_step(unet, tcfg)
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    out = {}
+    b = TRAIN_BATCH
+    for remat in (False, True):
+        unet.cfg = dataclasses.replace(unet.cfg, remat=remat)
+        part = {k: v[:b] for k, v in batch.items()}
+        secs, losses, launches, peak = timed_train_steps(
+            unet, state, step_fn, part, 1900 + 100 * remat)
+        if not remat and peak > TRAIN_PEAK_GIB and b == TRAIN_BATCH:
+            print(f"train: batch {b} without remat peaked at {peak:.2f} GiB "
+                  f"(> {TRAIN_PEAK_GIB}): batch 2 from here", flush=True)
+            b = 2
+            part = {k: v[:b] for k, v in batch.items()}
+            secs, losses, launches, peak = timed_train_steps(
+                unet, state, step_fn, part, 1950)
+        per_step = 16 * (2 if remat else 1)
+        expect_train_launches(launches, per_step, TRAIN_STEPS,
+                              f"train remat={remat}")
+        med = float(np.median(secs))
+        what = "on" if remat else "off"
+        print(f"train on {card}: sd15_config(bf16, relufied=True) UNet "
+              f"({n_par} parameters), AdamW, batch {b} at "
+              f"{8 * pipe.config.sample_size} px, remat "
+              f"{what}: {TRAIN_STEPS} steps after a warm-up, step s median "
+              f"{med:.4f} (each {[round(s, 4) for s in secs]}), peak "
+              f"{peak:.2f} GiB (masters, moments, EMA and the working copy "
+              f"{state_gib:.2f} GiB before the steps), loss "
+              f"{[round(x, 5) for x in losses]}; launches a step: kernels 2, "
+              f"3 {launches['sd_self_attention'] // TRAIN_STEPS}, "
+              f"{launches['sd_cross_attention'] // TRAIN_STEPS}, kernel 1's "
+              f"plain version {launches['plain:geglu_ff_fused'] // TRAIN_STEPS}",
+              flush=True)
+        out[f"remat_{what}"] = dict(step_s=med, peak_gib=peak, batch=b,
+                                    loss=losses, launches=launches)
+    unet.cfg = dataclasses.replace(unet.cfg, remat=False)
+    return out
+
+
+def grad_check(pipe, batch: dict, card: str) -> dict:
+    """(c): one step's gradients through kernels 2 and 3 against the plain
+    path's, both bf16, within GRAD_FLOOR_FACTOR x the card's floor (plain
+    bf16 against plain f32, cuDNN's TF32 off)."""
+    from diffusion_models_moe_tpu_torch.models.layers import (cast_model,
+                                                              f32_convs)
+    from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
+    from diffusion_models_moe_tpu_torch.training.train import (TrainConfig,
+                                                               draw_step)
+    tcfg = TrainConfig(snr_gamma=5.0)
+    part = {k: v[:2] for k, v in batch.items()}
+    draws = draw_step(torch.Generator(device=DEV).manual_seed(1990),
+                      part["latents"].shape)
+    g_plain = grads_of(pipe.unet, part, draws, tcfg, use_kernels=False)
+    cfg32 = dataclasses.replace(pipe.unet.cfg, dtype=torch.float32)
+    with torch.device(DEV):
+        unet32 = cast_model(UNet2DCondition(cfg32), torch.float32)
+    unet32.load_state_dict(pipe.unet.state_dict())
+    with f32_convs():
+        g32 = grads_of(unet32, part, draws, tcfg, use_kernels=False)
+    del unet32
+    floor = grad_distance(g_plain, g32)
+    g_kern = grads_of(pipe.unet, part, draws, tcfg, use_kernels=True)
+    dist = grad_distance(g_kern, g_plain)
+    to32 = grad_distance(g_kern, g32)
+    del g_plain, g32, g_kern
+    print(f"grads on {card}: one step at batch 2, every UNet gradient: "
+          f"kernels 2, 3 vs plain (bf16 both) rel L2 {dist:.6f}; floor plain "
+          f"bf16 vs plain f32 {floor:.6f} (limit {GRAD_FLOOR_FACTOR} x floor "
+          f"= {GRAD_FLOOR_FACTOR * floor:.6f}); kernels vs f32 {to32:.6f}",
+          flush=True)
+    check(dist <= GRAD_FLOOR_FACTOR * floor,
+          f"grads through the kernels {dist} > {GRAD_FLOOR_FACTOR} x floor "
+          f"{floor}")
+    return dict(grad_dist=dist, grad_floor=floor, grad_vs_f32=to32)
+
+
+def tiny_training(card: str) -> dict:
+    """(d): at tiny_config on the card (f32: the plain versions, no kernel
+    launch), one Adafactor step, one accumulation cycle with the EMA, and a
+    `train_relufied` run of 6 steps with validation images against 4, a
+    checkpoint and a resume to 6, equal to the bit (cuDNN deterministic)."""
+    import copy
+    import tempfile
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                tiny_config)
+    from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.training import train, trainer
+    base = tiny_config()
+    cfg = dataclasses.replace(base, unet=dataclasses.replace(
+        base.unet, ff_activation="geglu-relu"))
+    src = StableDiffusionPipeline(cfg, device=DEV)
+    src.init_params(torch.Generator(device=DEV).manual_seed(7))
+    sds = {k: copy.deepcopy(m.state_dict()) for k, m in src.modules().items()}
+
+    def fresh():
+        pipe = StableDiffusionPipeline(cfg, device=DEV)
+        pipe.load_state_dicts(sds)
+        return pipe
+
+    rng = np.random.RandomState(8)
+    data = [{"latents": rng.randn(2, 4, 8, 8).astype(np.float32),
+             "text_emb": rng.randn(2, 16, 32).astype(np.float32)}
+            for _ in range(8)]
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in data[0].items()}
+    _build.reset_launch_counts()
+
+    # one Adafactor step: its update less the decay, clipped to an RMS of 1
+    # and scaled by lr x max(RMS(param), 1e-3), stays within that scale
+    pipe = fresh()
+    tcfg = train.TrainConfig(learning_rate=1e-3, optimizer="adafactor")
+    state = train.create_train_state(pipe.unet, tcfg)
+    before = {n: t.clone() for n, t in state.params.items()}
+    state, m = train.make_train_step(pipe.unet, tcfg)(
+        state, batch, generator=torch.Generator(device=DEV).manual_seed(1))
+    worst = 0.0
+    for n, p in state.params.items():
+        step_rms = float((before[n] - p - tcfg.weight_decay * before[n])
+                         .pow(2).mean().sqrt())
+        scale = tcfg.learning_rate * max(
+            float(before[n].pow(2).mean().sqrt()), 1e-3)
+        worst = max(worst, step_rms / scale)
+    check(state.opt_state["count"] == 1 and np.isfinite(float(m["loss"]))
+          and 0.0 < worst <= 1.0 + 1e-3,
+          f"adafactor step: {m}, largest RMS / scale {worst}")
+
+    # one accumulation cycle of 2 with the EMA
+    pipe = fresh()
+    tcfg = train.TrainConfig(learning_rate=1e-3, grad_accum_steps=2,
+                             ema_decay=0.5)
+    state = train.create_train_state(pipe.unet, tcfg)
+    step = train.make_train_step(pipe.unet, tcfg)
+    before = {n: t.clone() for n, t in state.params.items()}
+    state, _ = step(state, batch, generator=torch.Generator(
+        device=DEV).manual_seed(2))
+    held = all(torch.equal(state.params[n], t) and torch.equal(
+        state.ema_params[n], t) for n, t in before.items())
+    state, _ = step(state, batch, generator=torch.Generator(
+        device=DEV).manual_seed(3))
+    ema_err = max(float((state.ema_params[n] - (0.5 * t + 0.5 * state.params[
+        n])).abs().max()) for n, t in before.items())
+    moved = sum(not torch.equal(state.params[n], t) for n, t in before.items())
+    check(held and moved == len(before) and ema_err <= 1e-6
+          and state.opt_state["count"] == 1,
+          f"accumulation: held {held}, moved {moved}/{len(before)}, EMA err "
+          f"{ema_err}")
+
+    # the loop: 6 steps against 4 + resume to 6
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tcfg = train.TrainConfig(learning_rate=1e-3, snr_gamma=5.0, ema_decay=0.9)
+    tok = hash_tokenize(cfg.text_encoder.vocab_size, cfg.text_encoder.max_length)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            pipe_a = fresh()
+            val = trainer.make_validation_logger(
+                pipe_a, tok, ["a dog"], os.path.join(root, "val"), num_steps=2)
+            t0 = time.perf_counter()
+            full = trainer.train_relufied(
+                pipe_a, tcfg, trainer.RunConfig(
+                    os.path.join(root, "a"), max_steps=6, checkpoint_every=4,
+                    log_every=1, validation_every=3),
+                iter(data), validation_fn=val)
+            wall_a = time.perf_counter() - t0
+            run = trainer.RunConfig(os.path.join(root, "b"), max_steps=4,
+                                    checkpoint_every=4, log_every=1)
+            trainer.train_relufied(fresh(), tcfg, run, iter(data))
+            resumed = trainer.train_relufied(
+                fresh(), tcfg, dataclasses.replace(run, max_steps=6), data)
+            labels = train.checkpoint_steps(os.path.join(root, "b",
+                                                         "checkpoints"))
+            pngs = sorted(os.listdir(os.path.join(root, "val")))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = all(torch.equal(full.params[n], resumed.params[n])
+               and torch.equal(full.ema_params[n], resumed.ema_params[n])
+               and torch.equal(full.opt_state["mu"][n], resumed.opt_state[
+                   "mu"][n]) for n in full.params)
+    launched = {k: _build.LAUNCHES[k] for k in _build.KERNELS
+                if _build.LAUNCHES[k]}
+    print(f"tiny training on {card}: Adafactor step (largest update RMS / "
+          f"scale {worst:.4f}); accumulation of 2 held then applied (EMA err "
+          f"{ema_err:.2e}); train_relufied 6 steps with validation at step 3 "
+          f"({len(pngs)} files) in {wall_a:.2f} s; 4 + resume to 6: labels "
+          f"{labels}, masters, EMA and moments bit-equal {same}; kernels "
+          f"launched {launched or 'none'}", flush=True)
+    check(same and labels == [4, 6] and full.step == resumed.step == 6
+          and "val_step000003_0.png" in pngs and not launched,
+          "tiny train_relufied: resume not bit-equal, or labels "
+          f"{labels}, or files {pngs}, or kernels {launched}")
+    return dict(resume_bit_equal=same)
+
+
+def run_training(card: str) -> dict:
+    """Phase 19: encode (a), train at full width with remat off and on (b),
+    the gradient check (c), the tiny Adafactor, accumulation and resume
+    runs (d)."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline(sd15_config(torch.bfloat16, relufied=True),
+                                   device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"training: ReLUfied SD1.5 bf16 pipeline built with seeded random "
+          f"weights in {time.perf_counter() - t0:.1f} s", flush=True)
+    batch, enc_wall = encode_phase(pipe, card)
+    out = {"encode_s": enc_wall}
+    out.update(train_full_width(pipe, batch, card))
+    out.update(grad_check(pipe, batch, card))
+    del pipe
+    torch.cuda.empty_cache()
+    out.update(tiny_training(card))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -4279,6 +4669,11 @@ def main() -> None:
     rest_launches = run_rest_of_eval(removal, wanda_masks, eval_images, card)
     del removal, wanda_masks, eval_images
     phase_done("18 (Qwen2-VL judge, debias, unified editing, baselines)")
+    torch.cuda.empty_cache()
+    training = run_training(card)
+    phase_done("19 (training: encode, AdamW steps with and without remat, "
+               "grads through kernels 2 and 3, Adafactor, accumulation, "
+               "resume)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -4292,7 +4687,9 @@ def main() -> None:
         "sld": sld_launches, "snapshot_routed": snapshot_launches,
         **{f"sdxl_{k}": v for k, v in sdxl_launches.items()},
         "pixart": pixart_launches, "checked_generate": judge_launches,
-        "erasure_eval": eval_launches, **rest_launches}))
+        "erasure_eval": eval_launches, **rest_launches,
+        **{f"training_{k}": training[k]["launches"]
+           for k in ("remat_off", "remat_on")}}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -4362,6 +4759,12 @@ def main() -> None:
             rows_px, sums_px = pixart_kernels[name]
             k.update(pixart_shapes=rows_px, pixart_dit_call=sums_px,
                      pixart_launches=pixart_launches[name])
+    # phase 19: kernels 2 and 3 under grad, per TRAIN_STEPS training steps
+    for k in kernels:
+        if k["name"] in ("sd_self_attention", "sd_cross_attention"):
+            k.update(train_launches={
+                what: training[what]["launches"][k["name"]]
+                for what in ("remat_off", "remat_on")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,10 @@ Only the fields the text-to-image slice reads are kept: SD1.x, SD2.x and
 SDXL geometry (SDXL's added conditioning: `UNetConfig.addition_embed_dim`
 and `addition_time_embed_dim`; its two text towers: `sdxl_text_configs`),
 every scheduler of the JAX package, v-prediction and LCM's guidance
-embedding (`UNetConfig.time_cond_proj_dim`). Options of the JAX package that
-steer TPU layouts, training or other model families (flash switch, fused
-routing, remat, PixArt) have no counterpart here.
+embedding (`UNetConfig.time_cond_proj_dim`), and `UNetConfig.remat` for the
+training step (`training/`). Options of the JAX package that steer TPU
+layouts or other model families (flash switch, fused routing, fast norm;
+PixArt has its own `models/pixart.py` config) have no counterpart here.
 
 Serving modes, all off by default. The exact-tier modes that the JAX package
 switches with environment variables at trace time (DMOE_ATTN_ABSORB,
@@ -83,6 +84,10 @@ class UNetConfig:
     winograd_tile: int = 2
     # W8A8 int8 dots and convs (ops/quant.py)
     quant_int8: bool = False
+    # recompute each resblock and transformer in the backward (training
+    # memory for operations, `torch.utils.checkpoint`); ignored on tapped or
+    # intervened forwards and where no gradient is taken
+    remat: bool = False
 
     def __post_init__(self):
         if self.attn_absorb not in ("0", "1", "qkv", "out"):

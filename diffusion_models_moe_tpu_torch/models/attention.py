@@ -10,7 +10,9 @@ predicate (`attn_kernel_ok`, `fused_ff_ok`, `route_kernel_ok`) admits the
 call; elsewhere on the card (an f32 model, a head dim or an expert count
 the kernels do not take) the layer runs the plain version, counted under
 `plain:<kernel>` in `ops/_build.LAUNCHES`, as the JAX package falls back to
-its library path. An FF call that collects taps or
+its library path. Where autograd records a call on the card, kernels 1, 4, 5
+and 6 (forward only) give way to their plain versions, counted the same
+way; kernels 2 and 3 carry gradients (`ops/sd_flash.py`). An FF call that collects taps or
 carries a neuron mask, an output-weight mask or an expert boost takes the
 unfused path of the JAX module instead, with its routing in the fused
 routing kernel (`ops/routing_kernel.py`) where no expert tap or boost needs
@@ -115,11 +117,17 @@ class Attention(nn.Module):
                     and attn_absorb_ok(s, c, self.heads)) and (
                     x.device.type == "cpu" or x.dtype == torch.bfloat16):
                 out = self.to_out[0]
+                wq, wk, wv = self.to_q.weight, self.to_k.weight, self.to_v.weight
+                kernels = [name for mode, name in (
+                    ("qkv", "ln_qkv_fused"), ("out", "attn_out_residual_fused"))
+                    if absorb in ("1", mode)]
+                plain = _build.plain_under_grad(
+                    kernels, use_kernels, x, wq, wk, wv, out.weight, out.bias,
+                    ln.weight, ln.bias)
                 return absorbed_self_attention(
-                    x, self.to_q.weight, self.to_k.weight, self.to_v.weight,
-                    out.weight, out.bias, self.heads, scale,
+                    x, wq, wk, wv, out.weight, out.bias, self.heads, scale,
                     (ln.weight, ln.bias, ln.eps), mode=absorb,
-                    use_kernels=use_kernels)
+                    use_kernels=use_kernels, absorb_kernels=not plain)
             resid = x
             x = ln_apply(x, ln.weight, ln.bias, ln.eps).to(x.dtype)
         ctx = x if is_self else context
@@ -194,6 +202,12 @@ class GEGLUFeedForward(nn.Module):
                 and (iv.patterns is None or iv.k > 0))):
             e = 0 if iv is None or iv.patterns is None else iv.patterns.shape[0]
             c = x.shape[-1]
+            proj, out = self.net[0].proj, self.net[2]
+            if _build.plain_under_grad(
+                    "geglu_ff_fused", use_kernels, x, proj.weight, proj.bias,
+                    out.weight, out.bias,
+                    *(() if ln is None else (ln.weight, ln.bias))):
+                return self._fused(x, step_idx, iv, ln, False)
             if (not use_kernels or x.device.type == "cpu" or fused_ff_ok(
                     x.numel() // c, c, self.net[2].in_features, e, x.dtype)):
                 return self._fused(x, step_idx, iv, ln, use_kernels)
@@ -244,7 +258,7 @@ class GEGLUFeedForward(nn.Module):
             boost = (None if iv.expert_boost is None
                      else step_row(iv.expert_boost, t))
             if self.gated and boost is None and not need_sel and _route_kernel(
-                    gate, patterns, use_kernels):
+                    hidden, gate, patterns, use_kernels):
                 y = fused_route_multiply(
                     hidden.reshape(-1, hdim), gate.reshape(-1, hdim),
                     patterns, iv.k, use_kernels=use_kernels
@@ -281,11 +295,15 @@ class GEGLUFeedForward(nn.Module):
         return y if ln is None else resid + y
 
 
-def _route_kernel(gate: torch.Tensor, patterns: torch.Tensor,
-                  use_kernels: bool) -> bool:
+def _route_kernel(hidden: torch.Tensor, gate: torch.Tensor,
+                  patterns: torch.Tensor, use_kernels: bool) -> bool:
     """Whether routing goes through `fused_route_multiply` (its kernel, or
     on the CPU its plain version); where `route_kernel_ok` refuses a CUDA
-    call, the caller takes `routing_mask`, counted as a plain call."""
+    call, or autograd records it (kernel 4 has no backward), the caller
+    takes `routing_mask`, counted as a plain call."""
+    if _build.plain_under_grad("fused_route_multiply", use_kernels, gate,
+                               hidden, patterns):
+        return False
     if (not use_kernels or gate.device.type == "cpu"
             or route_kernel_ok(gate.shape[-1], patterns.shape[0], gate.dtype)):
         return True

@@ -17,7 +17,10 @@ kernel of `ops/winograd_fused.py`) and `QuantConv` (`quant_int8`:
 stride-1 3x3 padding-1 convs, int8 the rest when both are set. All three are
 `nn.Conv2d`s with the same parameters. What they derive from their weight
 once (the transformed filter, the int8 weight and its scales) is hoisted by
-`HoistedWeight` and follows the weight.
+`HoistedWeight` and follows the weight; where a gradient is taken the
+Winograd filter is transformed at each call instead. Where autograd records
+a call on the card, kernels 7 and 8 (forward only) give way to their plain
+versions, counted under `plain:<kernel>` in `ops/_build.LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from diffusion_models_moe_tpu_torch.ops import _build
 from diffusion_models_moe_tpu_torch.ops.conv_chain_fused import (
     CL, chain_ok, conv3x3_chain, gn_scale_shift)
 from diffusion_models_moe_tpu_torch.ops.quant import (int8_conv,
@@ -211,15 +215,23 @@ class WinoConv(HoistedWeight, nn.Conv2d):
     def forward(self, x: torch.Tensor, use_kernels: bool = True) -> torch.Tensor:
         dt = self.weight.dtype
         x = x.to(dt)
+        # under grad the filter is transformed at each call, so that the
+        # weight's gradient flows through it (a hoisted one would carry none)
+        grad = _build.grad_through(x, self.weight, self.bias)
         if self.mode == "fused":
             if not self.takes_kernel(x.shape[2], x.shape[3]):
                 return F.conv2d(x, self.weight, self.bias, padding=1)
+            if grad:
+                _build.plain_under_grad("winograd3x3_fused", use_kernels, x,
+                                        self.weight, self.bias)
+                return winograd3x3_fused(x, fused_filter(self.weight),
+                                         self.bias, use_kernels=False)
             (u,) = self.hoisted(lambda w: (fused_filter(w),))
             # no copy inside a block that keeps the format
             return winograd3x3_fused(x.contiguous(memory_format=CL), u,
                                      self.bias, use_kernels=use_kernels)
-        (u,) = self.hoisted(
-            lambda w: (transform_filter(w, self.tile).to(w.dtype),))
+        make = lambda w: (transform_filter(w, self.tile).to(w.dtype),)  # noqa: E731
+        (u,) = make(self.weight) if grad else self.hoisted(make)
         y = winograd_conv3x3(x, u=u, tile=self.tile)
         return y + self.bias.to(dt)[:, None, None]
 
@@ -298,6 +310,10 @@ class ResnetBlock2D(nn.Module):
 
     def _chain(self, norm: nn.GroupNorm, conv: nn.Conv2d, x: torch.Tensor,
                extra_bias=None, residual=None, use_kernels: bool = True):
+        if _build.plain_under_grad("conv3x3_chain", use_kernels, x,
+                                   conv.weight, conv.bias, norm.weight,
+                                   norm.bias, extra_bias, residual):
+            use_kernels = False
         dt = conv.weight.dtype
         scale, shift = gn_scale_shift(x, norm.weight, norm.bias,
                                       norm.num_groups, norm.eps)
@@ -333,9 +349,10 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    def __init__(self, channels: int, quant: bool = False):
+    def __init__(self, channels: int, quant: bool = False, padding: int = 1):
         super().__init__()
-        self.conv = make_conv(channels, channels, stride=2, quant=quant)
+        self.conv = make_conv(channels, channels, stride=2, padding=padding,
+                              quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)

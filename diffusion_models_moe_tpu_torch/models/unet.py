@@ -15,6 +15,10 @@ entering the last up block, and the shallow forward splices a cached one and
 runs only conv_in, down block 0, the last up block and conv_out. The GEGLU
 FF layers are numbered in execution order, down (0-5), mid (6), up (7-15)
 for SD1.x: `ivs[i]` acts on FF layer i, and its tap statistics are keyed i.
+With `UNetConfig.remat`, a forward that takes a gradient and carries no tap
+and no interventions runs each ResnetBlock2D and Transformer2D under
+`torch.utils.checkpoint` (non-reentrant): their activations are recomputed in
+the backward, the granularity of the JAX module's `nn.remat`.
 Parameter names are diffusers'
 (`down_blocks.0.attentions.1.transformer_blocks.0.ff.net.2.weight`, ...).
 """
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from diffusion_models_moe_tpu_torch.config import ADD_TIME_IDS, UNetConfig
 from diffusion_models_moe_tpu_torch.models.attention import Transformer2D
@@ -169,17 +174,27 @@ class UNet2DCondition(nn.Module):
                 parts.append(emb.reshape(ids.shape[0], -1).to(dt))
             temb = temb + self.add_embedding(torch.cat(parts, dim=-1))
         context = encoder_hidden_states.to(dt)
+        remat = (cfg.remat and tap is None and ivs is None
+                 and torch.is_grad_enabled())
+
+        def run(block, *args, **kwargs):
+            if remat:
+                return checkpoint(block, *args, use_reentrant=False,
+                                  preserve_rng_state=False, **kwargs)
+            return block(*args, **kwargs)
+
         ivs = tuple(ivs) if ivs is not None else ()
         kw = dict(step_idx=step_idx, tap=tap, taps_out=taps_out,
                   use_kernels=use_kernels)
         ff_index = 0
 
-        def attend(attn, h, block_idx, run=True):
+        def attend(attn, h, block_idx, run_it=True):
             # the numbering advances over skipped blocks too
             nonlocal ff_index
             depth = cfg.depth_for_block(block_idx)
-            if run:
-                h = attn(h, context, ivs=ivs[ff_index:ff_index + depth], **kw)
+            if run_it:
+                h = run(attn, h, context, ivs=ivs[ff_index:ff_index + depth],
+                        **kw)
             ff_index += depth
             return h
 
@@ -191,23 +206,23 @@ class UNet2DCondition(nn.Module):
         h = self.conv_in(sample)
         stack = [h]
         for i, blk in enumerate(self.down_blocks):
-            run = not shallow or i == 0
+            live = not shallow or i == 0
             for j, res in enumerate(blk.resnets):
-                if run:
-                    h = res(h, temb, use_kernels)
+                if live:
+                    h = run(res, h, temb, use_kernels)
                 if blk.attentions:
-                    h = attend(blk.attentions[j], h, i, run)
-                if run:
+                    h = attend(blk.attentions[j], h, i, live)
+                if live:
                     stack.append(h)
             if blk.downsamplers and not shallow:
                 h = blk.downsamplers[0](h)
                 stack.append(h)
         n = len(cfg.block_out_channels)
         if not shallow:
-            h = self.mid_block.resnets[0](h, temb, use_kernels)
+            h = run(self.mid_block.resnets[0], h, temb, use_kernels)
         h = attend(self.mid_block.attentions[0], h, n - 1, not shallow)
         if not shallow:
-            h = self.mid_block.resnets[1](h, temb, use_kernels)
+            h = run(self.mid_block.resnets[1], h, temb, use_kernels)
         deep = None
         for i, blk in enumerate(self.up_blocks):
             last = i == len(self.up_blocks) - 1
@@ -215,13 +230,13 @@ class UNet2DCondition(nn.Module):
                 deep = h             # the feature entering the last up block
             if last and shallow:
                 h = deep_feature.to(dt)
-            run = not shallow or last
+            live = not shallow or last
             for j, res in enumerate(blk.resnets):
-                if run:
-                    h = res(torch.cat([h, stack.pop()], dim=1), temb,
+                if live:
+                    h = run(res, torch.cat([h, stack.pop()], dim=1), temb,
                             use_kernels)
                 if blk.attentions:
-                    h = attend(blk.attentions[j], h, n - 1 - i, run)
+                    h = attend(blk.attentions[j], h, n - 1 - i, live)
             if blk.upsamplers and not shallow:
                 h = blk.upsamplers[0](h, use_kernels)
         h = F.silu(group_norm_f32(self.conv_norm_out, h)).to(dt)

@@ -1,6 +1,10 @@
-"""SD VAE decoder (PyTorch port, NCHW), with diffusers AutoencoderKL names.
+"""SD VAE (PyTorch port, NCHW), with diffusers AutoencoderKL names.
 
-Counterpart of the decoder half of `diffusion_models_moe_tpu/models/vae.py`.
+Counterpart of `diffusion_models_moe_tpu/models/vae.py`: the decoder of the
+pipeline, and the encoder and `sample_latents` of the training path. The
+encoder's convs are plain `nn.Conv2d`s (the serving modes are the decoder's),
+its downsamplers pad the bottom and right edge by one and convolve with
+stride 2, as diffusers' and the JAX module's do.
 The mid-block attention is one head at d = 512 over h*w tokens, in plain
 torch ops (the JAX package leaves it to XLA), and is never quantised. Every
 conv of the decoder, `post_quant_conv` included, is made by `make_conv` with
@@ -13,7 +17,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.config import VAEConfig
-from diffusion_models_moe_tpu_torch.models.layers import (ResnetBlock2D,
+from diffusion_models_moe_tpu_torch.models.layers import (Downsample2D,
+                                                          ResnetBlock2D,
                                                           Upsample2D,
                                                           group_norm_f32,
                                                           make_conv)
@@ -111,3 +116,70 @@ class VAEDecoder(nn.Module):
             h = blk(h)
         h = F.silu(group_norm_f32(dec.conv_norm_out, h)).to(dt)
         return dec.conv_out(h).float()
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, n_res: int, groups: int,
+                 downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock2D(cin if j == 0 else cout, cout, groups, 1e-6)
+            for j in range(n_res)])
+        self.downsamplers = nn.ModuleList(
+            [Downsample2D(cout, padding=0)] if downsample else [])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for res in self.resnets:
+            x = res(x)
+        for down in self.downsamplers:
+            # pad ((0, 1), (0, 1)), then the stride-2 conv without padding
+            x = down(F.pad(x, (0, 1, 0, 1)))
+        return x
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch, g = list(cfg.block_out_channels), cfg.norm_num_groups
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, 1, 1)
+        self.down_blocks = nn.ModuleList([
+            _DownBlock(ch[max(i - 1, 0)], c, cfg.layers_per_block, g,
+                       i < len(ch) - 1)
+            for i, c in enumerate(ch)])
+        self.mid_block = VAEMidBlock(ch[-1], g, {})
+        self.conv_norm_out = nn.GroupNorm(g, ch[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, 1, 1)
+
+
+class VAEEncoder(nn.Module):
+    """Images (B, 3, H, W) in [-1, 1] -> (mean, logvar), each (B, 4, H/8,
+    W/8) in f32: the training path's `vae.encode`."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = _Encoder(cfg)
+        wide = 2 * cfg.latent_channels
+        self.quant_conv = nn.Conv2d(wide, wide, 1)
+
+    def forward(self, images: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        enc = self.encoder
+        dt = enc.conv_in.weight.dtype
+        h = enc.conv_in(images.to(dt))
+        for blk in enc.down_blocks:
+            h = blk(h)
+        h = enc.mid_block(h)
+        h = F.silu(group_norm_f32(enc.conv_norm_out, h)).to(dt)
+        h = self.quant_conv(enc.conv_out(h)).float()
+        mean, logvar = h.chunk(2, dim=1)
+        return mean, logvar
+
+
+def sample_latents(mean: torch.Tensor, logvar: torch.Tensor,
+                   noise: torch.Tensor, scaling_factor: float) -> torch.Tensor:
+    """The reparameterised sample, scaled for the diffusion model:
+    (mean + exp(logvar / 2) * noise) * scaling_factor. `noise` (mean's
+    shape) is the caller's draw, e.g. from a `torch.Generator`."""
+    std = torch.exp(0.5 * logvar)
+    return (mean + std * noise.to(mean)) * scaling_factor

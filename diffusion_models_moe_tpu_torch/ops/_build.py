@@ -39,13 +39,13 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # where it launches its kernel. A run resets the counts with
 # `reset_launch_counts()` and reads them after, to show which kernels ran.
 # The `plain:` keys count the calls on CUDA tensors that the model handed to
-# a kernel's plain version because the kernel's predicate said no.
+# a kernel's plain version because the kernel's predicate said no, or
+# because a gradient is taken through a kernel that has no backward
+# (`grad_through`: every kernel but 2 and 3).
 KERNELS = ("geglu_ff_fused", "sd_self_attention", "sd_cross_attention",
            "fused_route_multiply", "ln_qkv_fused", "attn_out_residual_fused",
            "conv3x3_chain", "winograd3x3_fused")
-PLAIN = tuple(f"plain:{k}" for k in ("geglu_ff_fused", "sd_self_attention",
-                                      "sd_cross_attention",
-                                      "fused_route_multiply"))
+PLAIN = tuple(f"plain:{k}" for k in KERNELS)
 LAUNCHES = dict.fromkeys(KERNELS + PLAIN, 0)
 
 _P = ctypes.c_void_p
@@ -87,6 +87,32 @@ class KernelLibrary:
         if err != 0:
             msg = self.lib.dmoe_error_string(err).decode()
             raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether t lies on a CUDA device, where the wrappers launch kernels."""
+    return t.device.type == "cuda"
+
+
+def grad_through(*tensors) -> bool:
+    """Whether autograd records a call on `tensors` (inputs and parameters;
+    None entries are skipped): grad mode is on and one of them requires a
+    gradient. Kernels 1 and 4-8 compute forward only, so where this holds
+    on the card the model takes their plain versions."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def plain_under_grad(kernels, use_kernels: bool, x: torch.Tensor,
+                     *tensors) -> bool:
+    """Whether a call of forward-only kernels (a name or names) on `x` and
+    `tensors` must take the plain version because autograd records it on
+    the card; where so, counts the call under `plain:<kernel>` for each."""
+    if not (use_kernels and on_card(x) and grad_through(x, *tensors)):
+        return False
+    for k in (kernels,) if isinstance(kernels, str) else kernels:
+        LAUNCHES[f"plain:{k}"] += 1
+    return True
 
 
 def reset_launch_counts() -> None:

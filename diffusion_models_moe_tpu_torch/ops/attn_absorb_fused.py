@@ -23,7 +23,9 @@ pure function of the shape and the card's SM count that the CPU tests
 reach; the kernels (wgmma GEMMs fed by TMA rings, `csrc/attn_absorb.cu`)
 take it as it is.
 
-Inference only: no autograd.Function, no backward.
+Forward only: no autograd.Function, no backward. Where autograd records a
+call on the card (`_build.grad_through`), the model takes the plain version,
+which is differentiable, and counts the call under `plain:ln_qkv_fused` and `plain:attn_out_residual_fused`.
 """
 from __future__ import annotations
 
@@ -306,7 +308,8 @@ def attn_out_residual_fused(o: torch.Tensor, w: torch.Tensor,
 
 def absorbed_self_attention(x: torch.Tensor, wq, wk, wv, wo, bo, heads: int,
                             sm_scale: float, ln: tuple, mode: str = "1",
-                            use_kernels: bool = True) -> torch.Tensor:
+                            use_kernels: bool = True,
+                            absorb_kernels: bool = True) -> torch.Tensor:
     """The absorbed self-attention sub-block: returns
     `x + to_out(flash(qkv(LN(x))))` for x (B, S, C), `ln` = (scale, bias,
     eps). `mode` is the JAX package's DMOE_ATTN_ABSORB split:
@@ -316,19 +319,23 @@ def absorbed_self_attention(x: torch.Tensor, wq, wk, wv, wo, bo, heads: int,
             in plain torch
       out   LayerNorm and the projections in plain torch;
             `attn_out_residual_fused` only
+
+    `absorb_kernels=False` runs kernels 5 and 6's plain versions and keeps
+    the attention's kernel (the model's choice where a gradient is taken).
     """
     if mode not in ("1", "qkv", "out"):
         raise ValueError(f"absorb mode {mode!r}: one of '1', 'qkv', 'out'")
     g, b, eps = ln
     if mode in ("1", "qkv"):
         q, k, v = ln_qkv_fused(x, wq, wk, wv, heads, g, b, eps,
-                               use_kernels=use_kernels)
+                               use_kernels=use_kernels and absorb_kernels)
     else:
         xn = ln_apply(x, g, b, eps).to(x.dtype)
         q, k, v = (_heads4(F.linear(xn, w), heads) for w in (wq, wk, wv))
     o = self_attention(q, k, v, sm_scale, use_kernels=use_kernels)
     if mode in ("1", "out"):
-        if use_kernels and o.device.type == "cuda" and row_stride(o) is None:
+        out_kernel = use_kernels and absorb_kernels
+        if out_kernel and o.device.type == "cuda" and row_stride(o) is None:
             o = o.contiguous()      # the plain attention's permuted view
-        return attn_out_residual_fused(o, wo, bo, x, use_kernels=use_kernels)
+        return attn_out_residual_fused(o, wo, bo, x, use_kernels=out_kernel)
     return x + F.linear(o.reshape(x.shape), wo, bo)

@@ -21,7 +21,9 @@ and conv weights in that format pays no layout copy. The band stacking, halo
 gather and `variant` of the JAX function are Mosaic's needs and have no
 counterpart: the kernel reads its halo from x itself.
 
-Inference only: no autograd.Function, no backward.
+Forward only: no autograd.Function, no backward. Where autograd records a
+call on the card (`_build.grad_through`), the model takes the plain version,
+which is differentiable, and counts the call under `plain:conv3x3_chain`.
 """
 from __future__ import annotations
 

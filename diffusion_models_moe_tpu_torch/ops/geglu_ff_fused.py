@@ -18,7 +18,9 @@ score[n, e] = sum of the post-GELU gate (rounded to the model dtype) over
 expert e's neurons, accumulated in f32; experts with score >= the kth
 largest are kept, ties included.
 
-Inference only: no autograd.Function, no backward.
+Forward only: no autograd.Function, no backward. Where autograd records a
+call on the card (`_build.grad_through`), the model takes the plain version,
+which is differentiable, and counts the call under `plain:geglu_ff_fused`.
 """
 from __future__ import annotations
 

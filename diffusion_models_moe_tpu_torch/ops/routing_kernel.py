@@ -17,7 +17,9 @@ here, in `route_plan`, a pure function of the shape and the card's SM count
 that the CPU tests reach. On a CPU tensor it runs `route_multiply_reference`,
 the plain PyTorch version.
 
-Inference only: no autograd.Function, no backward.
+Forward only: no autograd.Function, no backward. Where autograd records a
+call on the card (`_build.grad_through`), the model takes the plain version,
+which is differentiable, and counts the call under `plain:fused_route_multiply`.
 """
 from __future__ import annotations
 

@@ -17,7 +17,13 @@ the kernels are not instantiated for), counting each such call on a CUDA
 tensor in `_build.LAUNCHES` under `plain:<kernel>`. The wrappers themselves
 raise on what they do not take.
 
-Inference only: no autograd.Function, no backward.
+Gradients: a call whose q, k or v requires grad goes through
+`SelfAttentionFn` / `CrossAttentionFn`, `torch.autograd.Function`s whose
+forward is the kernel and whose backward recomputes the plain version under
+grad and returns its vector-Jacobian product, as the JAX functions'
+`custom_vjp` recomputes through plain XLA math. The forward saves q, k and v
+only, never the (B, H, S, S) scores; no backward kernel exists.
+`sm_scale` and `kv_valid` take no gradient.
 """
 from __future__ import annotations
 
@@ -226,7 +232,7 @@ def sd_self_attention(q, k, v, sm_scale: float,
         if k.dim() == 4 and k.shape[1] != q.shape[1]:
             raise ValueError("self-attention needs S_q == S_kv")
         _refuse(q, k, v)
-    return _launch_self(q, k, v, sm_scale)
+    return kernel_self_attention(q, k, v, sm_scale)
 
 
 def sd_cross_attention(q, k, v, sm_scale: float, kv_valid: int,
@@ -241,6 +247,68 @@ def sd_cross_attention(q, k, v, sm_scale: float, kv_valid: int,
         raise ValueError(f"no kernel for device {q.device}")
     if not attn_kernel_ok(q, k, kv_valid, v):
         _refuse(q, k, v, kv_valid)
+    return kernel_cross_attention(q, k, v, sm_scale, kv_valid)
+
+
+def _plain_vjp(ctx, do, plain):
+    """The backward of both Functions: `plain(q, k, v)` recomputed under
+    grad on the saved inputs, and its VJP with `do` for those inputs that
+    need a gradient."""
+    saved = ctx.saved_tensors
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(saved, ctx.needs_input_grad[:3])]
+        out = plain(*ins)
+    wanted = [t for t in ins if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, do) if wanted else ())
+    return tuple(next(grads) if t.requires_grad else None for t in ins)
+
+
+class SelfAttentionFn(torch.autograd.Function):
+    """Kernel 2 forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        return _launch_self(q, k, v, sm_scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        scale = ctx.sm_scale
+        return _plain_vjp(ctx, do, lambda q, k, v: sd_self_attention_reference(
+            q, k, v, scale)) + (None,)
+
+
+class CrossAttentionFn(torch.autograd.Function):
+    """Kernel 3 forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale: float, kv_valid: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale, ctx.kv_valid = sm_scale, kv_valid
+        return _launch_cross(q, k, v, sm_scale, kv_valid)
+
+    @staticmethod
+    def backward(ctx, do):
+        scale, valid = ctx.sm_scale, ctx.kv_valid
+        return _plain_vjp(ctx, do, lambda q, k, v: sd_cross_attention_reference(
+            q, k, v, scale, valid)) + (None, None)
+
+
+def kernel_self_attention(q, k, v, sm_scale: float) -> torch.Tensor:
+    """Kernel 2 on tensors it takes: through `SelfAttentionFn` where
+    autograd records the call, else the launch alone."""
+    if _build.grad_through(q, k, v):
+        return SelfAttentionFn.apply(q, k, v, sm_scale)
+    return _launch_self(q, k, v, sm_scale)
+
+
+def kernel_cross_attention(q, k, v, sm_scale: float,
+                           kv_valid: int) -> torch.Tensor:
+    """Kernel 3, as `kernel_self_attention`."""
+    if _build.grad_through(q, k, v):
+        return CrossAttentionFn.apply(q, k, v, sm_scale, kv_valid)
     return _launch_cross(q, k, v, sm_scale, kv_valid)
 
 
@@ -278,7 +346,7 @@ def self_attention(q, k, v, sm_scale: float,
     if q.device.type != "cuda" or not use_kernels:
         return sd_self_attention(q, k, v, sm_scale, use_kernels=use_kernels)
     if k.shape[1] == q.shape[1] and attn_kernel_ok(q, k, v=v):
-        return _launch_self(q, k, v, sm_scale)
+        return kernel_self_attention(q, k, v, sm_scale)
     _build.LAUNCHES["plain:sd_self_attention"] += 1
     return sd_self_attention_reference(q, k, v, sm_scale)
 
@@ -292,6 +360,6 @@ def cross_attention(q, k, v, sm_scale: float, kv_valid: int,
         return sd_cross_attention(q, k, v, sm_scale, kv_valid,
                                   use_kernels=use_kernels)
     if attn_kernel_ok(q, k, kv_valid, v):
-        return _launch_cross(q, k, v, sm_scale, kv_valid)
+        return kernel_cross_attention(q, k, v, sm_scale, kv_valid)
     _build.LAUNCHES["plain:sd_cross_attention"] += 1
     return sd_cross_attention_reference(q, k, v, sm_scale, kv_valid)

@@ -24,7 +24,9 @@ transpose and the block plan of the JAX function are Mosaic's needs and have
 no counterpart: the kernel reads each 4 x 4 input tile with its halo from x
 itself and writes the 2 x 2 output pixels in place.
 
-Inference only: no autograd.Function, no backward.
+Forward only: no autograd.Function, no backward. Where autograd records a
+call on the card (`_build.grad_through`), the model takes the plain version,
+which is differentiable, and counts the call under `plain:winograd3x3_fused`.
 """
 from __future__ import annotations
 

@@ -4,14 +4,16 @@ Counterpart of `diffusion_models_moe_tpu/schedulers/common.py`: the beta
 schedules, the cumulative-product alpha tables every scheduler reads, and
 the descending inference timesteps. Tables are float64 numpy, computed on
 the host once; each scheduler rounds the coefficients it hands to the step
-to f32, as the JAX tables are. (`add_noise` and `snr` of the JAX module
-serve training, which is not ported.)
+to f32, as the JAX tables are. `add_noise` and `snr` serve the training
+step (`training/train.py`), on torch tensors with the table in f32 as JAX
+takes it.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def make_betas(num_train_timesteps: int = 1000, beta_start: float = 0.00085,
@@ -39,6 +41,24 @@ class NoiseTables:
         betas = make_betas(num_train_timesteps, beta_start, beta_end,
                            beta_schedule)
         return NoiseTables(num_train_timesteps, np.cumprod(1.0 - betas))
+
+    def alphas_at(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """alphas_cumprod[timesteps] in f32 on the timesteps' device."""
+        table = torch.from_numpy(f32(self.alphas_cumprod))
+        return table.to(timesteps.device)[timesteps]
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) = sqrt(a_t) x_0 + sqrt(1 - a_t) noise, f32; a_t
+        broadcast over every axis after the batch."""
+        a = self.alphas_at(timesteps)
+        a = a.reshape(a.shape + (1,) * (sample.dim() - a.dim()))
+        return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
+
+    def snr(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """Signal-to-noise ratio a_t / (1 - a_t) per timestep, f32."""
+        a = self.alphas_at(timesteps)
+        return a / (1.0 - a)
 
 
 def spaced_timesteps(num_train_timesteps: int, num_inference_steps: int,

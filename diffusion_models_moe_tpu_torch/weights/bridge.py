@@ -3,7 +3,8 @@
 The inverse of `diffusion_models_moe_tpu/weights/port.py`, written without
 importing the JAX package: a params tree from the JAX package's
 `init_params` (converted to numpy) becomes the state dicts of the port's
-UNet, CLIP text encoder and VAE decoder, so both run the same weights.
+UNet, CLIP text encoder and VAE decoder (and, for the training path, the
+VAE encoder: `vae_encoder_numpy_state_dict`), so both run the same weights.
 Layouts: conv HWIO -> OIHW; Dense (in, out) -> Linear (out, in); Flax
 multi-head attention kernels (D, heads, hd) / (heads, hd, D) -> Linear;
 the GEGLU FF's `proj/kernel` and `out_proj_kernel` -> `ff.net.0.proj` and
@@ -147,13 +148,7 @@ def vae_decoder_numpy_state_dict(params: dict, cfg: VAEConfig) -> dict:
     _emit(sd, "decoder.conv_in", _conv(params["conv_in"]))
     _emit(sd, "decoder.conv_out", _conv(params["conv_out"]))
     _emit(sd, "decoder.conv_norm_out", _norm(params["conv_norm_out"]))
-    _resnet(sd, "decoder.mid_block.resnets.0", params["mid"]["res_0"])
-    _resnet(sd, "decoder.mid_block.resnets.1", params["mid"]["res_1"])
-    a, pa = params["mid"]["attn"], "decoder.mid_block.attentions.0"
-    _emit(sd, f"{pa}.group_norm", _norm(a["group_norm"]))
-    for proj in ("to_q", "to_k", "to_v"):
-        _emit(sd, f"{pa}.{proj}", _linear(a[proj]))
-    _emit(sd, f"{pa}.to_out.0", _linear(a["to_out"]))
+    _vae_mid(sd, "decoder.mid_block", params["mid"])
     n = len(cfg.block_out_channels)
     for i in range(n):
         for j in range(cfg.layers_per_block + 1):
@@ -162,6 +157,37 @@ def vae_decoder_numpy_state_dict(params: dict, cfg: VAEConfig) -> dict:
         if i < n - 1:
             _emit(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv",
                   _conv(params[f"up_{i}_upsample"]["conv"]))
+    return sd
+
+
+def _vae_mid(sd: dict, prefix: str, p: dict) -> None:
+    _resnet(sd, f"{prefix}.resnets.0", p["res_0"])
+    _resnet(sd, f"{prefix}.resnets.1", p["res_1"])
+    a, pa = p["attn"], f"{prefix}.attentions.0"
+    _emit(sd, f"{pa}.group_norm", _norm(a["group_norm"]))
+    for proj in ("to_q", "to_k", "to_v"):
+        _emit(sd, f"{pa}.{proj}", _linear(a[proj]))
+    _emit(sd, f"{pa}.to_out.0", _linear(a["to_out"]))
+
+
+def vae_encoder_numpy_state_dict(params: dict, cfg: VAEConfig) -> dict:
+    """VAEEncoder params -> the encoder side of a diffusers AutoencoderKL
+    state dict (`encoder.*`, `quant_conv.*`), the port's `VAEEncoder`'s;
+    what the JAX package's `export_vae_encoder` writes."""
+    sd: dict = {}
+    _emit(sd, "quant_conv", _conv(params["quant_conv"]))
+    _emit(sd, "encoder.conv_in", _conv(params["conv_in"]))
+    _emit(sd, "encoder.conv_out", _conv(params["conv_out"]))
+    _emit(sd, "encoder.conv_norm_out", _norm(params["conv_norm_out"]))
+    _vae_mid(sd, "encoder.mid_block", params["mid"])
+    n = len(cfg.block_out_channels)
+    for i in range(n):
+        for j in range(cfg.layers_per_block):
+            _resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}",
+                    params[f"down_{i}_res_{j}"])
+        if i < n - 1:
+            _emit(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                  _conv(params[f"down_{i}_downsample"]))
     return sd
 
 

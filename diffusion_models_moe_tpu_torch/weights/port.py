@@ -11,10 +11,11 @@ and renamed where old checkpoints differ, and handed to
   `proj_out` stored as 1x1 convs are squeezed to linears;
 * `text_encoder/model.safetensors`: the `text_model.` prefix is added where
   the file lacks it, transformers' `position_ids` buffer is dropped;
-* `vae/diffusion_pytorch_model.safetensors`: the encoder side (`encoder.*`,
-  `quant_conv.*`) is dropped (the port has only the decoder), and the old
-  mid-block attention names `query/key/value/proj_attn`, possibly stored as
-  1x1 convs, become `to_q/to_k/to_v/to_out.0`.
+* `vae/diffusion_pytorch_model.safetensors`: split into the decoder side
+  and the encoder side (`encoder.*`, `quant_conv.*`, read only for the
+  training path), and the old mid-block attention names
+  `query/key/value/proj_attn`, possibly stored as 1x1 convs, become
+  `to_q/to_k/to_v/to_out.0`.
 
 An SDXL snapshot (`load_sdxl_snapshot`) adds `text_encoder_2/`, a
 transformers `CLIPTextModelWithProjection`: its `text_projection.weight`
@@ -99,13 +100,27 @@ def load_clip_text_state_dict(snapshot_dir: str) -> StateDict:
         os.path.join(snapshot_dir, "model.safetensors")))
 
 
+_VAE_ENCODER_SIDE = ("encoder.", "quant_conv.")
+
+
 def vae_decoder_state_dict(sd: StateDict) -> StateDict:
     """A flat diffusers AutoencoderKL state dict -> the port's VAE decoder
     state dict: the encoder side dropped, old attention names mapped and
     their 1x1 convs squeezed."""
+    return _vae_side(sd, encoder=False)
+
+
+def vae_encoder_state_dict(sd: StateDict) -> StateDict:
+    """A flat diffusers AutoencoderKL state dict -> the port's `VAEEncoder`
+    state dict (`encoder.*`, `quant_conv.*`, the decoder side dropped), old
+    attention names mapped as for the decoder."""
+    return _vae_side(sd, encoder=True)
+
+
+def _vae_side(sd: StateDict, encoder: bool) -> StateDict:
     out = {}
     for k, v in sd.items():
-        if k.startswith(("encoder.", "quant_conv.")):
+        if k.startswith(_VAE_ENCODER_SIDE) != encoder:
             continue
         m = _VAE_OLD_ATTN.match(k)
         if m:
@@ -120,6 +135,13 @@ def load_vae_decoder_state_dict(snapshot_dir: str) -> StateDict:
     """`{snapshot_dir}/diffusion_pytorch_model.safetensors` -> the port's
     VAE decoder state dict."""
     return vae_decoder_state_dict(load_safetensors(
+        os.path.join(snapshot_dir, "diffusion_pytorch_model.safetensors")))
+
+
+def load_vae_encoder_state_dict(snapshot_dir: str) -> StateDict:
+    """`{snapshot_dir}/diffusion_pytorch_model.safetensors` -> the port's
+    VAE encoder state dict (the JAX package's `port_vae_encoder`)."""
+    return vae_encoder_state_dict(load_safetensors(
         os.path.join(snapshot_dir, "diffusion_pytorch_model.safetensors")))
 
 
@@ -146,18 +168,21 @@ def load_pipeline_snapshot(snapshot_root: str, config,
                            ) -> dict[str, StateDict]:
     """A diffusers snapshot `{root}/unet`, `{root}/text_encoder`,
     `{root}/vae` -> {"unet", "text_encoder", "vae"} state dicts, as
-    `StableDiffusionPipeline.load_state_dicts` takes them. Raises ValueError
-    where the UNet's sentinel shapes do not fit `config` (an SD2.x or SDXL
-    snapshot for an SD1.x config)."""
-    if include_vae_encoder:
-        raise NotImplementedError(
-            "the VAE encoder (the training path's) is not ported yet")
+    `StableDiffusionPipeline.load_state_dicts` takes them;
+    `include_vae_encoder=True` adds "vae_encoder", the `VAEEncoder` state
+    dict the training loop encodes images with (one read of the VAE file
+    serves both sides). Raises ValueError where the UNet's sentinel shapes
+    do not fit `config` (an SD2.x or SDXL snapshot for an SD1.x config)."""
+    vae_sd = load_safetensors(os.path.join(
+        snapshot_root, "vae", "diffusion_pytorch_model.safetensors"))
     out = {
         "unet": load_unet_state_dict(os.path.join(snapshot_root, "unet")),
         "text_encoder": load_clip_text_state_dict(
             os.path.join(snapshot_root, "text_encoder")),
-        "vae": load_vae_decoder_state_dict(os.path.join(snapshot_root, "vae")),
+        "vae": vae_decoder_state_dict(vae_sd),
     }
+    if include_vae_encoder:
+        out["vae_encoder"] = vae_encoder_state_dict(vae_sd)
     _check_unet(snapshot_root, out["unet"], config)
     return out
 

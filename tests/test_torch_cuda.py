@@ -1456,3 +1456,78 @@ def test_qwen_tokenizer_round_trip_on_the_card_machine(gen, tmp_path):
     assert ids[0] == 151644 and ids[-1] == 151645 and len(ids) < 8
     for text in i2p_prompts()[:50] + ["naïve café, 日本 🎨\r\n\ttab"]:
         assert decode(encode(text)) == text.strip()
+
+
+GRAD_REL_TOL = 2e-2    # max |grad kernel path - grad plain| / max |plain|
+
+
+@pytest.mark.parametrize("kind", ["self", "cross"])
+@pytest.mark.parametrize("b,s,h,d,strided", [
+    (2, 200, 3, 40, False), (2, 200, 3, 64, True), (2, 300, 2, 72, False),
+    (1, 1000, 2, 80, False), (2, 77, 2, 160, True)])
+def test_attention_kernels_carry_gradients(gen, b, s, h, d, strided, kind):
+    """Kernels 2 and 3 under grad: the forward launches the kernel once
+    (no plain call), the backward is the plain version's VJP and launches
+    nothing; q's, k's and v's gradients hold to the plain path's (the same
+    plain math differentiated, on outputs that differ by the kernels'
+    rounding)."""
+    q = _heads(gen, b, s, h, d, strided).requires_grad_()
+    n_kv = s if kind == "self" else 77
+    k, v = (_heads(gen, b, n_kv, h, d, strided).requires_grad_()
+            for _ in range(2))
+    do = _rn(gen, b, s, h, d)
+
+    def fn(uk):
+        if kind == "self":
+            return sd_flash.self_attention(q, k, v, d ** -0.5, use_kernels=uk)
+        return sd_flash.cross_attention(q, k, v, d ** -0.5, 70,
+                                        use_kernels=uk)
+
+    key = f"sd_{kind}_attention"
+    _build.reset_launch_counts()
+    out = fn(True)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == 1 and _build.LAUNCHES[f"plain:{key}"] == 0
+    ref = torch.autograd.grad(fn(False), (q, k, v), do)
+    for name, a, r in zip("qkv", got, ref):
+        assert torch.isfinite(a).all()
+        assert _rel(a, r) < GRAD_REL_TOL, (name, _rel(a, r))
+    if kind == "cross":
+        assert k.grad is None and got[1][:, 70:].abs().max() == 0
+
+
+def test_unet_train_step_through_the_kernels(gen):
+    """A bf16 SD1.5-geometry UNet at 16 x 16 latents under grad: kernels 2
+    and 3 launch once per attention layer, every FF takes kernel 1's plain
+    version (counted), and the gradients hold to the plain path's."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.training import train
+    cfg = dataclasses.replace(sd15_config(torch.bfloat16, relufied=True),
+                              sample_size=16)
+    pipe = StableDiffusionPipeline(cfg, device="cuda")
+    pipe.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = {"latents": torch.randn(2, 4, 16, 16, generator=gen,
+                                    device="cuda"),
+             "text_emb": torch.randn(2, 77, 768, generator=gen,
+                                     device="cuda")}
+    draws = train.draw_step(gen, batch["latents"].shape)
+    grads = []
+    for uk in (True, False):
+        _build.reset_launch_counts()
+        loss = train.loss_fn(pipe.unet, batch["latents"], batch["text_emb"],
+                             draws, train.TrainConfig(), train.NoiseTables
+                             .create(), use_kernels=uk)
+        loss.backward()
+        torch.cuda.synchronize()
+        if uk:
+            assert _build.LAUNCHES["sd_self_attention"] == 16
+            assert _build.LAUNCHES["sd_cross_attention"] == 16
+            assert _build.LAUNCHES["plain:geglu_ff_fused"] == 16
+            assert _build.LAUNCHES["geglu_ff_fused"] == 0
+        grads.append(torch.cat([p.grad.float().flatten()
+                                for p in pipe.unet.parameters()]))
+        pipe.unet.zero_grad(set_to_none=True)
+    dist = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
+    assert dist < 0.05, dist

@@ -282,9 +282,10 @@ def test_unported_interventions_raise(field):
 
 def test_package_imports_without_jax():
     """Every module of the port, and `chip_smoke.py`, imports neither JAX,
-    the JAX package, `tokenizers` nor `regex` (the card's machine has
-    neither of the last two), and none builds a kernel on import (checked
-    in a fresh interpreter: this process has JAX loaded already)."""
+    the JAX package, JAX's `flax`, `optax` or `orbax`, `tokenizers` nor
+    `regex` (the card's machine has neither of the last two), and none
+    builds a kernel on import (checked in a fresh interpreter: this process
+    has JAX loaded already)."""
     code = ("import sys, importlib, pkgutil\n"
             "import diffusion_models_moe_tpu_torch as p\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -293,9 +294,13 @@ def test_package_imports_without_jax():
             "    importlib.import_module(name)\n"
             "assert 'diffusion_models_moe_tpu_torch.models.qwen2vl' in mods\n"
             "assert 'diffusion_models_moe_tpu_torch.benchmarks.baselines' in mods\n"
+            "for m in ('training.train', 'training.trainer', 'data.ingest',\n"
+            "          'data.mimic_cxr'):\n"
+            "    assert 'diffusion_models_moe_tpu_torch.' + m in mods, m\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in (\n"
-            "    'jax', 'diffusion_models_moe_tpu', 'tokenizers', 'regex')]\n"
+            "    'jax', 'diffusion_models_moe_tpu', 'tokenizers', 'regex',\n"
+            "    'flax', 'optax', 'orbax')]\n"
             "assert not bad, bad\n"
             "from diffusion_models_moe_tpu_torch.ops import _build\n"
             "assert _build.load_library.cache_info().currsize == 0\n")

@@ -107,16 +107,20 @@ def test_pipeline_snapshot_equals_the_jax_porter_through_the_bridge(tmp_path):
 
 
 def test_pipeline_snapshot_refusals(tmp_path):
-    """The VAE encoder is not ported; a snapshot of another geometry is
+    """The VAE file's encoder side goes to "vae_encoder" alone (asked for
+    with `include_vae_encoder=True`; the full round trip is
+    tests/test_torch_train_io.py's); a snapshot of another geometry is
     refused before loading."""
     jax_cfg = jcfg.tiny_config()
     params, pipe = tp.pipelines(jax_cfg)
     sds = {k: {n: t.numpy() for n, t in m.state_dict().items()}
            for k, m in pipe.modules().items()}
     _tiny_snapshot(str(tmp_path), sds, params, jax_cfg)
-    with pytest.raises(NotImplementedError, match="VAE encoder"):
-        port.load_pipeline_snapshot(str(tmp_path), pipe.config,
-                                    include_vae_encoder=True)
+    got = port.load_pipeline_snapshot(str(tmp_path), pipe.config,
+                                      include_vae_encoder=True)
+    assert set(got["vae_encoder"]) == {"encoder.conv_in.weight",
+                                       "quant_conv.weight"}
+    assert got["vae"].keys() == sds["vae"].keys()
     with pytest.raises(ValueError, match="cross_attention_dim"):
         port.load_pipeline_snapshot(str(tmp_path), sd15_config())
 

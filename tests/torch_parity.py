@@ -380,3 +380,55 @@ def pixart_pipelines(root: str, seed: int = 0) -> dict:
     port.load_state_dicts(back)
     return dict(jax_cfg=jax_cfg, port_cfg=port_cfg, params=params, sds=sds,
                 port=port)
+
+
+# ---------------------------------------------------------------- training
+def train_setup(seed: int = 0):
+    """The training parity set-up at tiny_config in f32 with the ReLUfied
+    FF: (JAX config, port config, JAX params as numpy, port pipeline, a
+    batch {"latents": (2, s, s, 4) NHWC, "text_emb": (2, S, D)} drawn with
+    numpy)."""
+    jax_cfg, port_cfg = tiny_pair(unet={"ff_activation": "geglu-relu"})
+    params, port = pipelines(jax_cfg, seed=seed, port_cfg=port_cfg)
+    rng = np.random.RandomState(seed + 11)
+    s, t = jax_cfg.sample_size, jax_cfg.text_encoder
+    batch = {"latents": rng.randn(2, s, s, 4).astype(np.float32),
+             "text_emb": rng.randn(2, t.max_length,
+                                   jax_cfg.unet.cross_attention_dim
+                                   ).astype(np.float32)}
+    return jax_cfg, port_cfg, params, port, batch
+
+
+def port_batch(batch: dict) -> dict:
+    """A JAX-side training batch as the port takes it (NCHW latents)."""
+    return {"latents": nchw(batch["latents"]),
+            "text_emb": torch.from_numpy(batch["text_emb"])}
+
+
+def jax_draws(key, latents_shape: tuple) -> dict:
+    """The four draws JAX's `make_train_step` makes from `key` (its split
+    into t, noise, offset and perturbation keys), as the port's
+    `draw_step` lays them out: t (B,) int64, noise and perturbation NCHW,
+    the offset (B, C, 1, 1)."""
+    import jax
+    k_t, k_noise, k_off, k_pert = jax.random.split(key, 4)
+    b, c = latents_shape[0], latents_shape[-1]
+    t = np.asarray(jax.random.randint(k_t, (b,), 0, 1000))
+    noise = np.asarray(jax.random.normal(k_noise, latents_shape))
+    off = np.asarray(jax.random.normal(k_off, (b, 1, 1, c)))
+    pert = np.asarray(jax.random.normal(k_pert, latents_shape))
+    return {"t": torch.from_numpy(t.astype(np.int64)), "noise": nchw(noise),
+            "offset": nchw(off), "perturbation": nchw(pert)}
+
+
+def closure_var(fn, name: str):
+    """The value `fn` closes over under `name` (e.g. JAX `make_train_step`'s
+    own `loss_fn`, to take its gradient without a replica)."""
+    return fn.__closure__[fn.__code__.co_freevars.index(name)].cell_contents
+
+
+def unet_tree_to_port(tree, port_unet_cfg) -> dict:
+    """A JAX UNet pytree (params, grads or updates) -> {port name: numpy}."""
+    import jax
+    return bridge.unet_numpy_state_dict(
+        jax.tree_util.tree_map(np.asarray, tree), port_unet_cfg)
