@@ -233,6 +233,21 @@ Run from the root of a checkout. Phases:
      an Adafactor step, an accumulation cycle of 2 with the EMA, and
      `train_relufied` for 6 steps with validation images against 4, a
      checkpoint and a resume to 6, bit-equal (cuDNN deterministic);
+  20. (run after 19) the parallel layer: (a) `init_multihost()` alone is a
+     no-op, then a group of one over NCCL; `create_mesh()` is dp = tp = 1;
+     the moefied SD1.5's `generate(mesh=)` (2 requests, 50 PNDM steps)
+     bit-equal to `generate()`, kernels 1-3 at 816; one AdamW step of the
+     ReLUfied SD1.5 with the mesh bit-equal to the step without it; (b) two
+     spawned ranks over gloo on the one card (NCCL takes no two ranks on one
+     device), the same seeded full-width models: dp=2 images within the
+     50-step floor of (a)'s, tp=2 latents after 3 steps within FLOOR_FACTOR
+     x the 3-step floor, kernels 2, 3 and 4 at 4 heads on every call, kernel
+     1 counted `tp:` and never launched, no plain call, each rank's wall and
+     peak; (c) a dp=2 AdamW step, 2 a rank: its reduced gradients against
+     the mean of the two halves' gradients in one process (PAR_EXACT) and
+     against the whole batch's within GRAD_FLOOR_FACTOR x the card's floor
+     on the same inputs; the kernels line gives `tp_launches` and
+     `dp_launches`;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -1264,12 +1279,14 @@ def check_latents(pipe, ivs, cond, uncond):
         return rel, floor
 
     kept = {}
+    floors = {}
     for steps in (3, cfg.num_inference_steps):
-        rel, floor = compare(ivs, steps, "MoE on 16 FFs")
+        rel, floors[steps] = compare(ivs, steps, "MoE on 16 FFs")
     # `rel` of the last pass: the config's full step count
     check(rel < LATENT_REL_TOL,
           f"{steps} steps: latent rel err {rel} >= {LATENT_REL_TOL}")
-    return compare, dict(ctx=ctx, lat=lat, z_k=kept["z_k"], floor=floor,
+    return compare, dict(ctx=ctx, lat=lat, z_k=kept["z_k"],
+                         floor=floors[steps], floor_3=floors[3],
                          pipe32=pipe32)
 
 
@@ -4570,6 +4587,388 @@ def run_training(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 20
+PAR_TP_STEPS = 3         # the tp=2 generate's PNDM steps: the 3-step floor
+PAR_DEADLINE_S = 480.0   # the two spawned ranks of (b) and (c) end by then
+PAR_TRAIN_SEED = 2000    # the step generator of (c)'s AdamW steps
+# (c): the dp=2 step's reduced gradients against the mean of the same two
+# halves' gradients computed in one process: the same bf16 products, so
+# only the f32 sum's order may differ (rel L2)
+PAR_EXACT = 1e-6
+
+
+def moefied_sd15():
+    """Phase 3's moefied SD1.5 (bf16, seeded weights and expert labels)
+    and its 2 requests' token ids."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                build_moe_interventions,
+                                                sd15_config)
+    cfg = sd15_config(torch.bfloat16)
+    pipe = StableDiffusionPipeline(cfg, device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    ivs = build_moe_interventions(labels_for(cfg.unet.ff_dims()), 0.3,
+                                  device=DEV, dtype=cfg.unet.dtype)
+    tcfg = cfg.text_encoder
+    cond = torch.randint(0, tcfg.vocab_size, (BATCH, tcfg.max_length),
+                         generator=torch.Generator().manual_seed(1)).to(DEV)
+    return pipe, ivs, cond, torch.zeros_like(cond)
+
+
+def relufied_sd15():
+    """Phase 19's ReLUfied SD1.5 (bf16, seeded) and a seeded batch of
+    TRAIN_BATCH latents and text states."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    pipe = StableDiffusionPipeline(sd15_config(torch.bfloat16, relufied=True),
+                                   device=DEV)
+    pipe.init_params(torch.Generator(device=DEV).manual_seed(0))
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    s, tc = pipe.config.sample_size, pipe.config.text_encoder
+    batch = {"latents": torch.randn((TRAIN_BATCH, 4, s, s), generator=gen,
+                                    device=DEV),
+             "text_emb": torch.randn((TRAIN_BATCH, tc.max_length,
+                                      tc.hidden_size), generator=gen,
+                                     device=DEV).to(torch.bfloat16)}
+    return pipe, batch
+
+
+def par_train_config(**kw):
+    """Phase 20's AdamW (EMA off)."""
+    from diffusion_models_moe_tpu_torch.training.train import TrainConfig
+    return TrainConfig(learning_rate=1e-5, snr_gamma=5.0, use_ema=False, **kw)
+
+
+def adamw_step(unet, batch: dict, mesh=None, tcfg=None) -> tuple:
+    """One AdamW step (`par_train_config()` unless `tcfg`) from the UNet's
+    weights on PAR_TRAIN_SEED's draws: (state, metrics, launches, wall s,
+    peak GiB)."""
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.training.train import (
+        create_train_state, make_train_step)
+    tcfg = tcfg or par_train_config()
+    state = create_train_state(unet, tcfg)
+    step = make_train_step(unet, tcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, generator=torch.Generator(
+        device=DEV).manual_seed(PAR_TRAIN_SEED))
+    torch.cuda.synchronize()
+    return (state, {k: float(v) for k, v in metrics.items()},
+            dict(_build.LAUNCHES), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def parallel_rank(rank: int, root: str) -> None:
+    """A rank of phase 20 (b) and (c) at world size 2 over gloo on the one
+    card (a spawned process): (b) the moefied SD1.5's 2 requests at dp=2
+    (50 steps) and at tp=2 (PAR_TP_STEPS steps, latents); (c) an AdamW
+    step of the ReLUfied SD1.5 at dp=2, 2 a rank, unclipped, so that its
+    first moments are (1 - b1) x the reduced gradients. Rank 0 first
+    computes, in its own process with cuDNN deterministic as the step: the
+    two halves' gradients (the ranks' own work) and their mean, the
+    gradients of the whole batch at TRAIN_BATCH in bf16 and in an f32 copy
+    (the card's floor on these inputs). Writes its numbers to
+    `root/rank{rank}.pt`; the parent checks them."""
+    import torch.distributed as dist
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.parallel.distributed import \
+        init_multihost
+    from diffusion_models_moe_tpu_torch.parallel.mesh import create_mesh
+    torch.cuda.set_device(0)
+    init_multihost(f"file://{root}/ws2_store", 2, rank, backend="gloo")
+    _build.load_library()
+    ref = torch.load(os.path.join(root, "ws1.pt"), map_location=DEV)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        pipe, ivs, cond, uncond = moefied_sd15()
+        for what, mesh, kw in (
+                ("dp", create_mesh(2, dp=2), {}),
+                ("tp", create_mesh(2, tp=2),
+                 dict(num_steps=PAR_TP_STEPS, decode=False))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            got, _ = pipe.generate(cond, uncond, torch.Generator(
+                device=DEV).manual_seed(3), ivs=ivs, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want = ref["images" if what == "dp" else "z3"]
+            out[what] = dict(
+                wall_s=wall, launches=dict(_build.LAUNCHES),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                rel=((got.float() - want).norm() / want.norm()).item(),
+                bit_equal=bool(torch.equal(got.float(), want)),
+                shape=tuple(got.shape),
+                finite=bool(torch.isfinite(got).all()))
+        out["tp"]["heads"] = sorted({m.heads for m in pipe.unet.modules()
+                                     if type(m).__name__ == "Attention"})
+        del pipe, ivs
+        torch.cuda.empty_cache()
+
+        pipe, batch = relufied_sd15()
+        unet = pipe.unet
+        tcfg = par_train_config(max_grad_norm=float("inf"))
+        torch.backends.cudnn.deterministic = True
+        if rank == 0:       # world size 1: the halves, the whole batch, f32
+            out["train_ws1"] = world_one_grads(unet, batch, tcfg)
+            g_mean = out["train_ws1"].pop("g_mean")
+            g_whole = out["train_ws1"].pop("g_whole")
+            torch.cuda.empty_cache()
+        dist.barrier()
+        state, m, launches, wall, peak = adamw_step(
+            unet, batch, create_mesh(2, dp=2), tcfg)
+        out["train_dp"] = dict(metrics=m, wall_s=wall, peak_gib=peak,
+                               launches=launches)
+        if rank == 0:
+            # the step's first moment is 0 x b1 + (1 - b1) g, g reduced
+            b1 = tcfg.adam_b1
+            mu = state.opt_state["mu"]
+            want = {n: torch.zeros_like(g).mul_(b1).add_(g, alpha=1.0 - b1)
+                    for n, g in g_mean.items()}
+            out["train_dp"].update(
+                mean_dist=grad_distance(mu, want),
+                mean_bit_equal=all(torch.equal(mu[n], t)
+                                   for n, t in want.items()),
+                whole_dist=grad_distance(
+                    {n: t / (1.0 - b1) for n, t in mu.items()}, g_whole))
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def world_one_grads(unet, batch: dict, tcfg) -> dict:
+    """Phase 20 (c) at world size 1, on `unet` in this process: the
+    gradients of each half of the batch (what each dp rank computes) and
+    their mean, those of the whole batch (bf16, kernels 2 and 3) and of its
+    f32 copy (plain versions, TF32 off): {"g_mean", "g_whole", "whole_floor"
+    (bf16 against f32 on these inputs), "mean_vs_whole"}."""
+    import dataclasses as dc
+
+    from diffusion_models_moe_tpu_torch.models.layers import (cast_model,
+                                                              f32_convs)
+    from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
+    from diffusion_models_moe_tpu_torch.training.train import draw_step
+    draws = draw_step(torch.Generator(device=DEV).manual_seed(PAR_TRAIN_SEED),
+                      batch["latents"].shape)
+    b = TRAIN_BATCH // 2
+    halves = [grads_of(unet, {k: v[sl] for k, v in batch.items()},
+                       {k: v[sl] for k, v in draws.items()}, tcfg, True)
+              for sl in (slice(0, b), slice(b, 2 * b))]
+    g_mean = {n: (g + halves[1][n]) / 2 for n, g in halves[0].items()}
+    del halves
+    g_whole = grads_of(unet, batch, draws, tcfg, True)
+    with torch.device(DEV):
+        unet32 = cast_model(UNet2DCondition(dc.replace(
+            unet.cfg, dtype=torch.float32)), torch.float32)
+    unet32.load_state_dict(unet.state_dict())
+    with f32_convs():
+        g32 = grads_of(unet32, {k: v.float() for k, v in batch.items()},
+                       draws, tcfg, False)
+    del unet32
+    out = dict(g_mean=g_mean, g_whole=g_whole,
+               whole_floor=grad_distance(g_whole, g32),
+               mean_vs_whole=grad_distance(g_mean, g_whole))
+    del g32
+    return out
+
+
+def run_ranks(target, root: str, nprocs: int = 2) -> list:
+    """`target(rank, root)` in `nprocs` spawned processes, joined within
+    PAR_DEADLINE_S (killed and failed after it); each rank's numbers."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(target, args=(root,), nprocs=nprocs,
+                             join=False, start_method="spawn")
+    end = time.monotonic() + PAR_DEADLINE_S
+    while not ctx.join(timeout=5.0):
+        if time.monotonic() > end:
+            for p in ctx.processes:
+                p.kill()
+            check(False, f"ranks still running after {PAR_DEADLINE_S} s")
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(nprocs)]
+
+
+def run_parallel(card: str, floors: dict, grad_floor: float) -> dict:
+    """Phase 20: (a) world size 1 over NCCL: `init_multihost()` alone is a
+    no-op, then a group of one; `create_mesh()` is dp = tp = 1;
+    `generate(mesh=)` of the moefied SD1.5 (2 requests, 50 PNDM steps, CFG
+    7.5) bit-equal to `generate()`, kernels 1-3 at 816 launches each and no
+    plain call; one AdamW step of the ReLUfied SD1.5 at batch TRAIN_BATCH
+    with the mesh against one without, cuDNN deterministic. (b), (c): two
+    ranks on the card over gloo (`parallel_rank`), held here: dp=2's
+    images within the 50-step floor of (a)'s, tp=2's latents within
+    FLOOR_FACTOR x the 3-step floor of (a)'s, kernels 2-4 at 4 heads on
+    every call, kernel 1 not taken (counted tp:), no plain call; the dp=2
+    step's reduced gradients within GRAD_FLOOR_FACTOR x phase 19's
+    gradient floor of world size 1's."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.parallel.distributed import (
+        init_multihost, is_coordinator)
+    from diffusion_models_moe_tpu_torch.parallel.mesh import create_mesh
+    from diffusion_models_moe_tpu_torch import sd15_config
+    sd_cfg = sd15_config(torch.bfloat16)
+    root = tempfile.mkdtemp(prefix="dmoe_parallel_")
+    out = {"launches": {}}
+    try:
+        # (a) world size 1 over NCCL
+        alone = init_multihost()
+        check(alone["process_count"] == 1 and not dist.is_initialized(),
+              f"init_multihost in one process: {alone}")
+        info = init_multihost(f"file://{root}/ws1_store", 1, 0)
+        mesh = create_mesh()
+        check(dist.get_backend() == "nccl" and mesh.shape == {"dp": 1, "tp": 1}
+              and is_coordinator(),
+              f"world size 1: backend {dist.get_backend()}, mesh {mesh}")
+        pipe, ivs, cond, uncond = moefied_sd15()
+        pipe.generate(cond, uncond, torch.Generator(device=DEV).manual_seed(2),
+                      num_steps=1, ivs=ivs)                   # warm-up
+        calls = unet_calls(pipe.config, pipe.config.num_inference_steps)
+        imgs, walls = {}, {}
+        for what, kw in (("plain_call", {}), ("mesh", {"mesh": mesh})):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[what], _ = pipe.generate(
+                cond, uncond, torch.Generator(device=DEV).manual_seed(3),
+                ivs=ivs, **kw)
+            torch.cuda.synchronize()
+            walls[what] = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            for k in ("geglu_ff_fused", "sd_self_attention",
+                      "sd_cross_attention"):
+                check(launches[k] == 16 * calls,
+                      f"world size 1 {what}: {k} {launches[k]} launches")
+            check_no_plain(launches, f"world size 1 {what}")
+        out["launches"]["ws1"] = launches
+        same = bool(torch.equal(imgs["mesh"], imgs["plain_call"]))
+        z3, _ = pipe.generate(cond, uncond, torch.Generator(
+            device=DEV).manual_seed(3), num_steps=PAR_TP_STEPS, ivs=ivs,
+            decode=False, mesh=mesh)
+        torch.save({"images": imgs["mesh"].float().cpu(),
+                    "z3": z3.float().cpu()}, os.path.join(root, "ws1.pt"))
+        print(f"parallel (a) on {card}: init_multihost() alone {alone}; "
+              f"over NCCL at world size 1 {info}, mesh {mesh.shape}; "
+              f"generate(mesh=) of {BATCH} requests, 50 PNDM steps, CFG "
+              f"7.5, MoE on 16 FFs: bit-equal to generate() {same}, walls "
+              f"{walls['mesh']:.3f} s (mesh) and {walls['plain_call']:.3f} s; "
+              f"kernels 1-3 at {16 * calls} launches each, no plain call",
+              flush=True)
+        check(same, "world size 1: generate(mesh=) is not generate()")
+        del pipe, ivs, imgs, z3
+        torch.cuda.empty_cache()
+
+        pipe, batch = relufied_sd15()
+        own = {n: p.detach().clone() for n, p in pipe.unet.named_parameters()}
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            st0, m0, _, wall0, _ = adamw_step(pipe.unet, batch)
+            keep = {k: {n: t.clone() for n, t in d.items()}
+                    for k, d in (("params", st0.params),
+                                 ("mu", st0.opt_state["mu"]))}
+            del st0
+            with torch.no_grad():
+                for n, p in pipe.unet.named_parameters():
+                    p.copy_(own[n])
+            st1, m1, launches, wall1, peak = adamw_step(pipe.unet, batch,
+                                                        mesh)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        train_same = m0 == m1 and all(
+            torch.equal(st1.params[n], t) for n, t in keep["params"].items()
+        ) and all(torch.equal(st1.opt_state["mu"][n], t)
+                  for n, t in keep["mu"].items())
+        dist_ws1 = grad_distance(st1.opt_state["mu"], keep["mu"])
+        print(f"parallel (a) training on {card}: one AdamW step of the "
+              f"ReLUfied SD1.5 at batch {TRAIN_BATCH}, mesh dp=tp=1 over NCCL "
+              f"against no mesh (cuDNN deterministic): masters, first moments "
+              f"and metrics bit-equal {train_same} (first moments rel L2 "
+              f"{dist_ws1:.3e}); loss {m1['loss']:.6f}, grad norm "
+              f"{m1['grad_norm']:.4f}; walls {wall0:.3f} s and {wall1:.3f} s, "
+              f"peak {peak:.2f} GiB", flush=True)
+        check(train_same, f"world size 1 train step with a mesh is not the "
+              f"step without one (rel L2 {dist_ws1})")
+        del pipe, batch, own, keep, st1
+        torch.cuda.empty_cache()
+        dist.destroy_process_group()
+
+        # (b), (c) world size 2 over gloo on the one card
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_rank, root)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        for r in ranks:
+            print(f"parallel (b) rank {r['rank']} ({r['backend']}): dp=2 "
+                  f"generate {r['dp']['wall_s']:.3f} s, peak "
+                  f"{r['dp']['peak_gib']:.2f} GiB, images rel L2 to world "
+                  f"size 1 {r['dp']['rel']:.6f} (bit-equal "
+                  f"{r['dp']['bit_equal']}); tp=2 generate {PAR_TP_STEPS} "
+                  f"steps {r['tp']['wall_s']:.3f} s, peak "
+                  f"{r['tp']['peak_gib']:.2f} GiB, latents rel L2 "
+                  f"{r['tp']['rel']:.6f}; (c) dp=2 AdamW step "
+                  f"{r['train_dp']['wall_s']:.3f} s, peak "
+                  f"{r['train_dp']['peak_gib']:.2f} GiB", flush=True)
+        tp_l, dp_l = r0["tp"]["launches"], r0["dp"]["launches"]
+        tp_calls = unet_calls(sd_cfg, PAR_TP_STEPS)
+        print(f"parallel (b) on {card}: 2 ranks over gloo in {wall:.1f} s; "
+              f"tp=2 heads a rank {r0['tp']['heads']}, launches (rank 0) "
+              f"{ {k: v for k, v in tp_l.items() if v} }; dp=2 launches "
+              f"(rank 0) { {k: v for k, v in dp_l.items() if v} }; limits: "
+              f"dp images <= floor {floors[50]:.6f}, tp latents <= "
+              f"{FLOOR_FACTOR} x floor {floors[3]:.6f}", flush=True)
+        for r in ranks:
+            check(r["dp"]["finite"] and r["tp"]["finite"]
+                  and r["dp"]["rel"] <= floors[50]
+                  and r["tp"]["rel"] <= FLOOR_FACTOR * floors[3],
+                  f"rank {r['rank']}: dp rel {r['dp']['rel']}, tp rel "
+                  f"{r['tp']['rel']}")
+        want = {k: 0 for k in _build.KERNELS + _build.PLAIN + _build.TP}
+        want.update({k: 16 * tp_calls for k in (
+            "sd_self_attention", "sd_cross_attention", "fused_route_multiply",
+            "tp:geglu_ff_fused")})
+        bad = {k: (tp_l[k], v) for k, v in want.items() if tp_l[k] != v}
+        check(not bad and r0["tp"]["heads"] == [4],
+              f"tp=2 launches (got, expected) {bad}, heads {r0['tp']['heads']}")
+        calls = unet_calls(sd_cfg, sd_cfg.num_inference_steps)
+        for k in ("geglu_ff_fused", "sd_self_attention", "sd_cross_attention"):
+            check(dp_l[k] == 16 * calls, f"dp=2: {k} {dp_l[k]} launches")
+        check_no_plain(dp_l, "dp=2 generate")
+        tr, ws1 = r0["train_dp"], r0["train_ws1"]
+        print(f"parallel (c) on {card}: AdamW step of the ReLUfied SD1.5, "
+              f"dp=2 over gloo ({TRAIN_BATCH // 2} a rank), unclipped: its "
+              f"reduced gradients against the mean of the two halves' "
+              f"gradients in one process rel L2 {tr['mean_dist']:.3e} "
+              f"(bit-equal {tr['mean_bit_equal']}, limit {PAR_EXACT}); "
+              f"against the whole batch of {TRAIN_BATCH} in one process "
+              f"{tr['whole_dist']:.6f} (the halves' mean against it "
+              f"{ws1['mean_vs_whole']:.6f}); the card's floor on these "
+              f"inputs (bf16 against f32, batch {TRAIN_BATCH}) "
+              f"{ws1['whole_floor']:.6f}, limit {GRAD_FLOOR_FACTOR} x it; "
+              f"phase 19's floor {grad_floor:.6f}; loss "
+              f"{tr['metrics']['loss']:.6f}", flush=True)
+        check(tr["mean_dist"] <= PAR_EXACT,
+              f"dp=2 reduced gradients {tr['mean_dist']} from the halves' "
+              f"mean")
+        check(tr["whole_dist"] <= GRAD_FLOOR_FACTOR * ws1["whole_floor"],
+              f"dp=2 gradients {tr['whole_dist']} > {GRAD_FLOOR_FACTOR} x "
+              f"floor {ws1['whole_floor']}")
+        expect_train_launches(tr["launches"], 16, 1, "dp=2 train step")
+        out["launches"].update(tp=tp_l, dp=dp_l, train_dp=tr["launches"])
+        out.update(ranks=ranks, ws2_wall_s=wall)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -4635,6 +5034,7 @@ def main() -> None:
     pipe, ivs, cond, uncond, launches, images = run_slice(card)
     phase_done("3 (serving slice)")
     compare, modes_off = check_latents(pipe, ivs, cond, uncond)
+    floors = {3: modes_off["floor_3"], 50: modes_off["floor"]}
     phase_done("4 (latents)")
     run_off_kernels(modes_off.pop("pipe32"), cond, uncond, card)
     phase_done("4b (f32 and tiny_config generates on the plain versions)")
@@ -4674,6 +5074,9 @@ def main() -> None:
     phase_done("19 (training: encode, AdamW steps with and without remat, "
                "grads through kernels 2 and 3, Adafactor, accumulation, "
                "resume)")
+    parallel = run_parallel(card, floors, training["grad_floor"])
+    phase_done("20 (parallel: world size 1 over NCCL, world size 2 over "
+               "gloo on the card at tp=2 and dp=2, training at dp=2)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -4689,7 +5092,8 @@ def main() -> None:
         "pixart": pixart_launches, "checked_generate": judge_launches,
         "erasure_eval": eval_launches, **rest_launches,
         **{f"training_{k}": training[k]["launches"]
-           for k in ("remat_off", "remat_on")}}))
+           for k in ("remat_off", "remat_on")},
+        **{f"parallel_{k}": v for k, v in parallel["launches"].items()}}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -4765,6 +5169,13 @@ def main() -> None:
             k.update(train_launches={
                 what: training[what]["launches"][k["name"]]
                 for what in ("remat_off", "remat_on")})
+    # phase 20: each kernel's launches on the tp=2 and dp=2 generates (rank
+    # 0's), and the FF calls tp sent past kernel 1
+    for k in kernels:
+        k.update(tp_launches=parallel["launches"]["tp"][k["name"]],
+                 dp_launches=parallel["launches"]["dp"][k["name"]])
+        if k["name"] == "geglu_ff_fused":
+            k["tp_not_taken"] = parallel["launches"]["tp"]["tp:geglu_ff_fused"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

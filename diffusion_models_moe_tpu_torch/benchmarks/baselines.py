@@ -154,7 +154,8 @@ def make_protocol_generate(pipe, generate_kwargs: dict, tokenize):
     same benchmark runners, i2p_eval.py:134-194). It refuses `ivs` (a
     comparison model takes no intervention) and passes `seeds` on (the
     port's `sld_generate` takes them; JAX's does not, and its wrapper
-    raises)."""
+    raises). It refuses `mesh`, as JAX's does: `sld_generate` runs on one
+    device."""
     if not generate_kwargs.get("use_sld"):
         return None
     from diffusion_models_moe_tpu_torch.pipelines.sld import (SAFETY_CONCEPT,
@@ -162,10 +163,12 @@ def make_protocol_generate(pipe, generate_kwargs: dict, tokenize):
     safety_row = torch.as_tensor(tokenize([SAFETY_CONCEPT]))
 
     def gen(cond_ids, uncond_ids, generator=None, *, num_steps=None,
-            guidance_scale=None, ivs=None, seeds=None, **kw):
+            guidance_scale=None, ivs=None, seeds=None, mesh=None, **kw):
         if ivs is not None:
             raise ValueError("the SLD baseline is a comparison model: "
                              "interventions do not apply to it")
+        if mesh is not None:
+            raise ValueError("the SLD baseline's generate takes no mesh")
         safety = safety_row.to(cond_ids.device).expand(cond_ids.shape[0], -1)
         imgs = sld_generate(pipe, cond_ids, uncond_ids, safety, generator,
                             num_steps=num_steps,

@@ -11,7 +11,9 @@ These tie together what the reference runs as separate argparse scripts:
 Prompt data are the reference's own files (data/datasets/, copied
 verbatim); judges (NudeNet / SSCD / CLIP-vision featurizer / classifier)
 are injected callables. Generation runs on the port's pipeline (`pipe`, on
-its device; no `params`, no `mesh`). Featurizers, embedders and classifiers
+its device; no `params`); `mesh=` goes on to `run_eval`, as in JAX: every
+rank runs the protocol with the same arguments, each judges the saved PNGs,
+and the coordinator alone writes files. Featurizers, embedders and classifiers
 get the saved PNGs as (N, 3, H, W) tensors in [0, 1], the port's image
 layout; the NudeNet detector gets them as uint8 (H, W, 3) arrays, what its
 letterbox reads (the JAX protocol hands it floats in [0, 1], which its
@@ -31,6 +33,14 @@ from diffusion_models_moe_tpu_torch.benchmarks.memorization import _l2n
 from diffusion_models_moe_tpu_torch.benchmarks.runner import (EvalRunConfig,
                                                               run_eval)
 from diffusion_models_moe_tpu_torch.data import prompts as P
+from diffusion_models_moe_tpu_torch.parallel.distributed import is_coordinator
+
+
+def _write_json(path: str, obj) -> None:
+    """`obj` as JSON at `path`, by the coordinator alone."""
+    if is_coordinator():
+        with open(path, "w") as f:
+            json.dump(obj, f)
 
 
 def _load_uint8(out_dir: str, prefix: str, n: int) -> list[np.ndarray]:
@@ -55,7 +65,7 @@ def _stack(images) -> torch.Tensor:
 def i2p_protocol(pipe, tokenize, out_dir: str, detector,
                  variant: str = "", ivs=None, limit: Optional[int] = None,
                  num_steps: int = 50, batch_size: int = 4,
-                 generate_fn=None) -> dict:
+                 generate_fn=None, mesh=None) -> dict:
     """I2P nudity eval at the reference operating point: the shipped
     i2p_prompts_seed_0*.txt prompts, NudeNet 9-label counting at 0.5
     (reference: benchmarks/i2p_eval.py)."""
@@ -66,12 +76,12 @@ def i2p_protocol(pipe, tokenize, out_dir: str, detector,
         prompts = prompts[:limit]
     cfg = EvalRunConfig(out_dir=out_dir, batch_size=batch_size,
                         num_steps=num_steps, save_baseline=False)
-    run_eval(pipe, tokenize, prompts, cfg, ivs=ivs, generate_fn=generate_fn)
+    run_eval(pipe, tokenize, prompts, cfg, ivs=ivs, generate_fn=generate_fn,
+             mesh=mesh)
     result = count_harmful(detector(_load_uint8(out_dir, "removed",
                                                 len(prompts))))
     result["n_prompts"] = len(prompts)
-    with open(os.path.join(out_dir, "i2p_results.json"), "w") as f:
-        json.dump(result, f)
+    _write_json(os.path.join(out_dir, "i2p_results.json"), result)
     return result
 
 
@@ -81,7 +91,7 @@ def memorization_protocol(pipe, tokenize, out_dir: str,
                           gt_images: Optional[torch.Tensor] = None,
                           limit: Optional[int] = None, num_steps: int = 50,
                           batch_size: int = 4,
-                          generate_fn=None) -> dict:
+                          generate_fn=None, mesh=None) -> dict:
     """Memorization eval: generate the shipped memorized LAION captions and
     score SSCD-style similarity of with-intervention generations against
     baseline generations (or supplied ground-truth images)
@@ -94,7 +104,8 @@ def memorization_protocol(pipe, tokenize, out_dir: str,
         prompts = prompts[:limit]
     cfg = EvalRunConfig(out_dir=out_dir, batch_size=batch_size,
                         num_steps=num_steps, save_baseline=True)
-    run_eval(pipe, tokenize, prompts, cfg, ivs=ivs, generate_fn=generate_fn)
+    run_eval(pipe, tokenize, prompts, cfg, ivs=ivs, generate_fn=generate_fn,
+             mesh=mesh)
     gen = _load_pngs(out_dir, "removed", len(prompts))
     if gt_images is None:
         # no LAION ground truth in-env: baseline generations are the
@@ -102,8 +113,7 @@ def memorization_protocol(pipe, tokenize, out_dir: str,
         gt_images = _load_pngs(out_dir, "sd", len(prompts))
     result = memorization_scores(_np(embed(gen)), _np(embed(gt_images)))
     result["n_prompts"] = len(prompts)
-    with open(os.path.join(out_dir, "memorization_results.json"), "w") as f:
-        json.dump(result, f)
+    _write_json(os.path.join(out_dir, "memorization_results.json"), result)
     return result
 
 
@@ -113,7 +123,7 @@ def object_erasure_protocol(pipe, tokenize, out_dir: str,
                             classes: Optional[Sequence[str]] = None,
                             ivs=None, limit: Optional[int] = None,
                             num_steps: int = 50, batch_size: int = 4,
-                            generate_fn=None) -> dict:
+                            generate_fn=None, mesh=None) -> dict:
     """Object erasure at the reference operating point: generate the target
     object's prompts (erase split) and every other imagenette object's prompts
     (keep split) under the intervention, then judge with a classifier over the
@@ -138,7 +148,8 @@ def object_erasure_protocol(pipe, tokenize, out_dir: str,
         cfg = EvalRunConfig(out_dir=os.path.join(out_dir, sub),
                             batch_size=batch_size, num_steps=num_steps,
                             save_baseline=False)
-        run_eval(pipe, tokenize, prompts, cfg, ivs=ivs, generate_fn=generate_fn)
+        run_eval(pipe, tokenize, prompts, cfg, ivs=ivs,
+                 generate_fn=generate_fn, mesh=mesh)
     erased = _load_pngs(os.path.join(out_dir, "erase"), "removed",
                         len(erase_prompts))
     kept = _load_pngs(os.path.join(out_dir, "keep"), "removed",
@@ -148,8 +159,7 @@ def object_erasure_protocol(pipe, tokenize, out_dir: str,
                                    keep_labels)
     result.update(target=target, n_erase=len(erase_prompts),
                   n_keep=len(keep_prompts))
-    with open(os.path.join(out_dir, "object_erasure_results.json"), "w") as f:
-        json.dump(result, f)
+    _write_json(os.path.join(out_dir, "object_erasure_results.json"), result)
     return result
 
 
@@ -160,7 +170,7 @@ def artist_removal_protocol(pipe, tokenize, out_dir: str,
                             limit: Optional[int] = None, num_steps: int = 50,
                             batch_size: int = 4, seed: int = 0,
                             text_featurize=None,
-                            generate_fn=None) -> dict:
+                            generate_fn=None, mesh=None) -> dict:
     """Artist-style removal: per-artist style prompts from the shipped
     {n}artists lists, CLIP image-image similarity of baseline vs removed and
     removal accuracy (reference: benchmarks/artist_removal.py:59-70,180-210).
@@ -182,7 +192,8 @@ def artist_removal_protocol(pipe, tokenize, out_dir: str,
     prompts = [f"a painting in the style of {a}" for a in artists]
     cfg = EvalRunConfig(out_dir=out_dir, batch_size=batch_size,
                         num_steps=num_steps, seed=seed, save_baseline=True)
-    run_eval(pipe, tokenize, prompts, cfg, ivs=ivs, generate_fn=generate_fn)
+    run_eval(pipe, tokenize, prompts, cfg, ivs=ivs, generate_fn=generate_fn,
+             mesh=mesh)
     base = _load_pngs(out_dir, "sd", len(prompts))
     removed = _load_pngs(out_dir, "removed", len(prompts))
     fb, fr = _l2n(featurize(base)), _l2n(featurize(removed))
@@ -197,8 +208,7 @@ def artist_removal_protocol(pipe, tokenize, out_dir: str,
     result = {"mean_similarity": float(sim.mean()),
               "removal_accuracy": acc,
               "n_artists": len(prompts)}
-    with open(os.path.join(out_dir, "artist_removal_results.json"), "w") as f:
-        json.dump(result, f)
+    _write_json(os.path.join(out_dir, "artist_removal_results.json"), result)
     return result
 
 

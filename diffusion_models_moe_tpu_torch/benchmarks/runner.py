@@ -6,8 +6,11 @@ i2p_eval.py:105-258, artist_removal.py:93-215): iterate a prompt dataset in
 batches, generate baseline and intervened images, save the pairs, and skip
 batches whose outputs already exist (resume-by-skip; reference:
 eval_coco.py:252-254). Each batch is one `generate` call of the pipeline,
-on the pipeline's device. The JAX version's `mesh=` (a batch sharded over
-devices) is not taken here.
+on the pipeline's device. With `mesh=` (`parallel/mesh.py`) every rank runs
+`run_eval` with the same arguments and each `generate` splits its batch
+over dp: every rank reads the same resume state before any file is
+written, and the files (PNGs, `run_summary.json`) are written once, by the
+coordinator (rank 0).
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ import os
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from diffusion_models_moe_tpu_torch.parallel.distributed import (
+    barrier, is_coordinator)
 
 
 @dataclasses.dataclass
@@ -41,7 +47,7 @@ def _pad_batch(ids: torch.Tensor, batch: int) -> tuple[torch.Tensor, int]:
 def run_eval(pipe, tokenize: Callable[[Sequence[str]], torch.Tensor],
              prompts: Sequence[str], cfg: EvalRunConfig, ivs=None,
              name_fn: Optional[Callable[[int], str]] = None,
-             generate_fn: Optional[Callable] = None) -> dict:
+             generate_fn: Optional[Callable] = None, mesh=None) -> dict:
     """Generate images for `prompts`, optionally twice (baseline +
     intervened), saving `{out_dir}/sd_{i}.png` and `{out_dir}/removed_{i}.png`
     pairs (the reference's file naming, benchmarks/eval_coco.py:259-281) and
@@ -55,7 +61,7 @@ def run_eval(pipe, tokenize: Callable[[Sequence[str]], torch.Tensor],
     `pipe.generate` with the same contract (`(cond_ids, uncond_ids,
     generator, num_steps=, guidance_scale=, seeds=[, ivs=])`): the hook that
     runs protocols over other samplers (reference: i2p_eval.py:134-194 SLD
-    rows)."""
+    rows); with `mesh` it also gets `mesh=`."""
     from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
         to_pil
 
@@ -65,11 +71,12 @@ def run_eval(pipe, tokenize: Callable[[Sequence[str]], torch.Tensor],
     b = cfg.batch_size
     name_fn = name_fn or (lambda i: str(i))
     gen = generate_fn or pipe.generate
+    mesh_kw = {} if mesh is None else {"mesh": mesh}
+    write = is_coordinator()
     done = skipped = 0
 
-    for start in range(0, len(prompts), b):
-        chunk = list(prompts[start:start + b])
-        idxs = list(range(start, start + len(chunk)))
+    def complete(start: int, n: int) -> bool:
+        idxs = range(start, start + n)
         outs = [os.path.join(cfg.out_dir, f"removed_{name_fn(i)}.png")
                 for i in idxs]
         if cfg.save_baseline:
@@ -78,7 +85,16 @@ def run_eval(pipe, tokenize: Callable[[Sequence[str]], torch.Tensor],
             # every batch and never produce a single sd_*.png
             outs += [os.path.join(cfg.out_dir, f"sd_{name_fn(i)}.png")
                      for i in idxs]
-        if all(os.path.exists(p) for p in outs):
+        return all(os.path.exists(p) for p in outs)
+
+    # every rank reads the resume state before the coordinator writes
+    starts = range(0, len(prompts), b)
+    finished = {s: complete(s, len(prompts[s:s + b])) for s in starts}
+    barrier()
+    for start in starts:
+        chunk = list(prompts[start:start + b])
+        idxs = list(range(start, start + len(chunk)))
+        if finished[start]:
             skipped += len(chunk)
             continue
         cond_ids, n_real = _pad_batch(torch.as_tensor(tokenize(chunk)), b)
@@ -98,18 +114,24 @@ def run_eval(pipe, tokenize: Callable[[Sequence[str]], torch.Tensor],
             imgs, _ = gen(cond_ids, uncond_ids, generator,
                           num_steps=cfg.num_steps,
                           guidance_scale=cfg.guidance_scale, seeds=seeds,
-                          **kw)
+                          **mesh_kw, **kw)
             return to_pil(imgs[:n_real])
 
+        def save(images, prefix):
+            if write:
+                for img, i in zip(images, idxs):
+                    img.save(os.path.join(cfg.out_dir,
+                                          f"{prefix}_{name_fn(i)}.png"))
+
         if cfg.save_baseline:
-            for img, i in zip(call(), idxs):
-                img.save(os.path.join(cfg.out_dir, f"sd_{name_fn(i)}.png"))
-        for img, i in zip(call(ivs=ivs), idxs):
-            img.save(os.path.join(cfg.out_dir, f"removed_{name_fn(i)}.png"))
+            save(call(), "sd")
+        save(call(ivs=ivs), "removed")
         done += len(chunk)
 
     summary = {"n_prompts": len(prompts), "generated": done,
                "skipped": skipped, "out_dir": cfg.out_dir}
-    with open(os.path.join(cfg.out_dir, "run_summary.json"), "w") as f:
-        json.dump(summary, f)
+    if write:
+        with open(os.path.join(cfg.out_dir, "run_summary.json"), "w") as f:
+            json.dump(summary, f)
+    barrier()       # every rank reads the files from here on
     return summary

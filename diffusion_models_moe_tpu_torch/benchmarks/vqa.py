@@ -54,14 +54,16 @@ def load_transformers_vqa(model_path: str, device="cuda") -> VQAFn:
 
 def load_llava_native(snapshot_dir: str, size: str = "auto",
                       max_new_tokens: int = 32, quant_int8: bool = False,
-                      device="cuda") -> VQAFn:
+                      device="cuda", mesh=None) -> VQAFn:
     """The native LLaVA-1.5 judge from an HF snapshot directory, on
     `device` (the card unless the caller asks for another), in f32.
 
     size: '7b' | '13b' | 'auto' (reads config.json's text hidden size).
-    `quant_int8`: W8A8 LM projections (judge answers may differ slightly).
-    The 13B judge fits one 80-GB card in f32 (about 53 GB), so the JAX
-    version's tensor-parallel `mesh=` is not taken."""
+    `quant_int8`: W8A8 LM projections (judge answers may differ slightly;
+    not taken under tp > 1). `mesh`: the language model tensor-parallel
+    over its tp axis (`_shard_judge`), every rank asking the same
+    questions of the same images. The 13B judge fits one 80-GB card in f32
+    (about 53 GB)."""
     import dataclasses
     import json
     import os
@@ -84,13 +86,14 @@ def load_llava_native(snapshot_dir: str, size: str = "auto",
             cfg, text=dataclasses.replace(cfg.text, quant_int8=True))
     model = LlavaForConditionalGeneration(cfg, device=device)
     load_llava_state(model, port_llava(snapshot_dir, cfg))
+    _shard_judge(model, mesh)
     encode, decode = load_llama_tokenizer(snapshot_dir)
     return build_vqa(model, encode, decode, max_new_tokens=max_new_tokens)
 
 
 def load_qwen2vl_native(snapshot_dir: str, size: str = "auto",
                         max_new_tokens: int = 32, quant_int8: bool = False,
-                        device="cuda", config=None) -> VQAFn:
+                        device="cuda", config=None, mesh=None) -> VQAFn:
     """The Qwen2-VL judge from an HF snapshot directory (the stand-in for the
     reference's remote-code Qwen-VL-Chat scorer, qwen_score.py:15-45), on
     `device` (the card unless the caller asks for another), in f32, with
@@ -99,9 +102,9 @@ def load_qwen2vl_native(snapshot_dir: str, size: str = "auto",
 
     size: '2b' | '7b' | 'auto' (reads config.json's hidden size);
     `config` (a `Qwen2VLConfig`) takes the place of the size's.
-    `quant_int8`: W8A8 LM projections (answers may differ slightly). The
-    7B judge fits one 80-GB card in f32 (about 33 GB), so the JAX
-    version's tensor-parallel `mesh=` is not taken."""
+    `quant_int8`: W8A8 LM projections (answers may differ slightly; not
+    taken under tp > 1). `mesh` as in `load_llava_native`. The 7B judge
+    fits one 80-GB card in f32 (about 33 GB)."""
     import dataclasses
     import json
     import os
@@ -127,8 +130,18 @@ def load_qwen2vl_native(snapshot_dir: str, size: str = "auto",
             cfg, text=dataclasses.replace(cfg.text, quant_int8=True))
     model = Qwen2VLForConditionalGeneration(cfg, device=dev)
     model.load_state_dict(port_qwen2vl(snapshot_dir, cfg))
+    _shard_judge(model, mesh)
     encode, decode = load_qwen_tokenizer(snapshot_dir)
     return build_vqa(model, encode, decode, max_new_tokens=max_new_tokens)
+
+
+def _shard_judge(model, mesh) -> None:
+    """The judge's language model tensor-parallel over the mesh's tp axis
+    (`parallel/mesh.py:shard_llama`), the vision tower and the projector
+    replicated (JAX `_shard_judge`)."""
+    if mesh is not None:
+        from diffusion_models_moe_tpu_torch.parallel.mesh import shard_llama
+        shard_llama(model.language_model, mesh)
 
 
 def object_question(obj: str) -> str:

@@ -34,6 +34,17 @@ plain `routing_mask` (both kernels are written for the gated FF).
 Tap statistics go into the `taps_out` dict a caller passes down, as
 `taps_out[stat][ff_index]`, the layout `denoise` stacks over steps.
 
+Under tensor parallelism (`parallel/mesh.py:shard_module`) `Attention`
+takes heads / tp heads a rank (its q/k/v column-parallel, `to_out`
+row-parallel) and the FF's `net.2` is row-parallel over the hidden width
+while `proj` stays replicated, as in the JAX package's rules. Kernel 1 spans
+the whole hidden width in its output GEMM, so it cannot take a shard: an FF
+call that would take it runs the unfused path instead (its routing in kernel
+4 over the whole width, then the rank's columns against its W2 shard and
+the reduce), counted under `tp:geglu_ff_fused`. The absorbed attention
+(`BasicTransformerBlock.tp_shard`) and the int8 projections (`QuantDense`,
+by `shard_module`) are refused under tp > 1.
+
 `use_kernels=False` runs the plain versions of the kernels on CUDA tensors;
 it exists only for kernel-vs-plain comparisons.
 """
@@ -59,6 +70,10 @@ from diffusion_models_moe_tpu_torch.ops.routing_kernel import (
     fused_route_multiply, route_kernel_ok)
 from diffusion_models_moe_tpu_torch.ops.sd_flash import (cross_attention,
                                                          self_attention)
+from diffusion_models_moe_tpu_torch.parallel.mesh import (RowParallelLinear,
+                                                          copy_to_tp, in_slice,
+                                                          linear_out,
+                                                          tp_group)
 from diffusion_models_moe_tpu_torch.taps import (LayerIntervention, TapSpec,
                                                  routing_mask, step_row)
 
@@ -97,6 +112,12 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([make_dense(query_dim, query_dim,
                                                 quant=quant)])
 
+    def tp_shard(self, tp: int, rank: int) -> None:
+        """heads / tp heads a rank (`parallel/mesh.py:shard_module`)."""
+        if self.heads % tp:
+            raise ValueError(f"{self.heads} heads do not split over tp = {tp}")
+        self.heads //= tp
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 use_kernels: bool = True, ln: Optional[nn.LayerNorm] = None,
                 absorb: str = "1") -> torch.Tensor:
@@ -107,7 +128,7 @@ class Attention(nn.Module):
         LayerNorm here and adding the residual at the end."""
         is_self = context is None
         b, s, c = x.shape
-        d = c // self.heads
+        d = self.to_q.out_features // self.heads
         scale = 1.0 / d ** 0.5
         resid = None
         if ln is not None:
@@ -141,7 +162,7 @@ class Attention(nn.Module):
         else:
             out = cross_attention(q, k, v, scale, ctx.shape[1],
                                   use_kernels=use_kernels)
-        out = self.to_out[0](out.reshape(b, s, c))
+        out = self.to_out[0](out.reshape(b, s, -1))
         return out if resid is None else resid + out
 
 
@@ -203,6 +224,11 @@ class GEGLUFeedForward(nn.Module):
             e = 0 if iv is None or iv.patterns is None else iv.patterns.shape[0]
             c = x.shape[-1]
             proj, out = self.net[0].proj, self.net[2]
+            if isinstance(out, RowParallelLinear):
+                # kernel 1's output GEMM spans the whole hidden width
+                _build.LAUNCHES["tp:geglu_ff_fused"] += 1
+                return self._unfused(x, step_idx, tap, iv, ln, taps_out,
+                                     use_kernels)
             if _build.plain_under_grad(
                     "geglu_ff_fused", use_kernels, x, proj.weight, proj.bias,
                     out.weight, out.bias,
@@ -283,13 +309,17 @@ class GEGLUFeedForward(nn.Module):
             y2 = y2 / y2.norm(dim=-1, keepdim=True).clamp_min(1e-12)
             sink.setdefault("ff_out_colnorm_sq", {})[idx] = (y2 * y2).sum(0)
         out = self.net[2]
+        sl = in_slice(out)
+        if tp_group(out) is not None:
+            # the rank's hidden columns against its W2 shard
+            y = copy_to_tp(y, tp_group(out))[..., sl]
         if iv is not None and iv.out_weight_mask is not None:
             wm = iv.out_weight_mask
             wm = step_row(wm, t) if wm.dim() == 3 else wm          # (D, H)
-            w2 = out.weight * (1.0 - wm.to(out.weight.dtype))
+            w2 = out.weight * (1.0 - wm[..., sl].to(out.weight.dtype))
             # a masked W2 is this step's own: under int8 it is quantised here
             y = (int8_dot(y, w2) + out.bias if self.quant
-                 else F.linear(y, w2, out.bias))
+                 else linear_out(out, y, w2))
         else:
             y = out(y)
         return y if ln is None else resid + y
@@ -372,6 +402,13 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim, ff_mult, ff_activation, ff_index,
                                    quant)
+
+    def tp_shard(self, tp: int, rank: int) -> None:
+        """Refuses the absorbed attention: kernels 5 and 6 take no head
+        shard."""
+        if self.attn_absorb != "0":
+            raise ValueError(f"attn_absorb={self.attn_absorb!r} is not taken "
+                             "under tp > 1")
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
                 step_idx: int = 0, tap: Optional[TapSpec] = None,

@@ -5,6 +5,9 @@ causal and runs in plain torch ops, as the JAX package leaves it to XLA: 77
 tokens are too few to need a kernel. The MLPs carry the FF layers' Wanda
 surface: the `text_colnorm_sq` tap on the fc1 activations, the neuron fill
 on them and the output-weight mask on fc2 (`ivs[i]` acts on layer i).
+Under tensor parallelism (`parallel/mesh.py`) fc1 is column-parallel and
+fc2 row-parallel, as in the JAX package's rules; the attention stays
+replicated, and the tap reads the fc1 activations gathered over tp.
 """
 from __future__ import annotations
 
@@ -16,6 +19,9 @@ import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.config import CLIPTextConfig
 from diffusion_models_moe_tpu_torch.models.layers import layer_norm_f32
+from diffusion_models_moe_tpu_torch.parallel.mesh import (all_gather_cat,
+                                                          in_slice, linear_out,
+                                                          tp_group)
 from diffusion_models_moe_tpu_torch.taps import (Interventions,
                                                  LayerIntervention, TapSpec)
 
@@ -67,20 +73,22 @@ class CLIPMLP(nn.Module):
                 taps_out: Optional[dict] = None) -> torch.Tensor:
         h = self.fc1(x)
         h = quick_gelu(h) if self.act == "quick_gelu" else F.gelu(h)
+        sl = in_slice(self.fc2)             # the rank's hidden units under tp
         if tap is not None and tap.ff_out_colnorm_sq and taps_out is not None:
-            h2 = h.reshape(-1, h.shape[-1]).float()
+            h2 = all_gather_cat(h, tp_group(self.fc2), -1)
+            h2 = h2.reshape(-1, h2.shape[-1]).float()
             h2 = h2 / h2.norm(dim=-1, keepdim=True).clamp_min(1e-12)
             taps_out.setdefault("text_colnorm_sq", {})[self.index] = (
                 h2 * h2).sum(0)
         w = self.fc2.weight
         if iv is not None and iv.neuron_mask is not None:
             m = iv.neuron_mask if iv.neuron_mask.dim() == 1 else iv.neuron_mask[0]
-            h = h.masked_fill(m, iv.neuron_fill)
+            h = h.masked_fill(m[sl], iv.neuron_fill)
         if iv is not None and iv.out_weight_mask is not None:
             wm = iv.out_weight_mask
             wm = wm[0] if wm.dim() == 3 else wm       # (D, I), fc2's layout
-            w = w * (1.0 - wm.to(w.dtype))
-        return F.linear(h, w, self.fc2.bias)
+            w = w * (1.0 - wm[..., sl].to(w.dtype))
+        return linear_out(self.fc2, h, w)
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -25,7 +25,11 @@ Parameter names are transformers' `LlamaForCausalLM` (`model.embed_tokens`,
 `model.norm`, `lm_head`); `quant_int8` makes the seven projections of each
 layer the W8A8 `QuantDense` of `models/attention.py` (same parameters),
 `lm_head` stays f32 (argmax sensitivity). The dtype defaults to f32, as in
-JAX.
+JAX. Under tensor parallelism (`parallel/mesh.py:shard_llama`) q/k/v and
+gate/up are column-parallel, o_proj and down_proj row-parallel, and
+`lm_head` is split over the vocabulary: a rank holds heads / tp query heads
+and kv heads / tp kv heads (num_kv_heads % tp == 0), the model returns the
+rank's logits, and the greedy argmax gathers each rank's (max, index).
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.config import resolve_device
 from diffusion_models_moe_tpu_torch.models.attention import make_dense
+from diffusion_models_moe_tpu_torch.parallel.mesh import (ColumnParallelLinear,
+                                                          vocab_argmax)
 
 NEG_INF = -1e9
 
@@ -136,12 +142,22 @@ class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
+        # this rank's query and kv heads (all of them outside tp)
+        self.num_heads, self.num_kv_heads = cfg.num_heads, cfg.num_kv_heads
         d, hd = cfg.hidden_size, cfg.head_dim
         q = cfg.quant_int8
         self.q_proj = make_dense(d, cfg.num_heads * hd, cfg.attention_bias, q)
         self.k_proj = make_dense(d, cfg.num_kv_heads * hd, cfg.attention_bias, q)
         self.v_proj = make_dense(d, cfg.num_kv_heads * hd, cfg.attention_bias, q)
         self.o_proj = make_dense(cfg.num_heads * hd, d, False, q)
+
+    def tp_shard(self, tp: int, rank: int) -> None:
+        """heads / tp query and kv heads a rank (`parallel/mesh.py`)."""
+        if self.num_kv_heads % tp:
+            raise ValueError(f"{self.num_kv_heads} kv heads do not split over "
+                             f"tp = {tp}")
+        self.num_heads //= tp
+        self.num_kv_heads //= tp
 
     def forward(self, x, cos, sin, kv_mask, cache: Optional[KVCache] = None,
                 cache_pos: Optional[torch.Tensor] = None):
@@ -157,9 +173,10 @@ class LlamaAttention(nn.Module):
         def heads(y, n):
             return y.view(b, s, n, hd).transpose(1, 2)
 
-        q = apply_rope(heads(self.q_proj(x), cfg.num_heads), cos, sin)
-        k = apply_rope(heads(self.k_proj(x), cfg.num_kv_heads), cos, sin)
-        v = heads(self.v_proj(x), cfg.num_kv_heads)
+        nh, nkv = self.num_heads, self.num_kv_heads
+        q = apply_rope(heads(self.q_proj(x), nh), cos, sin)
+        k = apply_rope(heads(self.k_proj(x), nkv), cos, sin)
+        v = heads(self.v_proj(x), nkv)
         if cache is None:
             k_all, v_all = k, v
             causal = torch.ones((s, s), dtype=torch.bool,
@@ -171,13 +188,13 @@ class LlamaAttention(nn.Module):
             k_all[rows, :, cache_pos] = k[:, :, 0]
             v_all[rows, :, cache_pos] = v[:, :, 0]
             mask = kv_mask[:, None, :]          # (B, 1, K): validity is causality
-        rep = cfg.num_heads // cfg.num_kv_heads
+        rep = nh // nkv
         k_att = k_all.repeat_interleave(rep, dim=1) if rep > 1 else k_all
         v_att = v_all.repeat_interleave(rep, dim=1) if rep > 1 else v_all
         logits = (q.float() @ k_att.float().transpose(-1, -2)) / hd ** 0.5
         logits = logits.masked_fill(~mask[:, None], NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
-        out = (probs @ v_att).transpose(1, 2).reshape(b, s, cfg.num_heads * hd)
+        out = (probs @ v_att).transpose(1, 2).reshape(b, s, nh * hd)
         return self.o_proj(out), (k_all, v_all)
 
 
@@ -281,6 +298,15 @@ def init_cache(cfg: LlamaConfig, batch: int, size: int, device) -> list:
     return [(kv(), kv()) for _ in range(cfg.num_layers)]
 
 
+def greedy_token(model: LlamaModel, logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the vocabulary of f32 logits (..., V): over the ranks'
+    vocabulary slices where `lm_head` is split over tp."""
+    head = model.lm_head
+    if isinstance(head, ColumnParallelLinear):
+        return vocab_argmax(logits, head.out_slice.start, head.group)
+    return logits.argmax(dim=-1)
+
+
 @torch.no_grad()
 def greedy_decode(model: LlamaModel, embeds: torch.Tensor,
                   lengths: torch.Tensor, max_new_tokens: int, eos_id: int,
@@ -313,7 +339,7 @@ def greedy_decode(model: LlamaModel, embeds: torch.Tensor,
     # the fixed-size cache, seeded with the prefill K/V (slot == position)
     caches = [(F.pad(k, (0, 0, 0, cache_size - p)),
                F.pad(v, (0, 0, 0, cache_size - p))) for k, v in kvs]
-    tok = logits[torch.arange(b, device=dev), lengths - 1].argmax(dim=-1)
+    tok = greedy_token(model, logits[torch.arange(b, device=dev), lengths - 1])
     slot_ids = torch.arange(cache_size, device=dev)
     cur_len = lengths.clone()
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -327,7 +353,7 @@ def greedy_decode(model: LlamaModel, embeds: torch.Tensor,
         kv_mask = slot_ids[None] <= cur_len[:, None]   # prompt + this token
         logits, caches = model(x, (cur_len + pos_offset)[:, None], kv_mask,
                                caches=caches, cache_pos=cur_len)
-        nxt = logits[:, 0].argmax(dim=-1)
+        nxt = greedy_token(model, logits[:, 0])
         tok = torch.where(finished, torch.full_like(nxt, eos_id), nxt)
         cur_len = cur_len + 1
     return torch.stack(out, dim=1)

@@ -18,7 +18,10 @@ names of transformers' `T5EncoderModel` (`shared`, `encoder.block.{i}.layer.
 The norms and the bucket embedding keep f32 parameters in a bf16 model
 (`F32_PARAMS`, read by `layers.cast_model`), as the JAX module keeps them.
 The products are plain torch (cuBLAS): the JAX package computes them outside
-any Pallas kernel.
+any Pallas kernel. Under tensor parallelism (`parallel/mesh.py`) q, k, v,
+`wi_0` and `wi_1` are column-parallel and o and `wo` row-parallel, as in
+the JAX package's rules: a rank takes heads / tp heads and its slice of the
+position bias.
 """
 from __future__ import annotations
 
@@ -107,9 +110,17 @@ class T5Attention(nn.Module):
         self.k = nn.Linear(cfg.d_model, inner, bias=False)
         self.v = nn.Linear(cfg.d_model, inner, bias=False)
         self.o = nn.Linear(inner, cfg.d_model, bias=False)
+        self.head_slice = slice(None)       # the rank's heads under tp
         if has_bias:
             self.relative_attention_bias = T5RelativeBias(
                 cfg.relative_attention_num_buckets, cfg.num_heads)
+
+    def tp_shard(self, tp: int, rank: int) -> None:
+        """heads / tp heads a rank (`parallel/mesh.py:shard_module`)."""
+        if self.heads % tp:
+            raise ValueError(f"{self.heads} heads do not split over tp = {tp}")
+        self.heads //= tp
+        self.head_slice = slice(rank * self.heads, (rank + 1) * self.heads)
 
     def forward(self, x: torch.Tensor, position_bias: torch.Tensor
                 ) -> torch.Tensor:
@@ -119,7 +130,8 @@ class T5Attention(nn.Module):
             return t.view(b, s, self.heads, self.d_kv).transpose(1, 2)
 
         q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
-        logits = q.float() @ k.float().transpose(-1, -2) + position_bias
+        logits = (q.float() @ k.float().transpose(-1, -2)
+                  + position_bias[:, self.head_slice])
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = (probs @ v).transpose(1, 2).reshape(b, s, self.heads * self.d_kv)
         return self.o(out)

@@ -41,12 +41,16 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # The `plain:` keys count the calls on CUDA tensors that the model handed to
 # a kernel's plain version because the kernel's predicate said no, or
 # because a gradient is taken through a kernel that has no backward
-# (`grad_through`: every kernel but 2 and 3).
+# (`grad_through`: every kernel but 2 and 3). The `tp:` keys count the calls
+# that tensor parallelism sent past a kernel that cannot take a shard: an FF
+# whose output projection is row-parallel takes the unfused path (kernel 4
+# over the whole hidden width) where it would have taken kernel 1.
 KERNELS = ("geglu_ff_fused", "sd_self_attention", "sd_cross_attention",
            "fused_route_multiply", "ln_qkv_fused", "attn_out_residual_fused",
            "conv3x3_chain", "winograd3x3_fused")
 PLAIN = tuple(f"plain:{k}" for k in KERNELS)
-LAUNCHES = dict.fromkeys(KERNELS + PLAIN, 0)
+TP = ("tp:geglu_ff_fused",)
+LAUNCHES = dict.fromkeys(KERNELS + PLAIN + TP, 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -14,7 +14,11 @@ pipelines; the JAX pipeline's one `lax.scan` is an eager loop here.
 With a `TapSpec`, `denoise` returns every step's statistics stacked to
 (T, ...) by the step index as {stat: {ff_index: tensor}} (and, with
 `save_eps`, the CFG-combined eps under {"eps": {0: ...}}); interventions
-are indexed by the step. The JAX pipeline's `mesh=` has no counterpart yet.
+are indexed by the step. With `mesh=` (`parallel/mesh.py`) every rank
+makes the call with the same arguments: the batch splits over dp (the
+images and taps gathered) and the DiT and T5 over tp (heads, T5's gated hidden
+and the FFs' output projections; the DiT's q/k/v biases kept whole), as in
+`StableDiffusionPipeline.generate`.
 
 `denoise(use_kernels=False)` runs the plain versions of the attention
 kernels on CUDA tensors; it exists only for kernel-vs-plain comparisons.
@@ -36,9 +40,13 @@ from diffusion_models_moe_tpu_torch.models.t5 import (T5Config, T5Encoder,
                                                       T5LayerNorm,
                                                       tiny_t5_config)
 from diffusion_models_moe_tpu_torch.models.vae import VAEDecoder
+from diffusion_models_moe_tpu_torch.parallel.mesh import (batch_slice,
+                                                          gather_batch,
+                                                          shard_pipeline)
 from diffusion_models_moe_tpu_torch.schedulers.ddim import DDIMScheduler
 from diffusion_models_moe_tpu_torch.schedulers.dpm import DPMSolverScheduler
-from diffusion_models_moe_tpu_torch.taps import Interventions, TapSpec
+from diffusion_models_moe_tpu_torch.taps import (Interventions, TapSpec,
+                                                 gather_taps)
 
 SCHEDULERS = {"dpm": DPMSolverScheduler, "ddim": DDIMScheduler}
 
@@ -220,11 +228,13 @@ class PixArtPipeline:
                  guidance_scale: Optional[float] = None,
                  tap: Optional[TapSpec] = None,
                  ivs: Optional[Interventions] = None,
-                 decode: bool = True, seeds=None):
+                 decode: bool = True, seeds=None, mesh=None):
         """Token ids (B, L) with their 0/1 masks -> (images (B, 3, 8s, 8s) in
         [0, 1], or the final latents with decode=False; taps or None). The
         initial noise comes from `generator`, or with `seeds` (B ints) from
-        each request's own seed, times the scheduler's initial sigma."""
+        each request's own seed, times the scheduler's initial sigma. With
+        `mesh`, every rank makes the call with the same arguments; B must
+        split over dp, and the taps are the whole batch's on every rank."""
         cfg = self.config
         num_steps = num_steps or cfg.num_inference_steps
         g = cfg.guidance_scale if guidance_scale is None else guidance_scale
@@ -233,12 +243,22 @@ class PixArtPipeline:
             raise ValueError("generate takes a generator or seeds, not both")
         if seeds is not None and len(seeds) != b:
             raise ValueError(f"{len(seeds)} seeds for {b} requests")
-        latents = (self.seeded_noise(seeds) if seeds is not None
-                   else self.initial_noise(b, generator))
+        part = slice(0, b)
+        if mesh is not None:
+            shard_pipeline(self, mesh)
+            part = batch_slice(mesh, b)
+        # a generator draws the whole batch's noise, seeds only the part's
+        latents = (self.seeded_noise(list(seeds)[part]) if seeds is not None
+                   else self.initial_noise(b, generator)[part])
         latents = latents.to(self.device) * self.scheduler.init_noise_sigma
-        context = self.encode_text(cond_ids, cond_mask)
+
+        def take(t):
+            return None if t is None else t[part]
+        context = self.encode_text(take(cond_ids), take(cond_mask))
         if g > 1.0:
-            context = torch.cat([self.encode_text(uncond_ids, uncond_mask),
+            context = torch.cat([self.encode_text(take(uncond_ids),
+                                                  take(uncond_mask)),
                                  context])
         latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs)
-        return (self.decode(latents) if decode else latents), taps
+        out = self.decode(latents) if decode else latents
+        return gather_batch(out, mesh), gather_taps(taps, mesh, g > 1.0)

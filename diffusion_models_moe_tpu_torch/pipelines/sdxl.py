@@ -11,8 +11,9 @@ every UNet call (full, shallow and tapped); taps, interventions and
 DeepCache act on the SDXL UNet's 70 FF layers as on SD1.5's 16. Under LCM
 there is no classifier-free guidance: the guidance scale enters through the
 embedding, and each request's step noise comes from its own generator
-(`step_seed`), as in `StableDiffusionPipeline.generate`. The JAX pipeline's
-`mesh=` has no counterpart yet.
+(`step_seed`), as in `StableDiffusionPipeline.generate`. With `mesh=` the
+batch splits over dp and the modules over tp (`parallel/mesh.py`), as in
+`StableDiffusionPipeline.generate`.
 """
 from __future__ import annotations
 
@@ -27,9 +28,11 @@ from diffusion_models_moe_tpu_torch.models.clip_text import CLIPTextEncoder
 from diffusion_models_moe_tpu_torch.models.layers import cast_model
 from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
 from diffusion_models_moe_tpu_torch.models.vae import VAEDecoder
+from diffusion_models_moe_tpu_torch.parallel.mesh import gather_batch
 from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
     StableDiffusionPipeline
-from diffusion_models_moe_tpu_torch.taps import Interventions, TapSpec
+from diffusion_models_moe_tpu_torch.taps import (Interventions, TapSpec,
+                                                 gather_taps)
 
 __all__ = ["SDXLPipeline", "sdxl_text_configs"]
 
@@ -92,24 +95,29 @@ class SDXLPipeline(StableDiffusionPipeline):
                  ivs: Optional[Interventions] = None,
                  decode: bool = True, seeds=None,
                  cond_ids_2: Optional[torch.Tensor] = None,
-                 uncond_ids_2: Optional[torch.Tensor] = None):
+                 uncond_ids_2: Optional[torch.Tensor] = None, mesh=None):
         """Token ids (B, S) -> (images (B, 3, 8s, 8s) in [0, 1], or the final
         latents with decode=False; taps or None). Noise as in
         `StableDiffusionPipeline.generate` (`generator` or `seeds`).
         `cond_ids_2` / `uncond_ids_2` are the bigG tower's ids (its tokenizer
         pads with 0, `load_sdxl_tokenizers`); they default to the CLIP-L
         ids. `size` (h, w) in pixels sets the time ids, by default the
-        config's sample size times 8."""
+        config's sample size times 8. `mesh` as in
+        `StableDiffusionPipeline.generate`."""
         cfg = self.config
         num_steps = num_steps or cfg.num_inference_steps
         g = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        part = self.mesh_part(mesh, cond_ids.shape[0])
         latents, generators = self.start_latents(cond_ids.shape[0], generator,
-                                                 seeds, num_steps)
-        context, added = self.conditioning(cond_ids, uncond_ids, g, size,
-                                           cond_ids_2, uncond_ids_2)
+                                                 seeds, num_steps, part)
+        ids = [None if i is None else i[part]
+               for i in (cond_ids, uncond_ids, cond_ids_2, uncond_ids_2)]
+        context, added = self.conditioning(ids[0], ids[1], g, size, *ids[2:])
         latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs,
                                      generators=generators, added_cond=added)
-        return (self.decode(latents) if decode else latents), taps
+        out = self.decode(latents) if decode else latents
+        taps = gather_taps(taps, mesh, g > 1.0 and not self.is_lcm)
+        return gather_batch(out, mesh), taps
 
     @torch.no_grad()
     def conditioning(self, cond_ids: torch.Tensor, uncond_ids: torch.Tensor,

@@ -32,6 +32,14 @@ shallow forward on that feature in between: a host branch where the JAX
 pipeline has a `lax.cond`, on the index over the scheduler's table, whatever
 the scheduler.
 
+`generate(mesh=)` runs over the processes of a ("dp", "tp") mesh
+(`parallel/mesh.py`): every rank calls it with the same global inputs. The
+pipeline's modules are sharded over tp in place on the first such call
+(heads and FF hidden columns, `shard_pipeline`); each rank denoises its dp
+slice of the batch, and the images and the taps are gathered over dp
+(`taps.gather_taps`), so every rank returns what one process returns,
+within rounding.
+
 `denoise(use_kernels=False)` runs the plain versions of the hand-written
 kernels on CUDA tensors; it exists only for kernel-vs-plain comparisons.
 """
@@ -52,13 +60,17 @@ from diffusion_models_moe_tpu_torch.models.layers import (cast_model,
                                                           timestep_embedding)
 from diffusion_models_moe_tpu_torch.models.unet import UNet2DCondition
 from diffusion_models_moe_tpu_torch.models.vae import VAEDecoder
+from diffusion_models_moe_tpu_torch.parallel.mesh import (batch_slice,
+                                                          gather_batch,
+                                                          shard_pipeline)
 from diffusion_models_moe_tpu_torch.schedulers.ddim import DDIMScheduler
 from diffusion_models_moe_tpu_torch.schedulers.dpm import DPMSolverScheduler
 from diffusion_models_moe_tpu_torch.schedulers.euler import \
     EulerDiscreteScheduler
 from diffusion_models_moe_tpu_torch.schedulers.lcm import LCMScheduler
 from diffusion_models_moe_tpu_torch.schedulers.pndm import PNDMScheduler
-from diffusion_models_moe_tpu_torch.taps import Interventions, TapSpec
+from diffusion_models_moe_tpu_torch.taps import (Interventions, TapSpec,
+                                                 gather_taps)
 
 SCHEDULERS = {
     "ddim": DDIMScheduler,
@@ -289,7 +301,7 @@ class StableDiffusionPipeline:
                  tap: Optional[TapSpec] = None,
                  ivs: Optional[Interventions] = None,
                  text_ivs: Optional[Interventions] = None,
-                 decode: bool = True, seeds=None):
+                 decode: bool = True, seeds=None, mesh=None):
         """Token ids (B, S) -> (images (B, 3, 8s, 8s) in [0, 1], or the final
         latents with decode=False; taps or None). The initial noise comes
         from `generator`, or with `seeds` (B ints, the serving engine's
@@ -299,12 +311,16 @@ class StableDiffusionPipeline:
         step noise comes from a generator of its own: with `seeds`, seeded
         with `step_seed(seeds[i])`; with `generator`, with B draws of
         `generator` made after the initial noise. Text taps add over both
-        encodes."""
+        encodes. With `mesh`, every rank of the mesh makes this call with the
+        same arguments (see the module's docstring); B must split over dp,
+        and the taps are the whole batch's on every rank."""
         cfg = self.config
         num_steps = num_steps or cfg.num_inference_steps
         g = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        part = self.mesh_part(mesh, cond_ids.shape[0])
         latents, generators = self.start_latents(cond_ids.shape[0], generator,
-                                                 seeds, num_steps)
+                                                 seeds, num_steps, part)
+        cond_ids, uncond_ids = cond_ids[part], uncond_ids[part]
         cond, cond_taps = self.encode_text(cond_ids, tap, text_ivs)
         uncond, text_taps = self.encode_text(uncond_ids, tap, text_ivs)
         if cond_taps and text_taps:
@@ -318,23 +334,41 @@ class StableDiffusionPipeline:
                                      generators=generators)
         if text_taps:
             taps = dict(taps or {}, **text_taps)
-        return (self.decode(latents) if decode else latents), taps
+        out = self.decode(latents) if decode else latents
+        taps = gather_taps(taps, mesh, not (self.is_lcm or g <= 1.0))
+        return gather_batch(out, mesh), taps
+
+    def mesh_part(self, mesh, b: int) -> slice:
+        """This rank's requests of a batch of `b` under `mesh` (all of
+        them without one), the pipeline sharded over its tp axis first."""
+        if mesh is None:
+            return slice(0, b)
+        shard_pipeline(self, mesh)
+        return batch_slice(mesh, b)
 
     @property
     def is_lcm(self) -> bool:
         return isinstance(self.scheduler, LCMScheduler)
 
     def start_latents(self, b: int, generator: Optional[torch.Generator],
-                      seeds, num_steps: int):
+                      seeds, num_steps: int, part: Optional[slice] = None):
         """`generate`'s initial latents (B, C, s, s) on the device, scaled
         by the scheduler's `init_noise_sigma_for(num_steps)` where it has
         one (Euler), else by its `init_noise_sigma`, and under LCM the step
         noise's generators (else None): from `generator`, or with `seeds`
-        from each request's own seed (see `generate`)."""
+        from each request's own seed (see `generate`). `part`: the requests
+        kept (a rank's dp slice): `generator` draws the whole batch's noise
+        first, `seeds` are drawn for those requests alone."""
         if (generator is None) == (seeds is None):
             raise ValueError("generate takes a generator or seeds, not both")
         if seeds is not None and len(seeds) != b:
             raise ValueError(f"{len(seeds)} seeds for {b} requests")
+        if part is not None and part != slice(0, b):
+            if seeds is not None:
+                return self.start_latents(part.stop - part.start, None,
+                                          list(seeds)[part], num_steps)
+            latents, gens = self.start_latents(b, generator, None, num_steps)
+            return latents[part], None if gens is None else gens[part]
         sched = self.scheduler
         latents = (self.seeded_noise(seeds) if seeds is not None
                    else self.initial_noise(b, generator))

@@ -1,7 +1,7 @@
 """Batched serving engine: a micro-batching front end over the pipeline.
 
-Counterpart of `diffusion_models_moe_tpu/serving.py` without its `mesh=`
-(one card). The design decisions carry over:
+Counterpart of `diffusion_models_moe_tpu/serving.py`. The design decisions
+carry over:
 
 - One fixed batch shape. Requests are micro-batched and padded to
   `batch_size` with the last request, so every UNet call of an engine has
@@ -17,6 +17,14 @@ Counterpart of `diffusion_models_moe_tpu/serving.py` without its `mesh=`
 
 Interventions (MoE routing, erasure masks) pass straight through to
 `generate`, so a moefied or concept-erased model serves like a plain one.
+
+With `mesh=` (a ("dp", "tp") mesh of `parallel/mesh.py`) every rank builds
+the engine and starts it. Rank 0 owns the queue: clients submit there, and
+before each batch it broadcasts the batch's token ids and seeds to the
+group, then joins the collective `generate(mesh=)`; at `stop` it
+broadcasts a stop message. Every other rank runs a follower loop that
+receives each batch and joins the same `generate`, and ends on the stop
+message; `submit` refuses on a follower.
 
 Usage:
     eng = ServingEngine(pipe, tokenize, batch_size=8, num_steps=50)
@@ -35,8 +43,12 @@ from concurrent.futures import Future
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import to_uint8
+
+# the broadcast header of a follower loop: (command, batch, id length)
+_RUN, _STOP = 1, 0
 
 
 @dataclasses.dataclass
@@ -74,8 +86,11 @@ class ServingEngine:
     def __init__(self, pipe, tokenize: Callable[[Sequence[str]], torch.Tensor],
                  *, batch_size: int = 8, num_steps: int = 50,
                  guidance_scale: float = 7.5, max_wait_ms: float = 50.0,
-                 queue_size: int = 64, ivs=None, decode: bool = True):
+                 queue_size: int = 64, ivs=None, decode: bool = True,
+                 mesh=None):
         self.pipe = pipe
+        self.mesh = mesh
+        self.leader = mesh is None or dist.get_rank() == 0
         self.tokenize = tokenize
         self.batch_size = batch_size
         self.num_steps = num_steps
@@ -88,6 +103,7 @@ class ServingEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._lifecycle = threading.Lock()   # serializes submit vs stop
+        self._error: Optional[BaseException] = None   # a follower's failure
         self._uncond = tokenize([""])
 
     # -- lifecycle ---------------------------------------------------------
@@ -95,14 +111,22 @@ class ServingEngine:
         if self._thread is not None:
             raise RuntimeError("engine already started")
         self._stop.clear()
-        self._thread = threading.Thread(target=self._loop,
-                                        name="dmoe-serving", daemon=True)
+        self._thread = threading.Thread(
+            target=self._loop if self.leader else self._follow,
+            name="dmoe-serving", daemon=True)
         self._thread.start()
         return self
 
     def stop(self, drain: bool = True) -> None:
         """Stop the executor. With `drain`, finish queued requests first."""
         if self._thread is None:
+            return
+        if not self.leader:
+            # the follower loop ends on the leader's stop message
+            self._thread.join()
+            self._thread = None
+            if self._error is not None:
+                raise self._error
             return
         if drain:
             self._queue.join()
@@ -112,6 +136,8 @@ class ServingEngine:
             self._stop.set()
             self._thread.join()
             self._thread = None
+            if self.mesh is not None:
+                self._broadcast(torch.tensor([_STOP, 0, 0]))
             # fail anything that raced in after the drain
             while True:
                 try:
@@ -136,6 +162,8 @@ class ServingEngine:
     def submit(self, prompt: str, seed: int = 0,
                timeout: Optional[float] = None) -> Future:
         """Enqueue one request; blocks when `queue_size` requests behind."""
+        if not self.leader:
+            raise RuntimeError("requests are submitted on rank 0")
         with self._lifecycle:
             if self._thread is None:
                 raise RuntimeError("engine not started")
@@ -201,13 +229,13 @@ class ServingEngine:
         b = self.batch_size
         prompts = [r.prompt for r in batch] + [batch[-1].prompt] * (b - n_real)
         seeds = [r.seed for r in batch] + [batch[-1].seed] * (b - n_real)
-        cond = self.tokenize(prompts)
-        uncond = self._uncond.repeat(b, 1)
+        cond = torch.as_tensor(self.tokenize(prompts))
         t0 = time.monotonic()
-        out, _ = self.pipe.generate(
-            cond, uncond, num_steps=self.num_steps,
-            guidance_scale=self.guidance_scale, ivs=self.ivs, seeds=seeds,
-            decode=self.decode)
+        if self.mesh is not None:
+            self._broadcast(torch.tensor([_RUN, b, cond.shape[1]]))
+            self._broadcast(torch.cat([cond.long(), torch.tensor(seeds)[:, None]],
+                                      dim=1))
+        out = self._generate(cond, seeds)
         # the copy to the host waits for the device: the batch time ends here
         out = (to_uint8(out) if self.decode else out).cpu().numpy()
         dt = time.monotonic() - t0
@@ -220,3 +248,38 @@ class ServingEngine:
             # cancelled future raises and would poison the rest of the batch
             if req.future.set_running_or_notify_cancel():
                 req.future.set_result(out[i])
+
+    def _generate(self, cond: torch.Tensor, seeds: list):
+        b = cond.shape[0]
+        out, _ = self.pipe.generate(
+            cond, self._uncond.repeat(b, 1), num_steps=self.num_steps,
+            guidance_scale=self.guidance_scale, ivs=self.ivs, seeds=seeds,
+            decode=self.decode, **({} if self.mesh is None
+                                   else {"mesh": self.mesh}))
+        return out
+
+    # -- the group ---------------------------------------------------------
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` from rank 0 to every rank (int64, on the pipeline's device
+        under NCCL, else on the host)."""
+        dev = (self.pipe.device if dist.get_backend() == "nccl"
+               else torch.device("cpu"))
+        t = t.to(dev, torch.long).contiguous()
+        dist.broadcast(t, src=0)
+        return t.cpu()
+
+    def _follow(self) -> None:
+        """A follower's loop: each batch rank 0 broadcasts joins the
+        collective `generate`; the stop message ends it."""
+        try:
+            while True:
+                cmd, b, s = self._broadcast(torch.zeros(3, dtype=torch.long)
+                                            ).tolist()
+                if cmd == _STOP:
+                    return
+                msg = self._broadcast(torch.zeros((b, s + 1),
+                                                  dtype=torch.long))
+                self._generate(msg[:, :s], msg[:, s].tolist())
+                self.stats.batches += 1
+        except Exception as e:      # kept for stop() to raise
+            self._error = e

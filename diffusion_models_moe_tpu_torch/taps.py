@@ -19,6 +19,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from diffusion_models_moe_tpu_torch.parallel.mesh import (all_gather_list,
+                                                          all_reduce)
 
 # Fill value for removed GEGLU gate neurons: about the minimum of GELU.
 GEGLU_REMOVAL_FILL = -0.17
@@ -154,3 +158,41 @@ def patterns_from_labels(labels, n_experts: int) -> torch.Tensor:
     """(H,) cluster labels -> (E, H) f32 0/1 membership matrix."""
     labels = torch.as_tensor(np.asarray(labels), dtype=torch.int64)
     return (labels[None, :] == torch.arange(n_experts)[:, None]).float()
+
+
+# How each statistic of a dp rank's slice of the batch combines into the
+# global batch's (the JAX package computes it over the whole batch at once):
+# "rows" concatenates the rows (dim 1, after the steps), "cfg_rows" the
+# unconditional halves then the conditional ones, "first" keeps the rank
+# holding batch element 0.
+_DP_COMBINE = {"max_gate": "max", "expert_scores_max": "max",
+               "mean_gate": "mean", "gate_sparsity": "mean",
+               "ff_out_colnorm_sq": "sum", "expert_sel": "sum",
+               "text_colnorm_sq": "sum", "expert_freq": "first",
+               "save_gate": "cfg_rows", "eps": "rows"}
+
+
+def gather_taps(taps: Optional[dict], mesh, cfg: bool) -> Optional[dict]:
+    """The taps of the global batch from each dp rank's taps
+    ({stat: {layer: tensor}}) of `mesh` (`parallel/mesh.py`); `cfg`: the
+    UNet batch is [unconditional, conditional]. Every rank gets them."""
+    group = None if mesh is None else mesh.group("dp")
+    if taps is None or group is None:
+        return taps
+    n = mesh.axis_size("dp")
+
+    def combine(how: str, t: torch.Tensor) -> torch.Tensor:
+        if how in ("max", "mean", "sum"):
+            op = dist.ReduceOp.MAX if how == "max" else dist.ReduceOp.SUM
+            t = all_reduce(t.clone(), group, op)
+            return t / n if how == "mean" else t
+        parts = all_gather_list(t, group)
+        if how == "first":
+            return parts[0]
+        if how == "cfg_rows" and cfg:
+            halves = [p.chunk(2, dim=1) for p in parts]
+            parts = [h[0] for h in halves] + [h[1] for h in halves]
+        return torch.cat(parts, dim=1)
+
+    return {stat: {l: combine(_DP_COMBINE[stat], t) for l, t in layers.items()}
+            for stat, layers in taps.items()}

@@ -49,6 +49,18 @@ Latents are NCHW here, (B, 4, h, w); JAX's are NHWC.
 Checkpoints are the port's own: one `torch.save` of the step, the masters,
 the optimizer state and the EMA per label under `ckpt_dir`, the newest
 `max_to_keep` kept (orbax is JAX's).
+
+**Over a mesh** (`parallel/mesh.py`; JAX jits the step over `state_shardings`
+and `batch_sharding`): every rank takes the same global batch and draws, and
+keeps its dp slice of both; the gradients are averaged in f32 over dp before
+the clip (JAX's mean over the global batch), and the loss metric too. Under
+tp the UNet's layers, the masters, the moments and the EMA hold the rank's
+shards (`param_shardings`); the clip's global norm sums the sharded
+gradients' squares over tp once. A checkpoint is gathered over tp and written
+once, by the coordinator, in the format above, and restored by slicing it to
+the reading rank's shard: a tp=2 checkpoint resumes at tp=1 and the reverse.
+Adafactor's factored moments and its RMS clip read whole tensors, so it is
+refused under tp > 1.
 """
 from __future__ import annotations
 
@@ -61,6 +73,14 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 
+from diffusion_models_moe_tpu_torch.parallel.distributed import (
+    barrier, is_coordinator)
+from diffusion_models_moe_tpu_torch.parallel.mesh import (all_reduce,
+                                                          gather_tensor,
+                                                          param_shardings,
+                                                          shard_batch,
+                                                          shard_tensor,
+                                                          state_shardings)
 from diffusion_models_moe_tpu_torch.schedulers.common import NoiseTables
 
 # Selective fine-tuning methods: regexes (`re.match`) over the UNet's
@@ -262,12 +282,30 @@ def _adafactor(cfg, p, g, v_row, v_col, v, count: int, lr: float) -> None:
     p.sub_(u)
 
 
+def tp_global_norm(sharded: set, mesh) -> Callable:
+    """`global_norm` of {name: gradient} over a mesh whose tp axis shards
+    the names in `sharded`: their squares summed over tp, the replicated
+    ones counted once."""
+    def norm(grads: dict) -> torch.Tensor:
+        dev = next(iter(grads.values())).device
+        rep, shard = torch.zeros((), device=dev), torch.zeros((), device=dev)
+        for n, g in grads.items():
+            if n in sharded:
+                shard = shard + g.float().pow(2).sum()
+            else:
+                rep = rep + g.float().pow(2).sum()
+        return torch.sqrt(rep + all_reduce(shard, mesh.group("tp")))
+    return norm
+
+
 @torch.no_grad()
 def apply_gradients(state: TrainState, grads: dict, cfg: TrainConfig,
-                    schedule: Callable[[int], float]) -> bool:
+                    schedule: Callable[[int], float],
+                    norm_fn: Optional[Callable] = None) -> bool:
     """One micro-step of the update on the trainable masters: accumulate,
     and on the last micro-step of a cycle (every step without accumulation)
-    clip the gradients' global norm to `max_grad_norm` and apply the
+    clip the gradients' global norm (`norm_fn` of the gradients, by default
+    `global_norm` of their values) to `max_grad_norm` and apply the
     optimizer. Returns whether the parameters changed."""
     opt = state.opt_state
     k = cfg.grad_accum_steps
@@ -282,7 +320,8 @@ def apply_gradients(state: TrainState, grads: dict, cfg: TrainConfig,
         for a in acc.values():
             a.zero_()
         opt["mini_step"] = 0
-    norm = global_norm(grads.values())
+    norm = (norm_fn(grads) if norm_fn is not None
+            else global_norm(grads.values()))
     if not bool(norm < cfg.max_grad_norm):
         grads = {n: g / norm * cfg.max_grad_norm for n, g in grads.items()}
     count = opt["count"]
@@ -347,16 +386,29 @@ def loss_fn(unet: nn.Module, latents: torch.Tensor, text_emb: torch.Tensor,
 
 
 def make_train_step(unet: nn.Module, cfg: TrainConfig,
-                    tables: Optional[NoiseTables] = None) -> Callable:
+                    tables: Optional[NoiseTables] = None,
+                    mesh=None) -> Callable:
     """Returns step(state, batch, generator=None, draws=None) -> (state,
     metrics) on the working copy `unet`. batch: {"latents": (B, 4, h, w)
     scaled latents, "text_emb": (B, S, D)}; `draws` as `draw_step` gives
     them, else drawn from `generator`. metrics: {"loss", "grad_norm"}, f32
     scalars. The state is updated in place and returned. Made after
-    `create_train_state`, which marks the parameters that train."""
+    `create_train_state`, which marks the parameters that train. With
+    `mesh`, every rank calls the step with the same global batch (and
+    draws), and `unet` is sharded over its tp axis already (see the
+    module's docstring)."""
     tables = tables or NoiseTables.create()
     schedule = make_lr_schedule(cfg)
     named = [(n, p) for n, p in unet.named_parameters() if p.requires_grad]
+    dp_group = None if mesh is None else mesh.group("dp")
+    norm_fn = None
+    if mesh is not None and mesh.group("tp") is not None:
+        if cfg.optimizer == "adafactor":
+            raise ValueError("adafactor is not taken under tp > 1: its "
+                             "factored moments read whole tensors")
+        plan = param_shardings(unet)
+        norm_fn = tp_global_norm({n for n, _ in named if "tp" in plan[n]},
+                                 mesh)
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None,
@@ -365,6 +417,9 @@ def make_train_step(unet: nn.Module, cfg: TrainConfig,
         if draws is None:
             draws = draw_step(generator, lat.shape,
                               tables.num_train_timesteps)
+        if dp_group is not None:
+            lat, emb = shard_batch(lat, mesh), shard_batch(emb, mesh)
+            draws = {k: shard_batch(v, mesh) for k, v in draws.items()}
         with torch.enable_grad():
             loss = loss_fn(unet, lat, emb, draws, cfg, tables)
             loss.backward()
@@ -372,8 +427,14 @@ def make_train_step(unet: nn.Module, cfg: TrainConfig,
         for n, p in named:
             grads[n] = p.grad.float()
             p.grad = None
-        gnorm = global_norm(grads.values())
-        applied = apply_gradients(state, grads, cfg, schedule)
+        if dp_group is not None:
+            dp = mesh.axis_size("dp")
+            for g in grads.values():
+                all_reduce(g, dp_group).div_(dp)
+            loss = all_reduce(loss.detach().clone(), dp_group) / dp
+        gnorm = (norm_fn(grads) if norm_fn is not None
+                 else global_norm(grads.values()))
+        applied = apply_gradients(state, grads, cfg, schedule, norm_fn)
         del grads
         if applied:
             load_params(unet, {n: state.params[n] for n, _ in named})
@@ -400,32 +461,64 @@ def checkpoint_steps(ckpt_dir: str) -> list[int]:
                   if m)
 
 
+def map_state(state: TrainState, plan: dict, fn: Callable) -> TrainState:
+    """A state whose every name-keyed tensor t is `fn(t, spec)`, its spec
+    from `state_shardings(state, plan)`."""
+    specs = state_shardings(state, plan)
+
+    def table(t, sp):
+        return None if t is None else {n: fn(v, sp[n]) for n, v in t.items()}
+    opt = {k: table(v, specs["opt_state"][k]) if isinstance(v, dict) else v
+           for k, v in state.opt_state.items()}
+    return TrainState(step=state.step, params=table(state.params,
+                                                    specs["params"]),
+                      opt_state=opt,
+                      ema_params=table(state.ema_params,
+                                       specs["ema_params"]))
+
+
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
-                    max_to_keep: int = 3) -> str:
+                    max_to_keep: int = 3, mesh=None,
+                    plan: Optional[dict] = None) -> str:
     """Writes the state under label `step` (`step_{step:08d}.pt`, written
     to a temporary name and renamed into place) and removes all but the
     newest `max_to_keep` labels. Refuses a label that exists, as orbax
-    does."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    does. With a `mesh` whose tp axis shards the state by `plan` (the
+    UNet's `param_shardings`), every rank calls it: the state is gathered
+    over tp and written by the coordinator alone."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}.pt")
-    if os.path.exists(path):
-        raise FileExistsError(f"checkpoint {step} exists under {ckpt_dir}")
-    tmp = path + ".tmp"
-    torch.save(dict(vars(state)), tmp)
-    os.replace(tmp, path)
-    for old in checkpoint_steps(ckpt_dir)[:-max_to_keep]:
-        os.remove(os.path.join(ckpt_dir, f"step_{old:08d}.pt"))
+    if mesh is not None and mesh.group("tp") is not None:
+        state = map_state(state, plan,
+                          lambda t, sp: gather_tensor(t, sp, mesh))
+    if is_coordinator():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(path):
+            raise FileExistsError(f"checkpoint {step} exists under "
+                                  f"{ckpt_dir}")
+        tmp = path + ".tmp"
+        torch.save(dict(vars(state)), tmp)
+        os.replace(tmp, path)
+        for old in checkpoint_steps(ckpt_dir)[:-max_to_keep]:
+            os.remove(os.path.join(ckpt_dir, f"step_{old:08d}.pt"))
+    barrier()
     return path
 
 
-def restore_checkpoint(ckpt_dir: str, template: TrainState
+def restore_checkpoint(ckpt_dir: str, template: TrainState, mesh=None,
+                       plan: Optional[dict] = None
                        ) -> tuple[TrainState, int]:
     """The newest checkpoint under `ckpt_dir`, on the template's device, and
-    its label; (template, 0) where none exists."""
+    its label; (template, 0) where none exists. With a `mesh` whose tp axis
+    shards the state by `plan`, each rank keeps its shard of the whole
+    tensors saved."""
     steps = checkpoint_steps(ckpt_dir)
     if not steps:
         return template, 0
     dev = next(iter(template.params.values())).device
-    saved = torch.load(os.path.join(ckpt_dir, f"step_{steps[-1]:08d}.pt"),
-                       map_location=dev, weights_only=True)
-    return TrainState(**saved), steps[-1]
+    saved = TrainState(**torch.load(
+        os.path.join(ckpt_dir, f"step_{steps[-1]:08d}.pt"),
+        map_location=dev, weights_only=True))
+    if mesh is not None and mesh.group("tp") is not None:
+        saved = map_state(saved, plan,
+                          lambda t, sp: shard_tensor(t, sp, mesh))
+    return saved, steps[-1]

@@ -1,10 +1,15 @@
 """ReLUfication training loop (PyTorch port): batches -> frozen text and VAE
 encoders -> the train step -> JSONL log, checkpoints, validation images.
 
-Counterpart of `diffusion_models_moe_tpu/training/trainer.py`, on one
-device: the pipeline's (the card unless it was built with `device="cpu"`).
-The JAX loop's mesh (`RunConfig.n_devices`) has no counterpart yet. The
-ReLUfied UNet is a config flag (`sd15_config(relufied=True)`), as in JAX.
+Counterpart of `diffusion_models_moe_tpu/training/trainer.py`, on the
+pipeline's device (the card unless it was built with `device="cpu"`) in each
+process of a ("dp", "tp") mesh: `create_mesh(RunConfig.n_devices)`, as in
+JAX (one process without a group), or the `mesh` handed in. Every rank runs
+`train_relufied` with the same batches; the UNet is sharded over tp in
+place, each step takes the rank's dp slice (`training/train.py`), and the
+log lines, checkpoints and validation images are written once, by the
+coordinator. The ReLUfied UNet is a config flag
+(`sd15_config(relufied=True)`), as in JAX.
 
 Randomness: step i draws its VAE sample noise and the step's four draws
 from a `torch.Generator` on the device seeded from step i alone
@@ -27,6 +32,11 @@ import torch.nn as nn
 
 from diffusion_models_moe_tpu_torch.models.layers import cast_model
 from diffusion_models_moe_tpu_torch.models.vae import VAEEncoder, sample_latents
+from diffusion_models_moe_tpu_torch.parallel.distributed import (
+    barrier, is_coordinator)
+from diffusion_models_moe_tpu_torch.parallel.mesh import (create_mesh,
+                                                          param_shardings,
+                                                          shard_module)
 from diffusion_models_moe_tpu_torch.training.train import (
     TrainConfig, TrainState, create_train_state, load_params, make_train_step,
     restore_checkpoint, save_checkpoint)
@@ -40,6 +50,8 @@ class RunConfig:
     log_every: int = 50
     max_checkpoints: int = 3
     resume: bool = True
+    # devices of the mesh (`create_mesh`), by default every process's one
+    n_devices: Optional[int] = None
     # generate validation images every N steps (0: off); see
     # make_validation_logger
     validation_every: int = 0
@@ -89,7 +101,8 @@ def train_relufied(pipe, train_cfg: TrainConfig, run_cfg: RunConfig,
                    batches: Iterator[dict],
                    vae_encoder: Optional[nn.Module] = None,
                    log_fn: Optional[Callable[[dict], None]] = None,
-                   validation_fn: Optional[Callable] = None) -> TrainState:
+                   validation_fn: Optional[Callable] = None,
+                   mesh=None) -> TrainState:
     """Fine-tunes `pipe.unet` (the model being tuned, with
     `ff_activation="geglu-relu"` for ReLUfication) on `batches`, which yield
     {"images": (B, H, W, 3) in [-1, 1], "input_ids": (B, S)} (raw, encoded
@@ -105,15 +118,20 @@ def train_relufied(pipe, train_cfg: TrainConfig, run_cfg: RunConfig,
     or the loop has just saved that label. `out_dir/train_log.jsonl` gets
     {"step", "loss", "grad_norm", "elapsed_s"} every `log_every` steps.
     `validation_fn(unet_params, step)` gets the EMA (else the masters)
-    every `validation_every` steps after step 0."""
-    unet = pipe.unet
+    every `validation_every` steps after step 0, on every rank (the rank's
+    shards). `mesh`: in place of `create_mesh(run_cfg.n_devices)`."""
+    mesh = mesh or create_mesh(run_cfg.n_devices)
+    plan = param_shardings(pipe.unet)
+    unet = shard_module(pipe.unet, plan, mesh)
+    write = is_coordinator()
     state = create_train_state(unet, train_cfg)
     start_step = 0
     ckpt_dir = os.path.join(os.path.abspath(run_cfg.out_dir), "checkpoints")
     if run_cfg.resume and os.path.isdir(ckpt_dir):
-        state, start_step = restore_checkpoint(ckpt_dir, state)
+        state, start_step = restore_checkpoint(ckpt_dir, state, mesh, plan)
         load_params(unet, state.params)
-    step_fn = make_train_step(unet, train_cfg)
+    barrier()            # every rank has read the resume state
+    step_fn = make_train_step(unet, train_cfg, mesh=mesh)
 
     os.makedirs(run_cfg.out_dir, exist_ok=True)
     log_path = os.path.join(run_cfg.out_dir, "train_log.jsonl")
@@ -140,20 +158,22 @@ def train_relufied(pipe, train_cfg: TrainConfig, run_cfg: RunConfig,
             rec = {"step": step, "loss": float(metrics["loss"]),
                    "grad_norm": float(metrics["grad_norm"]),
                    "elapsed_s": round(time.perf_counter() - t0, 1)}
-            with open(log_path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
-            if log_fn:
-                log_fn(rec)
+            if write:
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+                if log_fn:
+                    log_fn(rec)
         completed = step + 1
         if completed % run_cfg.checkpoint_every == 0:
             save_checkpoint(ckpt_dir, state, completed,
-                            run_cfg.max_checkpoints)
+                            run_cfg.max_checkpoints, mesh, plan)
         if (validation_fn is not None and run_cfg.validation_every > 0
                 and step > 0 and step % run_cfg.validation_every == 0):
             validation_fn(state.ema_params if state.ema_params is not None
                           else state.params, step)
     if completed > start_step and completed % run_cfg.checkpoint_every != 0:
-        save_checkpoint(ckpt_dir, state, completed, run_cfg.max_checkpoints)
+        save_checkpoint(ckpt_dir, state, completed, run_cfg.max_checkpoints,
+                        mesh, plan)
     return state
 
 
@@ -162,7 +182,9 @@ def make_validation_logger(pipe, tokenize: Callable, prompts, out_dir: str,
     """validation_fn for `train_relufied`: generates `prompts` through
     `pipe.generate` (its kernels under no_grad) with the given UNet params
     (the EMA) loaded into `pipe.unet`, writes PNGs and a JSONL record per
-    validation step, and puts the UNet's own weights back."""
+    validation step, and puts the UNet's own weights back. Under a mesh
+    every rank calls it (the UNet's collectives) and the coordinator alone
+    writes."""
     from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
         to_pil
 
@@ -180,6 +202,8 @@ def make_validation_logger(pipe, tokenize: Callable, prompts, out_dir: str,
             imgs, _ = pipe.generate(cond, uncond, gen, num_steps=num_steps)
         finally:
             load_params(unet, own)
+        if not is_coordinator():
+            return
         paths = []
         for i, img in enumerate(to_pil(imgs)):
             p = os.path.join(out_dir, f"val_step{step:06d}_{i}.png")
