@@ -132,7 +132,8 @@ Run from the root of a checkout. Phases:
      plain call; `denoise` latents against plain versions after 3 and
      SDXL_LONG_STEPS steps within the card's own SDXL floor; the exact-tier
      modes (kernels 5-7 at their counts, latents within that floor);
-     `moefy_unet` of the 70 gates and a gate bake, timed; LCM-SDXL
+     Sinkhorn clustering of one gate of each width (640, 1280; the other
+     68 cut for time) and a gate bake, timed; LCM-SDXL
      (`lcm=True`, the JAX bench's `lcm-sdxl` point: 4 steps, batch 2),
      timed, its latents on one injected step noise within its own floor,
      and a ServingEngine(batch_size=2) over it serving phase 7's requests;
@@ -248,6 +249,25 @@ Run from the root of a checkout. Phases:
      against the whole batch's within GRAD_FLOOR_FACTOR x the card's floor
      on the same inputs; the kernels line gives `tp_launches` and
      `dp_launches`;
+  21. (run after 20) the front door: the seeded SD1.5 weights as an f32
+     diffusers snapshot, then `cli.main` in this process: (a)
+     `check-snapshot --deep` (every reader ok); (b) `parity-run` at 10 PNDM
+     steps over 2 prompt pairs (the launches its generates imply, no plain
+     call; the baked weights' latents, run bare, within FLOOR_FACTOR x the
+     card's 10-step floor of the dynamic removal's on the same snapshot);
+     (c) a 50-step `generate` on (b)'s labels, kernels 1-3 at 816, its PNG
+     bit-equal to the library generate's on a pipeline built without the
+     CLI's code; (d)
+     the same through `python -m diffusion_models_moe_tpu_torch.cli` in a
+     subprocess, bit-equal to (c)'s (else within FLOOR_FACTOR x the 50-step
+     floor); (e) `serve` of 3 stdin requests at batch 2 (kernels 1-3 at
+     1632), `--int8` (kernel 4 at 176), `DMOE_WINO_FUSED=1 --winograd`
+     (kernel 8 at 394); (f) `train` 2 steps on a 512-px imagefolder
+     (kernels 2, 3 at 32, kernel 1's plain version at 32, a checkpoint at
+     2) and a resume that takes none; (g) `profiling.profile_generate` at 10
+     steps, each attention kernel counted in the trace as `_build.LAUNCHES`
+     counts it; each command's wall and peak; the kernels line gives
+     `cli_launches`;
   9. each launch of kernel 1 apart (LN pass, ff_up, routing stage, ff_down)
      at phase 2's shapes, by torch.profiler: last, because launches stay
      slower in a process whose card the profiler has traced.
@@ -2290,7 +2310,8 @@ def run_sdxl(card: str) -> dict:
     plain versions after 3 and SDXL_LONG_STEPS steps within the card's own
     SDXL bf16-vs-f32 floor; the same requests with the exact-tier modes on
     (kernels 5-7), their latents against the modes-off path within that
-    floor; `moefy_unet` and a gate bake on the SDXL weights, timed; then
+    floor; Sinkhorn clustering of the first gate of each width and a gate
+    bake on the SDXL weights, timed; then
     LCM-SDXL (`sdxl_config(lcm=True)`, the JAX bench's `lcm-sdxl` point: 4
     steps, batch 2, the config's guidance through the embedding), timed, its
     latents on one injected step noise within its own floor, and a
@@ -2301,10 +2322,11 @@ def run_sdxl(card: str) -> dict:
     from diffusion_models_moe_tpu_torch.data.tokenize import hash_tokenize
     from diffusion_models_moe_tpu_torch.erasure.masks import bake_gate_masks
     from diffusion_models_moe_tpu_torch.models.layers import ResnetBlock2D
-    from diffusion_models_moe_tpu_torch.moefication.moefy import moefy_unet
+    from diffusion_models_moe_tpu_torch.moefication.cluster import \
+        balanced_kmeans
+    from diffusion_models_moe_tpu_torch.moefication.moefy import gate_weights
     from diffusion_models_moe_tpu_torch.ops.attn_absorb_fused import \
         attn_absorb_ok
-    from diffusion_models_moe_tpu_torch.taps import layer_name
     t0 = time.perf_counter()
     pipe = sdxl_pipeline(torch.bfloat16)
     cfg = pipe.config
@@ -2377,27 +2399,32 @@ def run_sdxl(card: str) -> dict:
           f"SDXL modes on vs off {rel} > {FLOOR_FACTOR} x floor {floor}")
     del pipe_on, z_on, z_k
     torch.cuda.empty_cache()
-    # MoEfication and a bake on the SDXL weights
+    # MoEfication and a bake on the SDXL weights: one gate of each width
+    # clustered (all 70 took 92-173 s of host time, the script's largest
+    # depth; moefy_unet itself runs over SD1.5's 16 gates in phases 12, 21)
     walls = {}
     t0 = time.perf_counter()
-    labels = moefy_unet(pipe.unet.state_dict(), cfg.unet,
-                        expert_size=EXPERT_SIZE, method="sinkhorn", device=DEV)
-    walls["moefy"] = time.perf_counter() - t0
-    for i, d in enumerate(dims):
-        counts = np.bincount(labels[layer_name(i)])
-        check(len(counts) == 4 * d // EXPERT_SIZE
+    gates = gate_weights(pipe.unet.state_dict(), cfg.unet)
+    picked = [dims.index(640), dims.index(1280)]
+    for i in picked:
+        h = 4 * dims[i]
+        counts = np.bincount(balanced_kmeans(
+            gates[i], h // EXPERT_SIZE, method="sinkhorn", device=DEV))
+        check(len(counts) == h // EXPERT_SIZE
               and (counts == EXPERT_SIZE).all(),
               f"SDXL layer {i} clustered into {len(counts)} experts of "
               f"{counts.min()}..{counts.max()} neurons")
+    del gates
+    walls["moefy"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rng = np.random.RandomState(13)
     masks = {i: rng.rand(4 * d) < BAKE_SHARE for i, d in enumerate(dims)}
     baked = bake_gate_masks(pipe.unet.state_dict(), cfg.unet, masks)
     torch.cuda.synchronize()
     walls["bake"] = time.perf_counter() - t0
-    print(f"SDXL MoEfication: moefy_unet (Sinkhorn on the card) of all "
-          f"{len(dims)} gates into {EXPERT_SIZE}-neuron experts in "
-          f"{walls['moefy']:.3f} s (experts 128 x 10, 256 x 60, every one "
+    print(f"SDXL MoEfication: Sinkhorn on the card of gates {picked} of "
+          f"{len(dims)} (widths 640, 1280) into {EXPERT_SIZE}-neuron experts "
+          f"in {walls['moefy']:.3f} s (128 and 256 experts, every one "
           f"{EXPERT_SIZE} neurons); bake_gate_masks of "
           f"{sum(int(m.sum()) for m in masks.values())} gate neurons in "
           f"{walls['bake']:.3f} s", flush=True)
@@ -4969,6 +4996,366 @@ def run_parallel(card: str, floors: dict, grad_floor: float) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 21
+CLI_STEPS = 10             # PNDM steps of (b), (e)'s int8 and Winograd legs, (g)
+CLI_PROMPT = "a house in the style of Van Gogh"
+CLI_SEED = 7
+CLI_REQUESTS = ["0\ta photo of a dog", "1\ta house in the style of Van Gogh",
+                "2\ta photo of a cat"]
+CLI_TRAIN_IMAGES = 4       # 512-px images of (f)'s imagefolder
+
+
+def cli_call(argv: list, what: str, stdin_lines=None, env=None) -> dict:
+    """One `cli.main(argv)` in this process: its return value, what it
+    printed, the kernels' launch counts over the whole command, its wall
+    time and peak device memory. `stdin_lines` feed `serve`; `env` is set
+    for the call alone."""
+    import contextlib
+    import io
+    from diffusion_models_moe_tpu_torch import cli
+    from diffusion_models_moe_tpu_torch.ops import _build
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    stdin, out = sys.stdin, io.StringIO()
+    if stdin_lines is not None:
+        sys.stdin = io.StringIO("".join(line + "\n" for line in stdin_lines))
+    _build.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            ret = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdin = stdin
+        for k, v in saved.items():
+            (os.environ.pop(k, None) if v is None
+             else os.environ.__setitem__(k, v))
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lines = out.getvalue().strip().splitlines()
+    print(f"cli {what}: wall {wall:.3f} s, peak memory {peak:.2f} GiB, "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+          f"last line {lines[-1][:300] if lines else ''}", flush=True)
+    torch.cuda.empty_cache()
+    return {"ret": ret, "lines": lines, "launches": launches, "wall": wall,
+            "peak_gib": peak}
+
+
+def expect_launches(launches: dict, expect: dict, what: str) -> None:
+    for name, count in expect.items():
+        check(launches[name] == count, f"{what}: kernel {name} launched "
+              f"{launches[name]} times, expected {count}")
+    check_no_plain(launches, what)
+
+
+def write_imagefolder(root: str, n: int, side: int) -> None:
+    """`n` seeded `side`-px RGB PNGs with a metadata.csv of captions."""
+    import csv
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(21)
+    with open(os.path.join(root, "metadata.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["file_name", "text"])
+        w.writeheader()
+        for i in range(n):
+            Image.fromarray(rng.randint(0, 256, (side, side, 3), np.uint8)
+                            ).save(os.path.join(root, f"img_{i}.png"))
+            w.writerow({"file_name": f"img_{i}.png",
+                        "text": f"a training caption number {i}"})
+
+
+def snapshot_pipeline(snap: str, dtype):
+    """An SD1.5 pipeline in `dtype` on the card with the snapshot's weights,
+    and its tokenizer, built from the library alone (no CLI code)."""
+    from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
+                                                sd15_config)
+    from diffusion_models_moe_tpu_torch.data.tokenizer import load_tokenizer
+    from diffusion_models_moe_tpu_torch.weights.port import \
+        load_pipeline_snapshot
+    cfg = sd15_config(dtype)
+    pipe = StableDiffusionPipeline(cfg, device=DEV)
+    pipe.load_state_dicts(load_pipeline_snapshot(snap, cfg))
+    return pipe, load_tokenizer(os.path.join(snap, "tokenizer"),
+                                cfg.text_encoder.max_length)
+
+
+def png_pixels(path: str) -> np.ndarray:
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def run_cli(card: str, floor50=None) -> dict:
+    """Phase 21: the front door. The seeded SD1.5 weights written as a
+    diffusers snapshot, then each command through `cli.main` in this
+    process: (a) check-snapshot --deep; (b) parity-run at CLI_STEPS over 2
+    prompt pairs, its bake gap held to FLOOR_FACTOR x the bf16-vs-f32 floor
+    of the dynamic removal at CLI_STEPS; (c) a 50-step generate on (b)'s
+    labels, its PNG bit-equal to the library generate's; (d) the same generate through `python -m
+    diffusion_models_moe_tpu_torch.cli` in a subprocess; (e) serve over 3
+    stdin requests at batch 2, then --int8 and DMOE_WINO_FUSED=1 --winograd
+    legs; (f) train 2 steps on a 512-px imagefolder and a resume; (g)
+    `profiling.profile_generate` over the pipeline `_load_pipe` builds,
+    its attention kernels counted in the trace as `_build.LAUNCHES` counts
+    them. `floor50`: phase 4's 50-step bf16-vs-f32 floor, (d)'s limit is
+    FLOOR_FACTOR x it. Returns the launch counts by command."""
+    import argparse
+    import re
+    import tempfile
+    from diffusion_models_moe_tpu_torch import (build_moe_interventions, cli,
+                                                profiling, sd15_config)
+    from diffusion_models_moe_tpu_torch.moefication.moefy import load_labels
+    from diffusion_models_moe_tpu_torch.ops import _build
+    from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
+        to_pil
+    calls = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        snap = os.path.join(root, "snapshot")
+        mem = seeded_pipeline()
+        t0 = time.perf_counter()
+        nbytes = write_snapshot(mem, snap)
+        del mem
+        torch.cuda.empty_cache()
+        print(f"cli: seeded SD1.5 snapshot in f32, {nbytes} bytes written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+        # (a) the snapshot doctor, every reader run
+        a = cli_call(["check-snapshot", "--snapshot", snap, "--deep"],
+                     "(a) check-snapshot --deep")
+        rep = a["ret"]
+        comps = rep["components"]
+        check(rep["ok"] and all(comps[c].get("port_ok") for c in (
+            "unet", "text_encoder", "vae", "vae_encoder")),
+            f"(a) check-snapshot: {json.dumps(rep)[:2000]}")
+        print("cli (a): " + json.dumps({c: {k: v for k, v in e.items()
+                                            if k not in ("missing_keys",
+                                                         "unexpected_keys")}
+                                        for c, e in comps.items()}),
+              flush=True)
+
+        # (b) the acceptance flow at CLI_STEPS; its generates, each
+        # 16 x (CLI_STEPS + 1) launches of what it runs: the routing smoke
+        # (taps: unfused FF, kernels 2 and 3), 4 Wanda tapped generates
+        # (kernels 2 and 3), run_eval's baseline (kernels 1-3) and erased
+        # generate (W2 masks: unfused FF, kernels 2 and 3), the bake check's
+        # dynamic generate (W2-masked: kernels 2 and 3) and its baked one,
+        # bare (kernels 1-3)
+        per = 16 * (CLI_STEPS + 1)
+        n_pairs = 2
+        attn = per * (1 + 2 * n_pairs + 2 + 2)
+        expect_b = {"geglu_ff_fused": 2 * per, "sd_self_attention": attn,
+                    "sd_cross_attention": attn, "fused_route_multiply": 0}
+        print(f"cli (b) expected launches {expect_b}", flush=True)
+        out_b = os.path.join(root, "parity")
+        b = cli_call(["parity-run", "--snapshot", snap, "--out-dir", out_b,
+                      "--concept", "Van Gogh", "--limit", str(n_pairs),
+                      "--steps", str(CLI_STEPS), "--batch", "2"],
+                     "(b) parity-run")
+        bake = b["ret"]["bake"]
+        expect_launches(b["launches"], expect_b, "(b) parity-run")
+        # the baked weights run bare on kernel 1, the dynamic removal on the
+        # unfused FF: their gap is held to the card's bf16-vs-f32 floor of
+        # the dynamic removal on the same snapshot, prompt and noise
+        from diffusion_models_moe_tpu_torch.erasure.masks import (
+            load_masks, union_over_timesteps, wanda_removal_interventions)
+        ref, tok = snapshot_pipeline(snap, torch.bfloat16)
+        ref32, _ = snapshot_pipeline(snap, torch.float32)
+        static = union_over_timesteps(
+            load_masks(os.path.join(out_b, "wanda_masks.npz")),
+            bake["union_ratio"])
+        cond0 = tok(["a painting in the style of Van Gogh"])
+        zeros0 = torch.zeros_like(cond0)
+        ctx = torch.cat([ref.encode_text(zeros0)[0], ref.encode_text(cond0)[0]])
+        ctx32 = torch.cat([ref32.encode_text(zeros0)[0],
+                           ref32.encode_text(cond0)[0]])
+        lat = ref.start_latents(1, None, [b["ret"]["seed"] + 1], CLI_STEPS)[0]
+        _, floor_b, _ = kernels_vs_plain(
+            ref, ref32, ctx, ctx32, lat, CLI_STEPS, ref.config.guidance_scale,
+            wanda_removal_interventions(static, device=DEV),
+            "(b) the dynamic removal")
+        del ref32, ctx, ctx32, lat, static
+        torch.cuda.empty_cache()
+        print(f"cli (b): moefy {b['ret']['moefy']['experts_per_layer']}, "
+              f"{b['ret']['moefy']['routing_active_experts_l0']} experts "
+              f"active in layer 0; wanda {b['ret']['wanda']}; eval "
+              f"{b['ret']['eval']}; bake: baked (bare, kernel 1) vs dynamic "
+              f"(unfused FF) rel L2 {bake['bake_vs_dynamic_rel']:.6f}, limit "
+              f"{FLOOR_FACTOR} x the {CLI_STEPS}-step floor {floor_b:.6f}; "
+              f"max |baked - dynamic| {bake['bake_vs_dynamic_max_abs']:.6f}, "
+              f"JAX's bf16 rule (< 0.1) parity_ok {bake['parity_ok']}; scores "
+              f"{b['ret']['scores']}", flush=True)
+        check(bake["bake_vs_dynamic_rel"] <= FLOOR_FACTOR * floor_b,
+              f"(b) parity-run bake: rel {bake['bake_vs_dynamic_rel']} > "
+              f"{FLOOR_FACTOR} x floor {floor_b}")
+        calls["parity_run"] = b
+        labels_path = os.path.join(out_b, "labels.npz")
+
+        # (c) generate at the config's 50 steps on (b)'s labels
+        png_c = os.path.join(root, "generate_c.png")
+        gen_argv = ["generate", "--snapshot", snap, "--labels", labels_path,
+                    "--prompt", CLI_PROMPT, "--seed", str(CLI_SEED)]
+        c = cli_call(gen_argv + ["--out", png_c], "(c) generate")
+        full = 16 * 51
+        expect_launches(c["launches"], {
+            "geglu_ff_fused": full, "sd_self_attention": full,
+            "sd_cross_attention": full, "fused_route_multiply": 0},
+            "(c) generate")
+        calls["generate"] = c
+        # the library generate on the same snapshot, seed and labels,
+        # built without the CLI's code
+        ivs = build_moe_interventions(load_labels(labels_path), 0.3,
+                                      device=DEV, dtype=torch.bfloat16)
+        images, _ = ref.generate(tok([CLI_PROMPT]), tok([""]),
+                                 seeds=[CLI_SEED], ivs=ivs)
+        lib = np.asarray(to_pil(images)[0])
+        del ref, images
+        torch.cuda.empty_cache()
+        got_c = png_pixels(png_c)
+        check(np.array_equal(got_c, lib), "(c) the CLI's PNG differs from "
+              f"the library generate's: max |diff| "
+              f"{np.abs(got_c.astype(int) - lib).max()}")
+        print("cli (c): PNG bit-equal to the library generate on the same "
+              "snapshot, seed and labels: True", flush=True)
+
+        # (d) the same generate through `python -m`, the build reused
+        png_d = os.path.join(root, "generate_d.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "diffusion_models_moe_tpu_torch.cli",
+             *gen_argv, "--out", png_d], cwd=ROOT, capture_output=True,
+            text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=ROOT))
+        wall_d = time.perf_counter() - t0
+        check(proc.returncode == 0, f"(d) python -m cli: rc {proc.returncode}"
+              f" {proc.stderr[-2000:]}")
+        got_d = png_pixels(png_d)
+        same = np.array_equal(got_d, got_c)
+        rel = float(np.linalg.norm(got_d.astype(np.float64) - got_c)
+                    / np.linalg.norm(got_c.astype(np.float64)))
+        limit = None if floor50 is None else FLOOR_FACTOR * floor50
+        print(f"cli (d): python -m diffusion_models_moe_tpu_torch.cli "
+              f"generate in a subprocess: wall {wall_d:.3f} s (process start, "
+              f"import, snapshot read, 50 steps); PNG bit-equal to (c)'s: "
+              f"{same}; rel L2 {rel:.6f} (limit {limit})", flush=True)
+        check(same or (limit is not None and rel <= limit),
+              f"(d) the subprocess PNG is {rel} from (c)'s (limit {limit})")
+
+        # (e) the serving loop: 3 requests at batch 2, then the int8 and
+        # fused-Winograd legs on 2 requests each
+        e = cli_call(["serve", "--snapshot", snap, "--labels", labels_path,
+                      "--batch", "2", "--max-wait-ms", "500", "--out-dir",
+                      os.path.join(root, "served")], "(e) serve",
+                     stdin_lines=CLI_REQUESTS)
+        summary = json.loads(e["lines"][-1])
+        check(summary["served"] == 3 and summary["batches"] == 2,
+              f"(e) serve: {summary}")
+        expect_launches(e["launches"], {
+            "geglu_ff_fused": 2 * full, "sd_self_attention": 2 * full,
+            "sd_cross_attention": 2 * full, "fused_route_multiply": 0},
+            "(e) serve")
+        calls["serve"] = e
+        e8 = cli_call(["serve", "--snapshot", snap, "--labels", labels_path,
+                       "--batch", "2", "--max-wait-ms", "500", "--int8",
+                       "--steps", str(CLI_STEPS), "--out-dir",
+                       os.path.join(root, "served_int8")],
+                      "(e) serve --int8", stdin_lines=CLI_REQUESTS[:2])
+        expect_launches(e8["launches"], {
+            "fused_route_multiply": per, "geglu_ff_fused": 0,
+            "sd_self_attention": per, "sd_cross_attention": per},
+            "(e) serve --int8")
+        calls["serve_int8"] = e8
+        ew = cli_call(["serve", "--snapshot", snap, "--labels", labels_path,
+                       "--batch", "2", "--max-wait-ms", "500", "--winograd",
+                       "--steps", str(CLI_STEPS), "--out-dir",
+                       os.path.join(root, "served_wino")],
+                      "(e) DMOE_WINO_FUSED=1 serve --winograd",
+                      stdin_lines=CLI_REQUESTS[:2],
+                      env={"DMOE_WINO_FUSED": "1"})
+        expect_launches(ew["launches"], {
+            "winograd3x3_fused": WINO_UNET_CONVS * (CLI_STEPS + 1)
+            + WINO_VAE_CONVS, "geglu_ff_fused": per,
+            "sd_self_attention": per, "sd_cross_attention": per},
+            "(e) serve --winograd")
+        calls["serve_winograd"] = ew
+
+        # (f) two steps on a 512-px imagefolder, then a resume that takes none
+        data = os.path.join(root, "data")
+        write_imagefolder(data, CLI_TRAIN_IMAGES, 8 * sd15_config().sample_size)
+        run = os.path.join(root, "train")
+        train_argv = ["train", "--snapshot", snap, "--data-dir", data,
+                      "--out-dir", run, "--batch", "2", "--max-steps", "2",
+                      "--checkpoint-every", "2", "--log-every", "1"]
+        f = cli_call(train_argv, "(f) train")
+        with open(os.path.join(run, "train_log.jsonl")) as fh:
+            logs = [json.loads(line) for line in fh]
+        ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+        check(json.loads(f["lines"][-1])["steps"] == 2 and len(logs) == 2
+              and all(np.isfinite(r["loss"]) for r in logs)
+              and ckpts == ["step_00000002.pt"],
+              f"(f) train: {f['lines'][-1]}, logs {logs}, checkpoints {ckpts}")
+        # under grad kernel 1 (no backward) hands each FF to its plain
+        # version, counted; nothing else does
+        plain = {k: v for k, v in f["launches"].items()
+                 if k in _build.PLAIN and v}
+        check(plain == {"plain:geglu_ff_fused": 32},
+              f"(f) train: plain calls {plain}")
+        for name, count in (("sd_self_attention", 32),
+                            ("sd_cross_attention", 32), ("geglu_ff_fused", 0)):
+            check(f["launches"][name] == count, f"(f) train: kernel {name} "
+                  f"launched {f['launches'][name]} times, expected {count}")
+        calls["train"] = f
+        print(f"cli (f): losses {[r['loss'] for r in logs]}, checkpoints "
+              f"{ckpts}", flush=True)
+        resumed = cli_call(train_argv, "(f) train, resumed")
+        with open(os.path.join(run, "train_log.jsonl")) as fh:
+            n_logs = sum(1 for _ in fh)
+        check(json.loads(resumed["lines"][-1])["steps"] == 2 and n_logs == 2
+              and resumed["launches"]["sd_self_attention"] == 0,
+              f"(f) resume: {resumed['lines'][-1]}, {n_logs} log lines")
+
+        # (g) a traced 10-step generate over (c)'s pipeline, the one
+        # _load_pipe built
+        log_dir = os.path.join(root, "profile")
+        pipe, tok = cli._load_pipe(argparse.Namespace(
+            snapshot=snap, cpu=False, relufied=False))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = profiling.profile_generate(
+            pipe, tok([CLI_PROMPT]), tok([""]), log_dir, num_steps=CLI_STEPS,
+            ivs=ivs, seed=CLI_SEED)
+        wall_g = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        events = profiling.load_events(log_dir)
+        traced = {}
+        for name, kernel in (("sd_self_attention", "sd_self_attn_kernel"),
+                             ("sd_cross_attention", "sd_cross_attn_kernel")):
+            traced[name] = sum(1 for ev in events
+                               if ev.get("cat") == "kernel"
+                               and kernel in ev.get("name", ""))
+            # profile_generate runs the generate twice: a warm-up, the trace
+            check(traced[name] == launches[name] // 2 == per,
+                  f"(g) {kernel}: {traced[name]} in the trace, "
+                  f"{launches[name]} counted over two runs, expected {per} "
+                  f"each")
+        # the report's op column is as wide as the longest kernel name
+        report = "\n".join(re.sub(r" {3,}", "  ", line)
+                           for line in report.splitlines()[:16])
+        print(f"cli (g): profile_generate at {CLI_STEPS} steps, wall "
+              f"{wall_g:.3f} s (warm-up and traced run); traced launches "
+              f"{traced} = _build.LAUNCHES / 2; step_time_report (top 15, "
+              f"blanks squeezed):\n{report}", flush=True)
+        del pipe, ivs
+    torch.cuda.empty_cache()
+    walls = {k: round(v["wall"], 3) for k, v in calls.items()}
+    print(f"phase 21 walls (s): {json.dumps(walls)}, (d) {wall_d:.3f}, "
+          f"(g) {wall_g:.3f}; peaks (GiB): "
+          f"{json.dumps({k: round(v['peak_gib'], 2) for k, v in calls.items()})}"
+          f" on {card}", flush=True)
+    return {k: v["launches"] for k, v in calls.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs only on "
@@ -5077,6 +5464,10 @@ def main() -> None:
     parallel = run_parallel(card, floors, training["grad_floor"])
     phase_done("20 (parallel: world size 1 over NCCL, world size 2 over "
                "gloo on the card at tp=2 and dp=2, training at dp=2)")
+    cli_launches = run_cli(card, floors[50])
+    phase_done("21 (the front door: check-snapshot, parity-run, generate, "
+               "python -m, serve and its int8 and Winograd legs, train and "
+               "resume, profile_generate)")
     ff_launch_times(ff, ff_kernels)
     phase_done("9 (kernel 1's launches apart, by the profiler)")
     print("launches by path: " + json.dumps({
@@ -5093,7 +5484,8 @@ def main() -> None:
         "erasure_eval": eval_launches, **rest_launches,
         **{f"training_{k}": training[k]["launches"]
            for k in ("remat_off", "remat_on")},
-        **{f"parallel_{k}": v for k, v in parallel["launches"].items()}}))
+        **{f"parallel_{k}": v for k, v in parallel["launches"].items()},
+        **{f"cli_{k}": v for k, v in cli_launches.items()}}))
 
     csrc = "diffusion_models_moe_tpu_torch/ops/csrc"
     rows = [
@@ -5176,6 +5568,10 @@ def main() -> None:
                  dp_launches=parallel["launches"]["dp"][k["name"]])
         if k["name"] == "geglu_ff_fused":
             k["tp_not_taken"] = parallel["launches"]["tp"]["tp:geglu_ff_fused"]
+    # phase 21: each kernel's launches by CLI command
+    for k in kernels:
+        k["cli_launches"] = {cmd: counts[k["name"]]
+                             for cmd, counts in cli_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

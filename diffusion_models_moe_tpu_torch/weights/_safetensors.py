@@ -24,21 +24,33 @@ NAMES = {v: k for k, v in DTYPES.items()}
 MAX_HEADER = 100_000_000
 
 
+def _header(f, path: str) -> dict:
+    (n,) = struct.unpack("<Q", f.read(8))
+    if n > MAX_HEADER:
+        raise ValueError(f"{path}: header of {n} bytes is not safetensors")
+    header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return header
+
+
+def header(path: str) -> dict[str, tuple]:
+    """Each tensor's shape, from the header alone (no tensor is read)."""
+    with open(path, "rb") as f:
+        return {name: tuple(spec["shape"])
+                for name, spec in _header(f, path).items()}
+
+
 def read(path: str) -> dict[str, torch.Tensor]:
     """All tensors of a file, on the CPU, in their stored dtypes. They share
     one buffer that holds the file's data."""
     with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        if n > MAX_HEADER:
-            raise ValueError(f"{path}: header of {n} bytes is not safetensors")
-        header = json.loads(f.read(n))
-        size = os.fstat(f.fileno()).st_size - 8 - n
+        specs = _header(f, path)
+        size = os.fstat(f.fileno()).st_size - f.tell()
         data = bytearray(size)
         if f.readinto(memoryview(data)) != size:
             raise ValueError(f"{path}: file ended early")
-    header.pop("__metadata__", None)
     out = {}
-    for name, spec in header.items():
+    for name, spec in specs.items():
         dtype = DTYPES.get(spec["dtype"])
         if dtype is None:
             raise ValueError(f"{path}: {name} has dtype {spec['dtype']}, "
