@@ -74,6 +74,7 @@ from diffusion_models_moe_tpu_torch.parallel.mesh import (RowParallelLinear,
                                                           copy_to_tp, in_slice,
                                                           linear_out,
                                                           tp_group)
+from diffusion_models_moe_tpu_torch.profiling import annotate
 from diffusion_models_moe_tpu_torch.taps import (LayerIntervention, TapSpec,
                                                  routing_mask, step_row)
 
@@ -415,19 +416,26 @@ class BasicTransformerBlock(nn.Module):
                 iv: Optional[LayerIntervention] = None,
                 taps_out: TapsOut = None,
                 use_kernels: bool = True) -> torch.Tensor:
+        # the ranges `dmoe.unet.attn1` and `dmoe.unet.ff` hold exactly the
+        # two module calls
         dt = x.dtype
         if self.attn_absorb != "0":
             # norm1 and the residual are delegated to the absorbed attention
-            x = self.attn1(x, use_kernels=use_kernels, ln=self.norm1,
-                           absorb=self.attn_absorb)
+            with annotate("dmoe.unet.attn1"):
+                x = self.attn1(x, use_kernels=use_kernels, ln=self.norm1,
+                               absorb=self.attn_absorb)
         else:
-            x = x + self.attn1(layer_norm_f32(self.norm1, x).to(dt),
-                               use_kernels=use_kernels)
+            h = layer_norm_f32(self.norm1, x).to(dt)
+            with annotate("dmoe.unet.attn1"):
+                h = self.attn1(h, use_kernels=use_kernels)
+            x = x + h
         x = x + self.attn2(layer_norm_f32(self.norm2, x).to(dt), context,
                            use_kernels=use_kernels)
         # norm3 and the residual are absorbed into the FF
-        return self.ff(x, step_idx=step_idx, tap=tap, iv=iv, ln=self.norm3,
-                       taps_out=taps_out, use_kernels=use_kernels)
+        with annotate("dmoe.unet.ff"):
+            return self.ff(x, step_idx=step_idx, tap=tap, iv=iv,
+                           ln=self.norm3, taps_out=taps_out,
+                           use_kernels=use_kernels)
 
 
 class Transformer2D(nn.Module):

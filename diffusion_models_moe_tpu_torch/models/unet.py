@@ -39,6 +39,7 @@ from diffusion_models_moe_tpu_torch.models.layers import (Downsample2D,
                                                           Upsample2D,
                                                           group_norm_f32,
                                                           timestep_embedding)
+from diffusion_models_moe_tpu_torch.profiling import annotate
 from diffusion_models_moe_tpu_torch.taps import Interventions, TapSpec
 
 
@@ -152,93 +153,98 @@ class UNet2DCondition(nn.Module):
         last up block and conv_out, every other block skipped. The two are
         exclusive. The executed FF layers keep their full-forward `ff_index`,
         so interventions address them as before."""
-        cfg = self.cfg
-        shallow = deep_feature is not None
-        if shallow and return_deep:
-            raise ValueError("deep_feature and return_deep are exclusive")
-        if (shallow or return_deep) and len(cfg.up_block_types) < 2:
-            raise ValueError("deep cache needs >= 2 up blocks")
-        dt = self.conv_in.weight.dtype
-        b = sample.shape[0]
-        t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
-        temb = timestep_embedding(t.expand(b), cfg.block_out_channels[0],
-                                  cfg.flip_sin_to_cos, cfg.freq_shift).to(dt)
-        temb = self.time_embedding(temb, timestep_cond)
-        if self.add_embedding is not None and added_text_embeds is not None:
-            parts = [added_text_embeds.to(dt)]
-            if added_time_ids is not None and cfg.addition_time_embed_dim > 0:
-                ids = torch.as_tensor(added_time_ids, device=sample.device)
-                emb = timestep_embedding(ids.reshape(-1),
-                                         cfg.addition_time_embed_dim,
-                                         cfg.flip_sin_to_cos, cfg.freq_shift)
-                parts.append(emb.reshape(ids.shape[0], -1).to(dt))
-            temb = temb + self.add_embedding(torch.cat(parts, dim=-1))
-        context = encoder_hidden_states.to(dt)
-        remat = (cfg.remat and tap is None and ivs is None
-                 and torch.is_grad_enabled())
+        with annotate("dmoe.unet"):
+            cfg = self.cfg
+            shallow = deep_feature is not None
+            if shallow and return_deep:
+                raise ValueError("deep_feature and return_deep are exclusive")
+            if (shallow or return_deep) and len(cfg.up_block_types) < 2:
+                raise ValueError("deep cache needs >= 2 up blocks")
+            dt = self.conv_in.weight.dtype
+            b = sample.shape[0]
+            t = torch.as_tensor(timestep, device=sample.device).reshape(-1)
+            temb = timestep_embedding(t.expand(b), cfg.block_out_channels[0],
+                                      cfg.flip_sin_to_cos,
+                                      cfg.freq_shift).to(dt)
+            temb = self.time_embedding(temb, timestep_cond)
+            if (self.add_embedding is not None
+                    and added_text_embeds is not None):
+                parts = [added_text_embeds.to(dt)]
+                if (added_time_ids is not None
+                        and cfg.addition_time_embed_dim > 0):
+                    ids = torch.as_tensor(added_time_ids, device=sample.device)
+                    emb = timestep_embedding(ids.reshape(-1),
+                                             cfg.addition_time_embed_dim,
+                                             cfg.flip_sin_to_cos,
+                                             cfg.freq_shift)
+                    parts.append(emb.reshape(ids.shape[0], -1).to(dt))
+                temb = temb + self.add_embedding(torch.cat(parts, dim=-1))
+            context = encoder_hidden_states.to(dt)
+            remat = (cfg.remat and tap is None and ivs is None
+                     and torch.is_grad_enabled())
 
-        def run(block, *args, **kwargs):
-            if remat:
-                return checkpoint(block, *args, use_reentrant=False,
-                                  preserve_rng_state=False, **kwargs)
-            return block(*args, **kwargs)
+            def run(block, *args, **kwargs):
+                if remat:
+                    return checkpoint(block, *args, use_reentrant=False,
+                                      preserve_rng_state=False, **kwargs)
+                return block(*args, **kwargs)
 
-        ivs = tuple(ivs) if ivs is not None else ()
-        kw = dict(step_idx=step_idx, tap=tap, taps_out=taps_out,
-                  use_kernels=use_kernels)
-        ff_index = 0
+            ivs = tuple(ivs) if ivs is not None else ()
+            kw = dict(step_idx=step_idx, tap=tap, taps_out=taps_out,
+                      use_kernels=use_kernels)
+            ff_index = 0
 
-        def attend(attn, h, block_idx, run_it=True):
-            # the numbering advances over skipped blocks too
-            nonlocal ff_index
-            depth = cfg.depth_for_block(block_idx)
-            if run_it:
-                h = run(attn, h, context, ivs=ivs[ff_index:ff_index + depth],
-                        **kw)
-            ff_index += depth
-            return h
+            def attend(attn, h, block_idx, run_it=True):
+                # the numbering advances over skipped blocks too
+                nonlocal ff_index
+                depth = cfg.depth_for_block(block_idx)
+                if run_it:
+                    h = run(attn, h, context,
+                            ivs=ivs[ff_index:ff_index + depth], **kw)
+                ff_index += depth
+                return h
 
-        sample = sample.to(dt)
-        if self.mid_block.resnets[0].channels_last:
-            # such resblocks keep channels-last activations: start so, and
-            # every conv, cat and upsample between them keeps the format
-            sample = sample.contiguous(memory_format=torch.channels_last)
-        h = self.conv_in(sample)
-        stack = [h]
-        for i, blk in enumerate(self.down_blocks):
-            live = not shallow or i == 0
-            for j, res in enumerate(blk.resnets):
-                if live:
-                    h = run(res, h, temb, use_kernels)
-                if blk.attentions:
-                    h = attend(blk.attentions[j], h, i, live)
-                if live:
+            sample = sample.to(dt)
+            if self.mid_block.resnets[0].channels_last:
+                # such resblocks keep channels-last activations: start so, and
+                # every conv, cat and upsample between them keeps the format
+                sample = sample.contiguous(memory_format=torch.channels_last)
+            h = self.conv_in(sample)
+            stack = [h]
+            for i, blk in enumerate(self.down_blocks):
+                live = not shallow or i == 0
+                for j, res in enumerate(blk.resnets):
+                    if live:
+                        h = run(res, h, temb, use_kernels)
+                    if blk.attentions:
+                        h = attend(blk.attentions[j], h, i, live)
+                    if live:
+                        stack.append(h)
+                if blk.downsamplers and not shallow:
+                    h = blk.downsamplers[0](h)
                     stack.append(h)
-            if blk.downsamplers and not shallow:
-                h = blk.downsamplers[0](h)
-                stack.append(h)
-        n = len(cfg.block_out_channels)
-        if not shallow:
-            h = run(self.mid_block.resnets[0], h, temb, use_kernels)
-        h = attend(self.mid_block.attentions[0], h, n - 1, not shallow)
-        if not shallow:
-            h = run(self.mid_block.resnets[1], h, temb, use_kernels)
-        deep = None
-        for i, blk in enumerate(self.up_blocks):
-            last = i == len(self.up_blocks) - 1
-            if last and return_deep:
-                deep = h             # the feature entering the last up block
-            if last and shallow:
-                h = deep_feature.to(dt)
-            live = not shallow or last
-            for j, res in enumerate(blk.resnets):
-                if live:
-                    h = run(res, torch.cat([h, stack.pop()], dim=1), temb,
-                            use_kernels)
-                if blk.attentions:
-                    h = attend(blk.attentions[j], h, n - 1 - i, live)
-            if blk.upsamplers and not shallow:
-                h = blk.upsamplers[0](h, use_kernels)
-        h = F.silu(group_norm_f32(self.conv_norm_out, h)).to(dt)
-        eps = self.conv_out(h).float()
-        return (eps, deep) if return_deep else eps
+            n = len(cfg.block_out_channels)
+            if not shallow:
+                h = run(self.mid_block.resnets[0], h, temb, use_kernels)
+            h = attend(self.mid_block.attentions[0], h, n - 1, not shallow)
+            if not shallow:
+                h = run(self.mid_block.resnets[1], h, temb, use_kernels)
+            deep = None
+            for i, blk in enumerate(self.up_blocks):
+                last = i == len(self.up_blocks) - 1
+                if last and return_deep:
+                    deep = h         # the feature entering the last up block
+                if last and shallow:
+                    h = deep_feature.to(dt)
+                live = not shallow or last
+                for j, res in enumerate(blk.resnets):
+                    if live:
+                        h = run(res, torch.cat([h, stack.pop()], dim=1), temb,
+                                use_kernels)
+                    if blk.attentions:
+                        h = attend(blk.attentions[j], h, n - 1 - i, live)
+                if blk.upsamplers and not shallow:
+                    h = blk.upsamplers[0](h, use_kernels)
+            h = F.silu(group_norm_f32(self.conv_norm_out, h)).to(dt)
+            eps = self.conv_out(h).float()
+            return (eps, deep) if return_deep else eps

@@ -28,6 +28,8 @@ import time
 
 import torch
 
+from diffusion_models_moe_tpu_torch.profiling import annotate
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NATIVE = pathlib.Path(__file__).resolve().parents[2] / "native"
@@ -75,6 +77,9 @@ _SIGNATURES = {
     "dmoe_winograd3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                          _P, _P],
 }
+# each launcher's profiler range: `dmoe.kernel.` and its name without `dmoe_`
+_RANGES = {name: "dmoe.kernel." + name.removeprefix("dmoe_")
+           for name in _SIGNATURES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +91,11 @@ class KernelLibrary:
     compiler_log: str        # nvcc's output (register and spill report)
 
     def call(self, name: str, *args) -> None:
-        """Calls launcher `name` and raises if CUDA refused the launch."""
-        err = getattr(self.lib, name)(*args)
+        """Calls launcher `name` and raises if CUDA refused the launch. The
+        host call is the range `dmoe.kernel.<name without dmoe_>` while the
+        profiler runs."""
+        with annotate(_RANGES[name]):
+            err = getattr(self.lib, name)(*args)
         if err != 0:
             msg = self.lib.dmoe_error_string(err).decode()
             raise RuntimeError(f"{name}: CUDA error {err}: {msg}")

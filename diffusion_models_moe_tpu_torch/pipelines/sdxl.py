@@ -31,6 +31,7 @@ from diffusion_models_moe_tpu_torch.models.vae import VAEDecoder
 from diffusion_models_moe_tpu_torch.parallel.mesh import gather_batch
 from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import \
     StableDiffusionPipeline
+from diffusion_models_moe_tpu_torch.profiling import span
 from diffusion_models_moe_tpu_torch.taps import (Interventions, TapSpec,
                                                  gather_taps)
 
@@ -104,20 +105,25 @@ class SDXLPipeline(StableDiffusionPipeline):
         ids. `size` (h, w) in pixels sets the time ids, by default the
         config's sample size times 8. `mesh` as in
         `StableDiffusionPipeline.generate`."""
-        cfg = self.config
-        num_steps = num_steps or cfg.num_inference_steps
-        g = cfg.guidance_scale if guidance_scale is None else guidance_scale
-        part = self.mesh_part(mesh, cond_ids.shape[0])
-        latents, generators = self.start_latents(cond_ids.shape[0], generator,
-                                                 seeds, num_steps, part)
-        ids = [None if i is None else i[part]
-               for i in (cond_ids, uncond_ids, cond_ids_2, uncond_ids_2)]
-        context, added = self.conditioning(ids[0], ids[1], g, size, *ids[2:])
-        latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs,
-                                     generators=generators, added_cond=added)
-        out = self.decode(latents) if decode else latents
-        taps = gather_taps(taps, mesh, g > 1.0 and not self.is_lcm)
-        return gather_batch(out, mesh), taps
+        with span("dmoe.pipe.generate", device=self.device):
+            cfg = self.config
+            num_steps = num_steps or cfg.num_inference_steps
+            g = (cfg.guidance_scale if guidance_scale is None
+                 else guidance_scale)
+            part = self.mesh_part(mesh, cond_ids.shape[0])
+            latents, generators = self.start_latents(
+                cond_ids.shape[0], generator, seeds, num_steps, part)
+            ids = [None if i is None else i[part]
+                   for i in (cond_ids, uncond_ids, cond_ids_2, uncond_ids_2)]
+            with span("dmoe.pipe.encode", device=self.device):
+                context, added = self.conditioning(ids[0], ids[1], g, size,
+                                                   *ids[2:])
+            latents, taps = self.denoise(context, latents, num_steps, g, tap,
+                                         ivs, generators=generators,
+                                         added_cond=added)
+            out = self.decode(latents) if decode else latents
+            taps = gather_taps(taps, mesh, g > 1.0 and not self.is_lcm)
+            return gather_batch(out, mesh), taps
 
     @torch.no_grad()
     def conditioning(self, cond_ids: torch.Tensor, uncond_ids: torch.Tensor,

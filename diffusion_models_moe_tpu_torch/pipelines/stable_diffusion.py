@@ -63,6 +63,7 @@ from diffusion_models_moe_tpu_torch.models.vae import VAEDecoder
 from diffusion_models_moe_tpu_torch.parallel.mesh import (batch_slice,
                                                           gather_batch,
                                                           shard_pipeline)
+from diffusion_models_moe_tpu_torch.profiling import annotate, span
 from diffusion_models_moe_tpu_torch.schedulers.ddim import DDIMScheduler
 from diffusion_models_moe_tpu_torch.schedulers.dpm import DPMSolverScheduler
 from diffusion_models_moe_tpu_torch.schedulers.euler import \
@@ -192,81 +193,91 @@ class StableDiffusionPipeline:
         tapped (SDXL's `added_text_embeds` and `added_time_ids`, batched
         as `context`). Returns (final latents (B, C, h, w) in f32, taps with
         (T, ...) leaves or None)."""
-        sched = self.scheduler
-        timesteps, coeffs = sched.set_timesteps(num_steps)
-        is_lcm = isinstance(sched, LCMScheduler)
-        do_cfg = guidance_scale > 1.0 and not is_lcm
-        b = latents.shape[0]
-        tcond = None
-        if is_lcm:
-            if step_noise is None and generators is None:
-                raise ValueError("LCM's denoise needs step_noise or one "
-                                 "generator a sample")
-            w = torch.full((b,), (guidance_scale - 1.0) * 1000.0,
-                           device=self.device)
-            tcond = timestep_embedding(w, self.config.unet.time_cond_proj_dim,
-                                       flip_sin_to_cos=False,
-                                       downscale_freq_shift=1.0)
-        v_pred = self.config.prediction_type == "v_prediction"
-        if v_pred:
-            # f32, as the JAX tables: sqrt(a_t) and sqrt(1 - a_t) at each
-            # step's timestep
-            acp = sched.tables.alphas_cumprod[timesteps].astype(np.float32)
-            v_sqrt_a, v_sqrt_1ma = np.sqrt(acp), np.sqrt(np.float32(1) - acp)
-        collect = tap is not None and tap.any()
-        dc = self.config.deep_cache_interval
-        if dc > 0 and tap is not None:
-            raise ValueError(
-                "deep_cache_interval > 0 does not support taps: shallow "
-                "steps skip the deep layers, so the taps of a step would "
-                "lack their statistics")
-        deep = None
-        state = (sched.init_state(generators or ()) if is_lcm
-                 else sched.init_state())
-        lat = latents.to(self.device, torch.float32)
-        context = context.to(self.device)
-        per_step: list[dict] = []
-        for i, t in enumerate(timesteps.tolist()):
-            lat_in = torch.cat([lat, lat]) if do_cfg else lat
-            lat_in = sched.scale_model_input(coeffs, i, lat_in)
-            step_taps: dict = {}
-            kw = dict(ivs=ivs, step_idx=i, use_kernels=use_kernels,
-                      timestep_cond=tcond, **(added_cond or {}))
-            if dc > 0 and i % dc == 0:
-                # entry 0 is always full, so `deep` is set before its first use
-                eps, deep = self.unet(lat_in, t, context, return_deep=True,
-                                      **kw)
-            elif dc > 0:
-                eps = self.unet(lat_in, t, context, deep_feature=deep, **kw)
-            else:
-                eps = self.unet(lat_in, t, context,
-                                tap=tap if collect else None,
-                                taps_out=step_taps, **kw)
-            if do_cfg:
-                eps_u, eps_c = eps.chunk(2)
-                eps = eps_u + guidance_scale * (eps_c - eps_u)
-            if v_pred:
-                eps = float(v_sqrt_a[i]) * eps + float(v_sqrt_1ma[i]) * lat
-            if collect and tap.save_eps:
-                step_taps["eps"] = {0: eps}
-            per_step.append(step_taps)
+        with span("dmoe.pipe.denoise", device=self.device,
+                  unet_calls=0) as sp:
+            sched = self.scheduler
+            timesteps, coeffs = sched.set_timesteps(num_steps)
+            is_lcm = isinstance(sched, LCMScheduler)
+            do_cfg = guidance_scale > 1.0 and not is_lcm
+            b = latents.shape[0]
+            tcond = None
             if is_lcm:
-                state, lat = sched.step(
-                    state, coeffs, eps, i, lat,
-                    noise=None if step_noise is None else step_noise[i])
-            else:
-                state, lat = sched.step(state, coeffs, eps, i, lat)
-        if not collect:
-            return lat, None
-        return lat, {stat: {l: torch.stack([s[stat][l] for s in per_step])
-                            for l in layers}
-                     for stat, layers in per_step[0].items()}
+                if step_noise is None and generators is None:
+                    raise ValueError("LCM's denoise needs step_noise or one "
+                                     "generator a sample")
+                w = torch.full((b,), (guidance_scale - 1.0) * 1000.0,
+                               device=self.device)
+                tcond = timestep_embedding(
+                    w, self.config.unet.time_cond_proj_dim,
+                    flip_sin_to_cos=False, downscale_freq_shift=1.0)
+            v_pred = self.config.prediction_type == "v_prediction"
+            if v_pred:
+                # f32, as the JAX tables: sqrt(a_t) and sqrt(1 - a_t) at each
+                # step's timestep
+                acp = sched.tables.alphas_cumprod[timesteps].astype(
+                    np.float32)
+                v_sqrt_a = np.sqrt(acp)
+                v_sqrt_1ma = np.sqrt(np.float32(1) - acp)
+            collect = tap is not None and tap.any()
+            dc = self.config.deep_cache_interval
+            if dc > 0 and tap is not None:
+                raise ValueError(
+                    "deep_cache_interval > 0 does not support taps: shallow "
+                    "steps skip the deep layers, so the taps of a step would "
+                    "lack their statistics")
+            deep = None
+            state = (sched.init_state(generators or ()) if is_lcm
+                     else sched.init_state())
+            lat = latents.to(self.device, torch.float32)
+            context = context.to(self.device)
+            per_step: list[dict] = []
+            for i, t in enumerate(timesteps.tolist()):
+                sp.attrs["unet_calls"] += 1
+                with annotate("dmoe.pipe.step"):
+                    lat_in = torch.cat([lat, lat]) if do_cfg else lat
+                    lat_in = sched.scale_model_input(coeffs, i, lat_in)
+                    step_taps: dict = {}
+                    kw = dict(ivs=ivs, step_idx=i, use_kernels=use_kernels,
+                              timestep_cond=tcond, **(added_cond or {}))
+                    if dc > 0 and i % dc == 0:
+                        # entry 0 is always full, so `deep` is set before
+                        # its first use
+                        eps, deep = self.unet(lat_in, t, context,
+                                              return_deep=True, **kw)
+                    elif dc > 0:
+                        eps = self.unet(lat_in, t, context, deep_feature=deep,
+                                        **kw)
+                    else:
+                        eps = self.unet(lat_in, t, context,
+                                        tap=tap if collect else None,
+                                        taps_out=step_taps, **kw)
+                    if do_cfg:
+                        eps_u, eps_c = eps.chunk(2)
+                        eps = eps_u + guidance_scale * (eps_c - eps_u)
+                    if v_pred:
+                        eps = (float(v_sqrt_a[i]) * eps
+                               + float(v_sqrt_1ma[i]) * lat)
+                    if collect and tap.save_eps:
+                        step_taps["eps"] = {0: eps}
+                    per_step.append(step_taps)
+                    if is_lcm:
+                        noise = None if step_noise is None else step_noise[i]
+                        state, lat = sched.step(state, coeffs, eps, i, lat,
+                                                noise=noise)
+                    else:
+                        state, lat = sched.step(state, coeffs, eps, i, lat)
+            if not collect:
+                return lat, None
+            return lat, {stat: {l: torch.stack([s[stat][l] for s in per_step])
+                                for l in layers}
+                         for stat, layers in per_step[0].items()}
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents -> images (B, 3, H, W) in [0, 1]."""
-        images = self.vae_decoder(latents)
-        return torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
+        with span("dmoe.pipe.decode", device=self.device):
+            images = self.vae_decoder(latents)
+            return torch.clamp(images / 2.0 + 0.5, 0.0, 1.0)
 
     def initial_noise(self, batch: int, generator: torch.Generator
                       ) -> torch.Tensor:
@@ -314,29 +325,33 @@ class StableDiffusionPipeline:
         encodes. With `mesh`, every rank of the mesh makes this call with the
         same arguments (see the module's docstring); B must split over dp,
         and the taps are the whole batch's on every rank."""
-        cfg = self.config
-        num_steps = num_steps or cfg.num_inference_steps
-        g = cfg.guidance_scale if guidance_scale is None else guidance_scale
-        part = self.mesh_part(mesh, cond_ids.shape[0])
-        latents, generators = self.start_latents(cond_ids.shape[0], generator,
-                                                 seeds, num_steps, part)
-        cond_ids, uncond_ids = cond_ids[part], uncond_ids[part]
-        cond, cond_taps = self.encode_text(cond_ids, tap, text_ivs)
-        uncond, text_taps = self.encode_text(uncond_ids, tap, text_ivs)
-        if cond_taps and text_taps:
-            text_taps = {stat: {l: v + text_taps[stat][l]
-                                for l, v in layers.items()}
-                         for stat, layers in cond_taps.items()}
-        # LCM embeds the guidance scale: the UNet batch is B, as with g <= 1
-        context = (cond if self.is_lcm or g <= 1.0
-                   else torch.cat([uncond, cond]))
-        latents, taps = self.denoise(context, latents, num_steps, g, tap, ivs,
-                                     generators=generators)
-        if text_taps:
-            taps = dict(taps or {}, **text_taps)
-        out = self.decode(latents) if decode else latents
-        taps = gather_taps(taps, mesh, not (self.is_lcm or g <= 1.0))
-        return gather_batch(out, mesh), taps
+        with span("dmoe.pipe.generate", device=self.device):
+            cfg = self.config
+            num_steps = num_steps or cfg.num_inference_steps
+            g = (cfg.guidance_scale if guidance_scale is None
+                 else guidance_scale)
+            part = self.mesh_part(mesh, cond_ids.shape[0])
+            latents, generators = self.start_latents(
+                cond_ids.shape[0], generator, seeds, num_steps, part)
+            cond_ids, uncond_ids = cond_ids[part], uncond_ids[part]
+            with span("dmoe.pipe.encode", device=self.device):
+                cond, cond_taps = self.encode_text(cond_ids, tap, text_ivs)
+                uncond, text_taps = self.encode_text(uncond_ids, tap, text_ivs)
+            if cond_taps and text_taps:
+                text_taps = {stat: {l: v + text_taps[stat][l]
+                                    for l, v in layers.items()}
+                             for stat, layers in cond_taps.items()}
+            # LCM embeds the guidance scale: the UNet batch is B, as with
+            # g <= 1
+            context = (cond if self.is_lcm or g <= 1.0
+                       else torch.cat([uncond, cond]))
+            latents, taps = self.denoise(context, latents, num_steps, g, tap,
+                                         ivs, generators=generators)
+            if text_taps:
+                taps = dict(taps or {}, **text_taps)
+            out = self.decode(latents) if decode else latents
+            taps = gather_taps(taps, mesh, not (self.is_lcm or g <= 1.0))
+            return gather_batch(out, mesh), taps
 
     def mesh_part(self, mesh, b: int) -> slice:
         """This rank's requests of a batch of `b` under `mesh` (all of

@@ -36,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -46,6 +47,8 @@ import torch
 import torch.distributed as dist
 
 from diffusion_models_moe_tpu_torch.pipelines.stable_diffusion import to_uint8
+from diffusion_models_moe_tpu_torch.profiling import (Span, annotate, begin,
+                                                      span)
 
 # the broadcast header of a follower loop: (command, batch, id length)
 _RUN, _STOP = 1, 0
@@ -56,6 +59,26 @@ class _Request:
     prompt: str
     seed: int
     future: Future
+    # `dmoe.serve.request`: from submit to the future's result or error
+    span: Optional[Span] = None
+
+    def resolve(self, result=None, error: Optional[BaseException] = None
+                ) -> None:
+        """Sets the future's result (or `error`) and ends the request's
+        span, unless the future is resolved already or a client cancelled
+        it. done() filters the first; the set_running_or_notify_cancel
+        transition closes the race where a client cancel() lands between
+        the check and the set (whose InvalidStateError would kill the
+        executor thread or orphan the rest of a sweep)."""
+        if (self.future.done()
+                or not self.future.set_running_or_notify_cancel()):
+            return
+        if error is None:
+            self.future.set_result(result)
+        else:
+            self.future.set_exception(error)
+        if self.span is not None:
+            self.span.end()
 
 
 @dataclasses.dataclass
@@ -104,6 +127,8 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         self._lifecycle = threading.Lock()   # serializes submit vs stop
         self._error: Optional[BaseException] = None   # a follower's failure
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
         self._uncond = tokenize([""])
 
     # -- lifecycle ---------------------------------------------------------
@@ -144,12 +169,7 @@ class ServingEngine:
                     req = self._queue.get_nowait()
                 except queue.Empty:
                     break
-                # same cancel guard as _fail_batch: a client cancel() on a
-                # still-queued future would make set_exception raise
-                # InvalidStateError here, orphaning the rest of the sweep
-                if (not req.future.done()
-                        and req.future.set_running_or_notify_cancel()):
-                    req.future.set_exception(RuntimeError("engine stopped"))
+                req.resolve(error=RuntimeError("engine stopped"))
                 self._queue.task_done()
 
     def __enter__(self) -> "ServingEngine":
@@ -168,7 +188,8 @@ class ServingEngine:
             if self._thread is None:
                 raise RuntimeError("engine not started")
             fut: Future = Future()
-            self._queue.put(_Request(prompt, seed, fut), timeout=timeout)
+            req = begin("dmoe.serve.request", request=next(self._request_ids))
+            self._queue.put(_Request(prompt, seed, fut, req), timeout=timeout)
         return fut
 
     def generate_sync(self, prompts: Sequence[str],
@@ -200,7 +221,8 @@ class ServingEngine:
 
     def _loop(self) -> None:
         while not self._stop.is_set():
-            batch = self._gather()
+            with annotate("dmoe.serve.wait"):
+                batch = self._gather()
             if not batch:
                 continue
             try:
@@ -213,16 +235,10 @@ class ServingEngine:
 
     @staticmethod
     def _fail_batch(batch: list, e: Exception) -> None:
-        """Propagate a batch failure to every unresolved future.
-
-        done() filters futures _run_batch already resolved; the
-        set_running_or_notify_cancel transition then closes the race where a
-        client cancel() lands between the check and set_exception (the
-        InvalidStateError would kill the executor thread)."""
+        """Propagate a batch failure to every unresolved future (those
+        _run_batch resolved and those a client cancelled are skipped)."""
         for req in batch:
-            if (not req.future.done()
-                    and req.future.set_running_or_notify_cancel()):
-                req.future.set_exception(e)
+            req.resolve(error=e)
 
     def _run_batch(self, batch: list) -> None:
         n_real = len(batch)
@@ -230,24 +246,26 @@ class ServingEngine:
         prompts = [r.prompt for r in batch] + [batch[-1].prompt] * (b - n_real)
         seeds = [r.seed for r in batch] + [batch[-1].seed] * (b - n_real)
         cond = torch.as_tensor(self.tokenize(prompts))
-        t0 = time.monotonic()
-        if self.mesh is not None:
-            self._broadcast(torch.tensor([_RUN, b, cond.shape[1]]))
-            self._broadcast(torch.cat([cond.long(), torch.tensor(seeds)[:, None]],
-                                      dim=1))
-        out = self._generate(cond, seeds)
-        # the copy to the host waits for the device: the batch time ends here
-        out = (to_uint8(out) if self.decode else out).cpu().numpy()
-        dt = time.monotonic() - t0
+        bid = next(self._batch_ids)
+        ids = [r.span.attrs["request"] for r in batch]
+        # `dmoe.serve.batch`: from the batch's start to its images on the host
+        with span("dmoe.serve.batch", batch=bid, requests=ids,
+                  real=n_real) as sp:
+            for r in batch:
+                r.span.attrs["batch"] = bid
+            if self.mesh is not None:
+                self._broadcast(torch.tensor([_RUN, b, cond.shape[1]]))
+                self._broadcast(torch.cat(
+                    [cond.long(), torch.tensor(seeds)[:, None]], dim=1))
+            out = self._generate(cond, seeds)
+            # the copy to the host waits for the device: the batch ends here
+            out = (to_uint8(out) if self.decode else out).cpu().numpy()
         self.stats.requests += n_real
         self.stats.batches += 1
         self.stats.padded_slots += b - n_real
-        self.stats.total_batch_seconds += dt
+        self.stats.total_batch_seconds += sp.seconds
         for i, req in enumerate(batch):
-            # a client may have cancel()ed the pending future; set_result on a
-            # cancelled future raises and would poison the rest of the batch
-            if req.future.set_running_or_notify_cancel():
-                req.future.set_result(out[i])
+            req.resolve(out[i])
 
     def _generate(self, cond: torch.Tensor, seeds: list):
         b = cond.shape[0]
