@@ -142,6 +142,12 @@ Run from the root of a checkout. Phases:
      128-key tile) and at ragged D = 72 cases (S = 1000 and 77, a strided
      view, 100, 77 and 1 valid keys), with the same times, bounds and
      yardsticks as at SD1.5 and their sums over one DiT call;
+  2h. (run after 2g) the channels-last GroupNorm kernel against its plain
+     version at SD1.5's, SDXL's and the VAE decoder's shapes (with the time
+     bias and SiLU where the resblocks take them), held to 1.5 x the card's
+     bf16 floor of the same sequence, bit-equal on a repeat and for a sample
+     alone; graph times of kernel and plain version beside its bounds at 4
+     and 6 bytes an element;
   15. (run after 13) PixArt-alpha at full width: `pixart_512_config(bf16)`
      (the PixArt-XL-2-512 DiT and T5 v1.1 XXL, built on the card) with seeded
      random weights, 2 captions tokenized by the port's T5 tokenizer
@@ -348,6 +354,10 @@ CONV_COUNTS = (7, 2, 1, 1, 6, 1, 1, 1, 1, 6, 1, 2, 11, 3)
 SD21_CONV_SHAPES = tuple((3 * side // 2, cin, cout)
                          for side, cin, cout in CONV_SHAPES)
 RESNETS = 22             # resblocks of the SD1.5 UNet, two 3x3 convs each
+# GroupNorms of an SD1.5 UNet call (22 resblocks x 2, 16 Transformer2D,
+# conv_norm_out) and of a VAE decode (mid block 5, 12 up resblocks x 2,
+# conv_norm_out)
+SD15_NORMS, VAE_NORMS = 61, 30
 # (side, Cin, Cout) of every stride-1 3x3 conv that takes the fused Winograd
 # kernel, and how many convs of one call have that shape. UNet (batch
 # 2 x BATCH): the 30 resblock convs above 8 x 8 and the 3 upsampler convs.
@@ -1152,6 +1162,89 @@ def check_winograd(gen: torch.Generator, unet=WINO_UNET, vae=WINO_VAE,
     return shapes
 
 
+# (label, (B, C, H, W), SiLU, time bias, eps) of the GroupNorm kernel's
+# shapes: SD1.5's UNet at batch 16 (a resblock's norm2 with the time bias, an
+# up resblock's norm1 over a skip concatenation, the 8 x 8 concatenation),
+# SDXL's Transformer2D norm at batch 8, the VAE decoder's widest norms at
+# 512 px batch 8 and at 1024 px batch 4
+GN_SHAPES = (("sd15 resblock norm2", (16, 320, 64, 64), True, True, 1e-5),
+             ("sd15 up norm1", (16, 960, 64, 64), True, False, 1e-5),
+             ("sdxl Transformer2D", (8, 640, 128, 128), False, False, 1e-6),
+             ("vae 512 px", (8, 256, 512, 512), True, False, 1e-6),
+             ("vae 1024 px", (4, 128, 1024, 1024), True, False, 1e-6),
+             ("sd15 up norm1 8x8", (16, 2560, 8, 8), True, True, 1e-5))
+
+
+def check_group_norm(gen: torch.Generator, groups: int = 32) -> list:
+    """Phase 2h: the GroupNorm kernel (ops/group_norm_nhwc.py) at GN_SHAPES
+    against its plain version (the same bf16 input, f32 statistics, one
+    rounding), on inputs whose channel means are large against their spread
+    (what a SiLU leaves). Both are held to the exact f32 result: the kernel
+    within FLOOR_FACTOR x the plain version's own distance (its bf16
+    rounding), bit-equal on a repeat, and a sample alone equal to the same
+    sample in the batch. Returns the rows."""
+    from diffusion_models_moe_tpu_torch.ops import group_norm_nhwc as gnm
+    dev, bf16, cl = DEV, torch.bfloat16, torch.channels_last
+    shapes = []
+    for label, (b, c, h, w), silu, with_bias, eps in GN_SHAPES:
+        mu = 2.0 + torch.randn((1, c, 1, 1), generator=gen, device=dev)
+        x = (mu + 0.5 * torch.randn((b, c, h, w), generator=gen, device=dev)
+             ).to(bf16).contiguous(memory_format=cl)
+        del mu
+        gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        beta = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        bias = (torch.randn((b, c), generator=gen, device=dev).to(bf16)
+                if with_bias else None)
+
+        def norm(uk, xs=x, bs=bias):
+            return gnm.group_norm_nhwc(xs, gamma, beta, groups, eps,
+                                       silu=silu, bias=bs, use_kernels=uk)
+
+        y = norm(True)
+        torch.cuda.synchronize()
+        check(y.is_contiguous(memory_format=cl),
+              "group norm output not channels-last")
+        same = torch.equal(y, norm(True))
+        alone = torch.equal(y[:1], norm(True, x[:1], None if bias is None
+                                        else bias[:1]))
+        xb = x if bias is None else x + bias[:, :, None, None]
+        exact = F.group_norm(xb.float(), groups, gamma, beta, eps)
+        del xb
+        if silu:
+            exact = F.silu(exact)
+        y_plain = norm(False)
+        _, rel = rel_err(y, y_plain)
+        _, err = rel_err(y, exact)
+        _, floor = rel_err(y_plain, exact)
+        del y, y_plain, exact
+        check(err <= FLOOR_FACTOR * floor,
+              f"group norm {label}: rel err {err} > {FLOOR_FACTOR} x floor "
+              f"{floor}")
+        check(same and alone, f"group norm {label}: bit-equal on a repeat "
+              f"{same}, sample alone {alone}")
+        iters = 5 if b * c * h * w > 2 ** 28 else 20
+        ms = graph_ms(lambda: norm(True), iters)
+        plain_ms = graph_ms(lambda: norm(False), iters)
+        n = b * c * h * w
+        bd = bound(0, 4 * n)               # one read of x, one write of y
+        design_ms = 6 * n / PEAK_BYTES * 1e3
+        plan = gnm.gn_plan(h * w, c, groups)
+        print(f"group norm {label} {(b, c, h, w)} silu={silu} "
+              f"bias={with_bias}: rel err {err:.3e} against f32 (floor "
+              f"{floor:.3e}), {rel:.3e} against plain; bit-equal on a repeat "
+              f"and alone; kernel {ms:.4f} ms (graph), plain {plain_ms:.4f} "
+              f"ms, bound {bd['bound_ms']:.4f} ms at 4 B an element, "
+              f"{design_ms:.4f} ms at 6 B; {b * plan.tiles} blocks of "
+              f"{plan.rows * c // 8} threads ({plan.pixels} pixels a tile)",
+              flush=True)
+        shapes.append(dict(shape=f"{label}: {(b, c, h, w)}", silu=silu,
+                           bias=with_bias, rel_err=err, floor=floor,
+                           rel_err_vs_plain=rel, ms=ms, plain_ms=plain_ms,
+                           design_bound_ms=design_ms, library_ms=None,
+                           max_abs_err=None, **bd))
+    return shapes
+
+
 # ---------------------------------------------------------------- phase 3/4
 def run_slice(card: str) -> tuple:
     from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
@@ -1231,6 +1324,18 @@ def timed_generate(pipe, what: str, cond, uncond, seed: int, ivs,
               f"expected {count}")
     check_no_plain(launches, what)
     return images, launches
+
+
+def norm_calls(pipe, unet_calls: int, decodes: int = 1) -> int:
+    """GroupNorm calls of `unet_calls` UNet calls and `decodes` VAE decodes
+    of `pipe` (each GroupNorm of the UNet and of the decoder runs once a
+    call; a pipeline without a UNet has none there): what the GroupNorm
+    kernel launches, or on a path it does not take, its plain version."""
+    def norms(module):
+        return sum(isinstance(m, torch.nn.GroupNorm) for m in module.modules())
+    unet = getattr(pipe, "unet", None)
+    return ((norms(unet) * unet_calls if unet is not None else 0)
+            + norms(pipe.vae_decoder) * decodes)
 
 
 def check_no_plain(launches: dict, what: str) -> None:
@@ -1315,7 +1420,7 @@ def run_off_kernels(pipe32, cond, uncond, card: str) -> dict:
     card through the plain versions: the f32 SD1.5 pipeline of phase 4 (3
     PNDM steps, 512x512) and a `tiny_config` pipeline (head dims 8 to 32, f32)
     at its 4 steps. No kernel launches; every attention and FF call is
-    counted as a plain call."""
+    counted as a plain call, and so is every GroupNorm."""
     from diffusion_models_moe_tpu_torch import (StableDiffusionPipeline,
                                                 tiny_config)
     from diffusion_models_moe_tpu_torch.ops import _build
@@ -1350,6 +1455,10 @@ def run_off_kernels(pipe32, cond, uncond, card: str) -> dict:
                     "plain:geglu_ff_fused"):
             check(launches[key] == calls,
                   f"{what}: {key} {launches[key]}, expected {calls}")
+        norms = norm_calls(pipe, calls // 16)
+        check(launches["plain:group_norm_nhwc"] == norms,
+              f"{what}: plain:group_norm_nhwc "
+              f"{launches['plain:group_norm_nhwc']}, expected {norms}")
         out[what] = launches
     return out
 
@@ -2759,7 +2868,8 @@ def run_pixart(card: str) -> dict:
     expect = {k: per_gen if k in ("sd_self_attention", "sd_cross_attention")
               else 0 for k in _build.KERNELS}
 
-    def held(launches: dict, what: str) -> None:
+    def held(launches: dict, what: str, decodes: int = 1) -> None:
+        expect["group_norm_nhwc"] = norm_calls(pipe, 0, decodes)
         for name, count in expect.items():
             check(launches[name] == count,
                   f"{what}: kernel {name} launched {launches[name]} times, "
@@ -2822,7 +2932,7 @@ def run_pixart(card: str) -> dict:
     for i, v in mg.items():
         check(tuple(v.shape) == (steps, hdim) and bool(torch.isfinite(v).all()),
               f"PixArt mean gate {i}: {tuple(v.shape)}")
-    held(_build.LAUNCHES, "PixArt, mean-gate taps")
+    held(_build.LAUNCHES, "PixArt, mean-gate taps", decodes=0)
     n_rm = int(PIXART_REMOVAL_SHARE * hdim)
     ivs = []
     for i in range(layers):
@@ -2997,6 +3107,7 @@ def run_judges(card: str) -> dict:
     expect = {k: 16 * calls if k in ("geglu_ff_fused", "sd_self_attention",
                                      "sd_cross_attention") else 0
               for k in _build.KERNELS}
+    expect["group_norm_nhwc"] = norm_calls(pipe, calls)
     print(f"judges: checked_generate of {BATCH} requests (seeds "
           f"{JUDGE_SEEDS}), PNDM {cfg.num_inference_steps} steps, CFG "
           f"{cfg.guidance_scale}, MoE on 16 FFs, checker on CLIP ViT-L/14 "
@@ -3409,6 +3520,8 @@ def run_erasure_eval(removal, card: str) -> dict:
         erased_expect = {k: 16 * calls if k in (
             "fused_route_multiply", "sd_self_attention",
             "sd_cross_attention") else 0 for k in _build.KERNELS}
+        for expect in (base_expect, erased_expect):
+            expect["group_norm_nhwc"] = norm_calls(pipe, calls)
         check(len(per_call) == 2, f"{len(per_call)} generate calls")
         for what, got, expect in (("baseline", per_call[0], base_expect),
                                   ("erased", per_call[1], erased_expect)):
@@ -3713,8 +3826,9 @@ class MoefiedPipe:
 def expect_calls(calls: list, kinds: list, n_calls: int, what: str) -> dict:
     """Each generate's launches against its kind: "moe" (kernels 1-3),
     "removal" (kernels 2-4, the FF unfused under routing) or "no_moe"
-    (kernels 1-3, kernel 1 without routing), 16 a UNet call; no plain
-    version anywhere. Returns the launches summed by kernel."""
+    (kernels 1-3, kernel 1 without routing), 16 a UNet call, and the
+    GroupNorm kernel at SD15_NORMS a UNet call and VAE_NORMS a decode; no
+    plain version anywhere. Returns the launches summed by kernel."""
     from diffusion_models_moe_tpu_torch.ops import _build
     check(len(calls) == len(kinds), f"{what}: {len(calls)} generates, "
           f"expected {len(kinds)}")
@@ -3727,6 +3841,8 @@ def expect_calls(calls: list, kinds: list, n_calls: int, what: str) -> dict:
     for i, (got, kind) in enumerate(zip(calls, kinds)):
         for name in _build.KERNELS:
             want = 16 * n_calls if name in on[kind] else 0
+            if name == "group_norm_nhwc":
+                want = SD15_NORMS * n_calls + VAE_NORMS
             check(got.get(name, 0) == want, f"{what}, generate {i} ({kind}):"
                   f" kernel {name} launched {got.get(name, 0)} times, "
                   f"expected {want}")
@@ -4291,14 +4407,18 @@ def grad_distance(a: dict, b: dict) -> float:
 
 
 def expect_train_launches(got: dict, per_step: int, steps: int,
-                          what: str) -> None:
+                          what: str, remat: bool = False) -> None:
     """Kernels 2 and 3 at `per_step` launches a step, kernel 1's plain
-    version as often (its FFs have no backward kernel), nothing else."""
+    version as often (its FFs have no backward kernel), the GroupNorm
+    kernel's plain version at every norm of the UNet (with remat, those of
+    the resblocks and Transformer2Ds twice), nothing else."""
     from diffusion_models_moe_tpu_torch.ops import _build
     want = {k: 0 for k in _build.KERNELS + _build.PLAIN}
+    norms = SD15_NORMS + (SD15_NORMS - 1 if remat else 0)
     want.update({"sd_self_attention": per_step * steps,
                  "sd_cross_attention": per_step * steps,
-                 "plain:geglu_ff_fused": per_step * steps})
+                 "plain:geglu_ff_fused": per_step * steps,
+                 "plain:group_norm_nhwc": norms * steps})
     bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
     check(not bad, f"{what}: launches (got, expected) {bad}")
 
@@ -4416,7 +4536,7 @@ def train_full_width(pipe, batch: dict, card: str) -> dict:
                 unet, state, step_fn, part, 1950)
         per_step = 16 * (2 if remat else 1)
         expect_train_launches(launches, per_step, TRAIN_STEPS,
-                              f"train remat={remat}")
+                              f"train remat={remat}", remat)
         med = float(np.median(secs))
         what = "on" if remat else "off"
         print(f"train on {card}: sd15_config(bf16, relufied=True) UNet "
@@ -4960,6 +5080,7 @@ def run_parallel(card: str, floors: dict, grad_floor: float) -> dict:
         want.update({k: 16 * tp_calls for k in (
             "sd_self_attention", "sd_cross_attention", "fused_route_multiply",
             "tp:geglu_ff_fused")})
+        want["group_norm_nhwc"] = SD15_NORMS * tp_calls   # latents, no decode
         bad = {k: (tp_l[k], v) for k, v in want.items() if tp_l[k] != v}
         check(not bad and r0["tp"]["heads"] == [4],
               f"tp=2 launches (got, expected) {bad}, heads {r0['tp']['heads']}")
@@ -5296,10 +5417,11 @@ def run_cli(card: str, floor50=None) -> dict:
               and ckpts == ["step_00000002.pt"],
               f"(f) train: {f['lines'][-1]}, logs {logs}, checkpoints {ckpts}")
         # under grad kernel 1 (no backward) hands each FF to its plain
-        # version, counted; nothing else does
+        # version, and the GroupNorm kernel each norm, counted; nothing else
         plain = {k: v for k, v in f["launches"].items()
                  if k in _build.PLAIN and v}
-        check(plain == {"plain:geglu_ff_fused": 32},
+        check(plain == {"plain:geglu_ff_fused": 32,
+                        "plain:group_norm_nhwc": 2 * SD15_NORMS},
               f"(f) train: plain calls {plain}")
         for name, count in (("sd_self_attention", 32),
                             ("sd_cross_attention", 32), ("geglu_ff_fused", 0)):
@@ -5418,6 +5540,8 @@ def main() -> None:
     phase_done("2f (kernels at SDXL's shapes; kernel 8 at SD2.1-768's)")
     pixart_kernels = check_pixart_kernels(gen)
     phase_done("2g (kernels 2 and 3 at PixArt-512's shapes)")
+    group_norm = check_group_norm(gen)
+    phase_done("2h (the GroupNorm kernel)")
     pipe, ivs, cond, uncond, launches, images = run_slice(card)
     phase_done("3 (serving slice)")
     compare, modes_off = check_latents(pipe, ivs, cond, uncond)
@@ -5513,6 +5637,9 @@ def main() -> None:
         ("winograd3x3_fused", f"{csrc}/winograd.cu",
          "diffusion_models_moe_tpu/ops/winograd_fused.py:76", wino,
          wino_launches),
+        # no TPU counterpart: the JAX package leaves GroupNorm to XLA
+        ("group_norm_nhwc", f"{csrc}/group_norm.cu", None, group_norm,
+         launches),
     ]
     # the top-level numbers are those of the first (largest-N) shape; every
     # shape's own numbers are under "shapes"

@@ -1,14 +1,17 @@
-"""Basic UNet/VAE building blocks (PyTorch port, NCHW).
+"""Basic UNet/VAE building blocks (PyTorch port, NCHW shapes).
 
-Counterpart of `diffusion_models_moe_tpu/models/layers.py`. Convolutions and
-GroupNorm stay in torch (cuDNN), as the JAX package leaves them to XLA.
-Norms run in f32 on f32 parameters and their output is cast to the compute
-dtype, as the JAX modules do with `norm_dtype=float32`. With `conv_chain`
-(the JAX package's DMOE_CONV_CHAIN) a resblock's two 3x3 convs run the fused
-GN+SiLU -> conv -> bias -> residual kernel (`ops/conv_chain_fused.py`); such
-a block keeps its activations and 3x3 weights in `torch.channels_last`
-memory format (the same logical NCHW shapes and parameter names), and so
-does a block whose convs take the fused Winograd kernel.
+Counterpart of `diffusion_models_moe_tpu/models/layers.py`. Convolutions stay
+in torch (cuDNN), as the JAX package leaves them to XLA. Norms run in f32 on
+f32 parameters and their output is cast to the compute dtype, as the JAX
+modules do with `norm_dtype=float32`; on the card every GroupNorm of the UNet
+and the VAE (`group_norm`) is one pass of the hand-written channels-last
+kernel of `ops/group_norm_nhwc.py`, bf16 in and out, with the resblock's
+time embedding and SiLU fused. With `conv_chain` (the JAX package's
+DMOE_CONV_CHAIN) a resblock's two 3x3 convs run the fused GN+SiLU -> conv ->
+bias -> residual kernel (`ops/conv_chain_fused.py`). A resblock keeps its
+activations and conv weights in `torch.channels_last` memory format (the
+same logical NCHW shapes and parameter names), unless its 3x3 convs are the
+plain Winograd formulation, which writes NCHW.
 
 `make_conv` is the one dispatcher over the direct conv, `WinoConv`
 (`conv_winograd`: `ops/winograd.py`, or with `"fused"` the F(2x2, 3x3)
@@ -36,6 +39,8 @@ import torch.nn.functional as F
 from diffusion_models_moe_tpu_torch.ops import _build
 from diffusion_models_moe_tpu_torch.ops.conv_chain_fused import (
     CL, chain_ok, conv3x3_chain, gn_scale_shift)
+from diffusion_models_moe_tpu_torch.ops.group_norm_nhwc import (
+    group_norm_nhwc, group_norm_ok)
 from diffusion_models_moe_tpu_torch.ops.quant import (int8_conv,
                                                       quantize_conv_weight)
 from diffusion_models_moe_tpu_torch.ops.winograd import (transform_filter,
@@ -58,9 +63,34 @@ def cast_model(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 def group_norm_f32(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm computed in f32; returns f32."""
-    return F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias,
-                        norm.eps)
+    """GroupNorm computed in f32; returns f32. A call that autograd records
+    runs on NCHW memory: the CPU's channels-last GroupNorm crashes in a
+    backward that wants the affine's gradient alone (torch 2.13), and CUDA's
+    GroupNorm copies to NCHW anyway."""
+    fmt = (torch.contiguous_format
+           if _build.grad_through(x, norm.weight, norm.bias)
+           else torch.preserve_format)
+    return F.group_norm(x.to(torch.float32, memory_format=fmt),
+                        norm.num_groups, norm.weight, norm.bias, norm.eps)
+
+
+def group_norm(norm: nn.GroupNorm, x: torch.Tensor, *, silu: bool,
+               bias: Optional[torch.Tensor] = None,
+               use_kernels: bool = True) -> torch.Tensor:
+    """silu?(norm(x + bias)) in x's dtype; bias (B, C) or None, added in
+    x's dtype. On the card the channels-last kernel where `group_norm_ok`
+    admits the call (its output channels-last), elsewhere on the card the
+    plain sequence below, counted under `plain:group_norm_nhwc`; on the CPU
+    and with `use_kernels=False` the plain sequence."""
+    if use_kernels and _build.on_card(x):
+        if group_norm_ok(x, norm.num_groups, norm.weight, norm.bias, bias):
+            return group_norm_nhwc(x, norm.weight, norm.bias, norm.num_groups,
+                                   norm.eps, silu=silu, bias=bias)
+        _build.LAUNCHES["plain:group_norm_nhwc"] += 1
+    if bias is not None:
+        x = x + bias[:, :, None, None]
+    h = group_norm_f32(norm, x)
+    return (F.silu(h) if silu else h).to(x.dtype)
 
 
 def layer_norm_f32(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -283,30 +313,22 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (
             make_conv(in_channels, out_channels, 1, padding=0, quant=quant)
             if in_channels != out_channels else None)
-        # the one place that decides the block's memory format: the chain
-        # and the fused Winograd kernels read a pixel's Cin values
-        # contiguously, so the block's activations and its 3x3 weights (the
-        # chain reads them as (Cout, 3, 3, Cin); cuDNN takes them where a
-        # shape falls to the direct conv) live channels-last and no call
-        # rearranges them
-        self.channels_last = self.conv_chain or winograd == "fused"
+        # the one place that decides the block's memory format: the
+        # GroupNorm kernel writes channels-last, the chain and the fused
+        # Winograd kernels read a pixel's Cin values contiguously and cuDNN
+        # and the int8 conv read and write either format at no cost, so the
+        # block's activations and its conv weights (the chain reads them as
+        # (Cout, 3, 3, Cin)) live channels-last and no call rearranges them;
+        # the plain Winograd formulation writes NCHW, so its block stays so
+        self.channels_last = winograd != "1"
         if self.channels_last:
-            self.conv1.to(memory_format=CL)
-            self.conv2.to(memory_format=CL)
+            self.to(memory_format=CL)
 
     def chain_branches(self, h: int, w: int) -> tuple[bool, bool]:
         """Whether conv1 and conv2 take the chain kernel at an h x w input."""
         c1, c2 = self.conv1, self.conv2
         return (self.conv_chain and chain_ok(h, w, c1.in_channels, c1.out_channels),
                 self.conv_chain and chain_ok(h, w, c2.in_channels, c2.out_channels))
-
-    def _normed(self, norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-        """silu(GroupNorm(x)) in the conv's dtype and the block's memory
-        format: GroupNorm returns NCHW memory, and the cast that is due
-        anyway writes channels-last where the block keeps it."""
-        h = F.silu(group_norm_f32(norm, x))
-        dt = self.conv1.weight.dtype
-        return h.to(dt, memory_format=CL) if self.channels_last else h.to(dt)
 
     def _chain(self, norm: nn.GroupNorm, conv: nn.Conv2d, x: torch.Tensor,
                extra_bias=None, residual=None, use_kernels: bool = True):
@@ -336,16 +358,21 @@ class ResnetBlock2D(nn.Module):
         if chain1:
             h = self._chain(self.norm1, self.conv1, x, extra_bias=t,
                             use_kernels=use_kernels)
+            t = None         # the chain took the time embedding as a bias
         else:
-            h = run_conv(self.conv1, self._normed(self.norm1, x), use_kernels)
-            if t is not None:
-                h = h + t[:, :, None, None]
+            h = run_conv(self.conv1, group_norm(self.norm1, x, silu=True,
+                                                use_kernels=use_kernels),
+                         use_kernels)
         residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
         if chain2:
+            if t is not None:
+                h = h + t[:, :, None, None]
             return self._chain(self.norm2, self.conv2, h, residual=residual,
                                use_kernels=use_kernels)
-        h = run_conv(self.conv2, self._normed(self.norm2, h), use_kernels)
-        return h + residual
+        # the time embedding joins conv1's output inside norm2
+        h = group_norm(self.norm2, h, silu=True, bias=t,
+                       use_kernels=use_kernels)
+        return run_conv(self.conv2, h, use_kernels) + residual
 
 
 class Downsample2D(nn.Module):

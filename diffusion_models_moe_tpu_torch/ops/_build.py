@@ -49,7 +49,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # over the whole hidden width) where it would have taken kernel 1.
 KERNELS = ("geglu_ff_fused", "sd_self_attention", "sd_cross_attention",
            "fused_route_multiply", "ln_qkv_fused", "attn_out_residual_fused",
-           "conv3x3_chain", "winograd3x3_fused")
+           "conv3x3_chain", "winograd3x3_fused", "group_norm_nhwc")
 PLAIN = tuple(f"plain:{k}" for k in KERNELS)
 TP = ("tp:geglu_ff_fused",)
 LAUNCHES = dict.fromkeys(KERNELS + PLAIN + TP, 0)
@@ -76,6 +76,8 @@ _SIGNATURES = {
                            _I, _I, _I, _P, _P, _P],
     "dmoe_winograd3x3": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                          _P, _P],
+    "dmoe_group_norm_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                             _I, _P, _P, _P, _P],
 }
 # each launcher's profiler range: `dmoe.kernel.` and its name without `dmoe_`
 _RANGES = {name: "dmoe.kernel." + name.removeprefix("dmoe_")
@@ -109,8 +111,8 @@ def on_card(t: torch.Tensor) -> bool:
 def grad_through(*tensors) -> bool:
     """Whether autograd records a call on `tensors` (inputs and parameters;
     None entries are skipped): grad mode is on and one of them requires a
-    gradient. Kernels 1 and 4-8 compute forward only, so where this holds
-    on the card the model takes their plain versions."""
+    gradient. Kernels 1, 4-8 and the GroupNorm kernel compute forward only,
+    so where this holds on the card the model takes their plain versions."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
 

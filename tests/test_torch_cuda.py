@@ -1526,8 +1526,92 @@ def test_unet_train_step_through_the_kernels(gen):
             assert _build.LAUNCHES["sd_cross_attention"] == 16
             assert _build.LAUNCHES["plain:geglu_ff_fused"] == 16
             assert _build.LAUNCHES["geglu_ff_fused"] == 0
+            # every GroupNorm under grad on its plain version
+            assert _build.LAUNCHES["plain:group_norm_nhwc"] == 61
+            assert _build.LAUNCHES["group_norm_nhwc"] == 0
         grads.append(torch.cat([p.grad.float().flatten()
                                 for p in pipe.unet.parameters()]))
         pipe.unet.zero_grad(set_to_none=True)
     dist = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
     assert dist < 0.05, dist
+
+
+# (B, C, H, W), groups, SiLU, time bias, eps of the GroupNorm kernel's cases:
+# SD1.5's UNet at batch 16 (a resblock's norm2 with the time bias, an up
+# resblock's norm1, the 8 x 8 concatenation), SDXL's Transformer2D norm at
+# batch 8, the VAE decoder's widest norms at 512 px batch 8 and at 1024 px
+# batch 4; ragged small cases with 4 and 5 channels a group (a 16-byte
+# vector across two and three groups) and a pixel count no multiple of a
+# block's rows
+GN_CASES = [((16, 320, 64, 64), 32, True, True, 1e-5),
+            ((16, 960, 64, 64), 32, True, False, 1e-5),
+            ((8, 640, 128, 128), 32, False, False, 1e-6),
+            ((8, 256, 512, 512), 32, True, False, 1e-6),
+            ((4, 128, 1024, 1024), 32, True, False, 1e-6),
+            ((16, 2560, 8, 8), 32, True, True, 1e-5),
+            ((3, 72, 5, 7), 18, True, True, 1e-5),
+            ((2, 160, 9, 11), 32, False, True, 1e-6)]
+
+
+@pytest.mark.parametrize("shape,groups,silu,bias,eps", GN_CASES)
+def test_group_norm_kernel_matches_plain(gen, shape, groups, silu, bias, eps):
+    """The GroupNorm kernel on inputs whose channel means are large against
+    their spread (what a SiLU leaves), held to the exact f32 sequence within
+    1.5 x its plain version's distance (the bf16 rounding of its output, the
+    card's floor for this op); channels-last out, from channels-last or
+    NCHW in; bit-equal on a repeat and for a sample alone."""
+    from diffusion_models_moe_tpu_torch.ops import group_norm_nhwc as gnm
+    b, c, h, w = shape
+    mu = 2.0 + torch.randn((1, c, 1, 1), generator=gen, device="cuda")
+    x = (mu + 0.5 * torch.randn(shape, generator=gen, device="cuda")).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    gamma = 1 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    beta = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    t = _rn(gen, b, c) if bias else None
+
+    def norm(xs=x, ts=t, uk=True):
+        return gnm.group_norm_nhwc(xs, gamma, beta, groups, eps, silu=silu,
+                                   bias=ts, use_kernels=uk)
+
+    _build.reset_launch_counts()
+    y = norm()
+    assert _build.LAUNCHES["group_norm_nhwc"] == 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    xb = x if t is None else x + t[:, :, None, None]
+    exact = torch.nn.functional.group_norm(xb.float(), groups, gamma, beta,
+                                           eps)
+    if silu:
+        exact = torch.nn.functional.silu(exact)
+    floor = _rel(norm(uk=False), exact)
+    assert _rel(y, exact) <= 1.5 * floor, (_rel(y, exact), floor)
+    assert torch.equal(y, norm())
+    assert torch.equal(y[:1], norm(x[:1], None if t is None else t[:1]))
+    if b * c * h * w < 2 ** 25:
+        assert torch.equal(y, norm(x.contiguous()))
+
+
+@pytest.mark.parametrize("which", ["sd15", "sdxl"])
+def test_generate_takes_the_group_norm_kernel_at_every_norm(gen, which):
+    """A 2-step bf16 generate at full width (16 x 16 latents): every
+    GroupNorm of every UNet call (SD1.5 61, SDXL 46) and of the decode (30)
+    on the kernel, none on its plain version."""
+    from diffusion_models_moe_tpu_torch import (SDXLPipeline,
+                                                StableDiffusionPipeline,
+                                                sd15_config, sdxl_config)
+    if which == "sd15":
+        cfg = dataclasses.replace(sd15_config(torch.bfloat16), sample_size=16)
+        pipe = StableDiffusionPipeline(cfg, device="cuda")
+        tc, per_call, calls = cfg.text_encoder, 61, 3   # PNDM: 2 steps + 1
+    else:
+        cfg = dataclasses.replace(sdxl_config(torch.bfloat16), sample_size=16)
+        pipe = SDXLPipeline(cfg, device="cuda")
+        tc, per_call, calls = pipe.text_configs[0], 46, 2   # Euler: 2 steps
+    pipe.init_params(torch.Generator(device="cuda").manual_seed(0))
+    cond = torch.randint(0, tc.vocab_size, (1, tc.max_length), device="cuda")
+    _build.reset_launch_counts()
+    images, _ = pipe.generate(cond, torch.zeros_like(cond), seeds=[0],
+                              num_steps=2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(images).all() and images.is_contiguous()
+    assert _build.LAUNCHES["group_norm_nhwc"] == per_call * calls + 30
+    assert _build.LAUNCHES["plain:group_norm_nhwc"] == 0
