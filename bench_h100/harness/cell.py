@@ -2,9 +2,9 @@
 against the reference, the metrics.
 
 Set-up: the weights made from the seed (`weights.make`) are loaded into the
-program built by the configuration's `build` (the port's pipeline and its
-MoE interventions), then dropped; the peak memory counter is reset there,
-so the staging copy is not counted and the program's weights are. The
+program built by the configuration module's `build` (the port's pipeline
+and its MoE interventions), then dropped; the peak memory counter is reset
+there, so the staging copy is not counted and the program's weights are. The
 traffic's session warms up the cell's own shapes. `setup_s` runs from the
 process's start to the window's. After the window the program is freed and
 the reference runs on a sample of the completed requests. A traced run
@@ -72,9 +72,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     t_start = time.perf_counter() if t_start is None else t_start
     cuda = torch.device(device).type == "cuda"
     cfg, fam = cell.config, cell.family
-    inputs = Inputs(cfg, seed)
+    inputs = Inputs(cfg, seed, fam)
     parts = {"imports": time.perf_counter() - t_start}
-    staged = weights.make(fam.skeleton(cfg), seed, device)
+    staged = weights.make(fam.skeleton(cfg), seed, device, norms=fam.NORMS)
     parts["weights"] = time.perf_counter() - t_start
     program = fam.build(cfg, staged, inputs.labels(), device, modes)
     del staged
@@ -85,8 +85,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     session = cell.kind.Session(program, cell.mix, inputs, device)
     session.warm_up()
     parts["warm_up"] = time.perf_counter() - t_start
-    tracer = (Tracer(program.unet, seconds / 2, "cuda" if cuda else "cpu")
-              if trace else None)
+    tracer = (Tracer(program.denoiser, seconds / 2,
+                     "cuda" if cuda else "cpu") if trace else None)
     if tracer:
         tracer.install()
     try:

@@ -22,7 +22,6 @@ import math
 import torch
 
 from bench_h100.harness import weights
-from bench_h100.harness.inputs import noise
 
 
 def rel_l2(served: torch.Tensor, ref: torch.Tensor) -> float:
@@ -36,7 +35,8 @@ def reference_images(cell, inputs, sample, steps: int, guidance: float,
     with `floor` those of its bfloat16 run (else None)."""
     fam, cfg = cell.family, cell.config
     ref = fam.reference(cfg, device)
-    sds = weights.make(fam.skeleton(cfg), inputs.seed, device)
+    sds = weights.make(fam.skeleton(cfg), inputs.seed, device,
+                       norms=fam.NORMS)
     ref.load(sds)
     del sds
     ref.set_routing(inputs.labels(), cfg["moe"]["topk_ratio"])
@@ -44,7 +44,7 @@ def reference_images(cell, inputs, sample, steps: int, guidance: float,
     for at in range(0, len(sample), chunk):
         part = sample[at:at + chunk]
         cond, uncond = inputs.ids([r.index for r in part])
-        z = noise(cfg, [r.seed for r in part], device)
+        z = inputs.noise([r.seed for r in part], device)
         for bf16 in (False, True) if floor else (False,):
             out[bf16].append(ref.generate(cond, uncond, z, steps, guidance,
                                           bf16=bf16).cpu())

@@ -72,7 +72,7 @@ def cross_attn(b: int, s: int, c: int, l: int, d_ctx: int) -> float:
             + 4.0 * b * s * l * c)
 
 
-def _per_block(v, i):
+def per_block(v, i):
     return v if isinstance(v, int) else v[i]
 
 
@@ -96,7 +96,7 @@ def unet_call(u: dict, moe, batch: int, side: int, ctx_len: int) -> float:
     def transformer(s, c, i):
         t = s * s
         per[0] += 2 * linear(t, c, c)
-        for _ in range(_per_block(u["transformer_layers_per_block"], i)):
+        for _ in range(per_block(u["transformer_layers_per_block"], i)):
             per[0] += (self_attn(1, t, c)[0] + cross_attn(1, t, c, ctx_len, d_ctx)
                        + ff(t, c, mult, moe)[0])
 

@@ -4,9 +4,11 @@ each request's seed and initial noise, and the MoE expert labels.
 Token ids come from the hash tokenizer of the port's command line (md5 of
 the prompt seeds a numpy draw of ids), copied here so that the benchmark,
 not the program, makes them. A request's initial noise is the program's
-determinism contract: N(0, 1) from a `torch.Generator` on the card seeded
-with the request's seed alone; `noise` draws it the same way for the
-reference.
+determinism contract: N(0, 1) of the configuration's latent shape from a
+`torch.Generator` on the card seeded with the request's seed alone;
+`Inputs.noise` draws it the same way for the reference. What the inputs
+need to know of the model (its FF widths, its latent shape) comes from the
+configuration's module.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ def stream(seed: int, tag: int) -> np.random.Generator:
 class Inputs:
     """What the benchmark hands both the program and the reference."""
 
-    def __init__(self, cfg: dict, seed: int):
-        self.cfg, self.seed = cfg, int(seed)
+    def __init__(self, cfg: dict, seed: int, family):
+        self.cfg, self.seed, self.family = cfg, int(seed), family
         text = cfg["text_encoders"][0]
         self.tokenize = hash_tokenize(text["vocab_size"], text["max_length"])
         self._seeds = stream(seed, _REQUESTS)
@@ -70,44 +72,20 @@ class Inputs:
         return cond, self.tokenize([""]).repeat(len(indices), 1)
 
     def labels(self) -> list:
-        """Random balanced expert labels of every FF layer, in execution
-        order: hidden width H = ff_mult * C split into experts of
-        `expert_size` neurons."""
+        """Random balanced expert labels of every routed FF, in execution
+        order: its hidden width H (the family's `ff_widths`) split into
+        experts of `expert_size` neurons."""
         moe, rng = self.cfg["moe"], stream(self.seed, _LABELS)
+        return [rng.permutation(np.arange(h) % (h // moe["expert_size"]))
+                for h in self.family.ff_widths(self.cfg)]
+
+    def noise(self, seeds: Sequence[int], device) -> torch.Tensor:
+        """The requests' N(0, 1) latents (B, C, s, s) at the family's
+        `latent_shape`, each from a generator on `device` seeded with that
+        request's seed."""
+        shape = self.family.latent_shape(self.cfg)
         out = []
-        for c in ff_dims(self.cfg["unet"]):
-            h = self.cfg["unet"]["ff_mult"] * c
-            out.append(rng.permutation(np.arange(h) % (h // moe["expert_size"])))
-        return out
-
-
-def noise(cfg: dict, seeds: Sequence[int], device) -> torch.Tensor:
-    """The requests' N(0, 1) latents (B, C, s, s), each from a generator on
-    `device` seeded with that request's seed."""
-    s, c = cfg["sample_size"], cfg["unet"]["in_channels"]
-    out = []
-    for sd in seeds:
-        g = torch.Generator(device=device).manual_seed(int(sd))
-        out.append(torch.randn((1, c, s, s), generator=g, device=device))
-    return torch.cat(out)
-
-
-def _per_block(v, i):
-    return v if isinstance(v, int) else v[i]
-
-
-def ff_dims(u: dict) -> list:
-    """Width C of each GEGLU FF in execution order (down, mid, up)."""
-    ch, cross = list(u["block_out_channels"]), ("CrossAttnDownBlock2D",
-                                                 "CrossAttnUpBlock2D")
-    depth = lambda i: _per_block(u["transformer_layers_per_block"], i)  # noqa: E731
-    dims = []
-    for i, kind in enumerate(u["down_block_types"]):
-        if kind in cross:
-            dims += [ch[i]] * u["layers_per_block"] * depth(i)
-    n = len(ch)
-    dims += [ch[-1]] * depth(n - 1)
-    for i, kind in enumerate(u["up_block_types"]):
-        if kind in cross:
-            dims += [ch[n - 1 - i]] * (u["layers_per_block"] + 1) * depth(n - 1 - i)
-    return dims
+        for sd in seeds:
+            g = torch.Generator(device=device).manual_seed(int(sd))
+            out.append(torch.randn((1, *shape), generator=g, device=device))
+        return torch.cat(out)

@@ -1,9 +1,12 @@
 """The Stable Diffusion family (SD1.x and SDXL) as the benchmark runs it:
-the program built through the port's own entry points, the reference, the
-skeleton the weights are made for, and the counts from shapes.
+the names of the configuration-module interface (`harness/loader.py`) for
+a UNet configuration: the program built through the port's own entry
+points, the reference, the skeleton the weights are made for, the FF
+widths, the latent shape, the norms, the counts from shapes and the
+controls.
 
 A configuration's `.py` names the port's preset (`PORT_PRESET`) and
-re-exports this module's functions; `build` checks that the preset, as the
+re-exports this module's names; `build` checks that the preset, as the
 port fills it, equals the configuration file field by field, so the file
 holds the configuration as it is run. The VAE's scaling factor, an option
 of the port's config, is set from the file.
@@ -13,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn as nn
 
 from bench_h100.harness import counts
 from bench_h100.reference.sd_ref import Reference
@@ -22,8 +26,56 @@ _KIND = {"CrossAttnDownBlock2D": "cross", "DownBlock2D": "plain",
          "CrossAttnUpBlock2D": "cross", "UpBlock2D": "plain"}
 
 
+# the parameters drawn as norms (scale 1 + 0.1 N(0, 1), shift 0.1 N(0, 1))
+NORMS = (nn.GroupNorm, nn.LayerNorm)
+# the lower-precision controls beside the program: the port's own int8 path
+# (W8A8 products and convolutions), the nearest precision below bfloat16
+CONTROLS = {"int8": {"quant_int8": True}}
+
+
 def dtype_of(cfg: dict) -> torch.dtype:
     return _DTYPES[cfg["dtype"]]
+
+
+def ff_dims(u: dict) -> list:
+    """Width C of each GEGLU FF in execution order (down, mid, up)."""
+    ch = list(u["block_out_channels"])
+    layers = u["transformer_layers_per_block"]
+    depth = lambda i: counts.per_block(layers, i)  # noqa: E731
+    dims = []
+    for i, kind in enumerate(u["down_block_types"]):
+        if kind in counts.CROSS:
+            dims += [ch[i]] * u["layers_per_block"] * depth(i)
+    n = len(ch)
+    dims += [ch[-1]] * depth(n - 1)
+    for i, kind in enumerate(u["up_block_types"]):
+        if kind in counts.CROSS:
+            dims += [ch[n - 1 - i]] * (u["layers_per_block"] + 1) * depth(n - 1 - i)
+    return dims
+
+
+def ff_widths(cfg: dict) -> list:
+    """Hidden width H = ff_mult * C of each routed FF, in execution order."""
+    u = cfg["unet"]
+    return [u["ff_mult"] * c for c in ff_dims(u)]
+
+
+def latent_shape(cfg: dict) -> tuple:
+    """(C, s, s) of one request's initial noise."""
+    s = cfg["sample_size"]
+    return cfg["unet"]["in_channels"], s, s
+
+
+def ff_work(cfg: dict, shape) -> tuple:
+    """(operations, bytes) of one `*.ff` call on input (b, s, c): the
+    GEGLU-MoE FF with its LayerNorm and residual."""
+    b, s, c = shape
+    return counts.ff(b * s, c, cfg["unet"]["ff_mult"], cfg["moe"])
+
+
+def attn_work(cfg: dict, shape) -> tuple:
+    """(operations, bytes) of one `*.attn1` call on input (b, s, c)."""
+    return counts.self_attn(*shape)
 
 
 def skeleton(cfg: dict) -> dict:
@@ -86,8 +138,7 @@ def check_port_config(cfg: dict, pcfg, text_configs) -> None:
     # for its first block, the port's preset 0)
     u, pu = cfg["unet"], pcfg.unet
     for i, kind in enumerate(u["down_block_types"]):
-        want = u["transformer_layers_per_block"]
-        want = want if isinstance(want, int) else want[i]
+        want = counts.per_block(u["transformer_layers_per_block"], i)
         if kind in counts.CROSS and pu.depth_for_block(i) != want:
             bad.append(f"unet.transformer_layers_per_block[{i}]: file {want}, "
                        f"port {pu.depth_for_block(i)}")
@@ -137,7 +188,8 @@ class Program:
         self.cfg, self.device = cfg, device
 
     @property
-    def unet(self) -> torch.nn.Module:
+    def denoiser(self) -> torch.nn.Module:
+        """The module whose `*.ff` and `*.attn1` calls the tracer wraps."""
         return self.pipe.unet
 
     def generate(self, cond_ids, uncond_ids, seeds, steps: int,

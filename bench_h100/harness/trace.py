@@ -2,12 +2,13 @@
 window, ranges around the layers that per-layer metrics read, and the
 reduction of the trace.
 
-Forward hooks on the UNet's modules whose names end in `.ff` and `.attn1`
-open a `record_function` range around each call and note its input's
-shape. A kernel belongs to a range when the host call that launched it
-(the CUDA runtime or driver API call of the same correlation id) lies inside the
-range; one thread launches all the work in every cell, so the time of the
-launch decides. Device intervals are kernels, copies and sets.
+Forward hooks on the modules of the program's `denoiser` (a UNet, a DiT)
+whose names end in `.ff` and `.attn1` open a `record_function` range
+around each call and note its input's shape. A kernel belongs to a range
+when the host call that launched it (the CUDA runtime or driver API call of
+the same correlation id) lies inside the range; one thread launches all the
+work in every cell, so the time of the launch decides. Device intervals are
+kernels, copies and sets.
 """
 from __future__ import annotations
 
@@ -34,9 +35,9 @@ class Tracer:
     (`due`, `begin`) and traces the rest. The hooks are installed before the
     window and open ranges only while the profiler runs."""
 
-    def __init__(self, unet: torch.nn.Module, untraced_s: float,
+    def __init__(self, denoiser: torch.nn.Module, untraced_s: float,
                  device_type: str = "cuda"):
-        self.unet, self.device_type = unet, device_type
+        self.denoiser, self.device_type = denoiser, device_type
         self.untraced_s = untraced_s
         self.calls = collections.defaultdict(list)   # range -> input shapes
         self._hooks, self._open = [], threading.local()
@@ -47,7 +48,7 @@ class Tracer:
 
     # -- hooks
     def install(self) -> None:
-        for name, module in self.unet.named_modules():
+        for name, module in self.denoiser.named_modules():
             for suffix, rng in RANGES.items():
                 if name.endswith(suffix):
                     self._hooks.append(module.register_forward_pre_hook(

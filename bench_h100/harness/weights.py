@@ -14,6 +14,8 @@ them from the program.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 
@@ -23,10 +25,11 @@ _WEIGHTS = 0
 AFFINE_STD = 0.1    # of biases, norm shifts and norm scales about 1
 
 
-def _rule(module: nn.Module, name: str, shape) -> tuple:
-    """(std, offset, float32?) of the parameter's draw."""
+def _rule(module: nn.Module, name: str, shape, norms: tuple) -> tuple:
+    """(std, offset, float32?) of the parameter's draw; a parameter of one
+    of the module classes `norms` draws as a norm's."""
     owner = module.get_submodule(name.rpartition(".")[0])
-    if isinstance(owner, (nn.GroupNorm, nn.LayerNorm)):
+    if isinstance(owner, norms):
         return AFFINE_STD, 1.0 if name.endswith("weight") else 0.0, True
     if name.endswith("bias"):
         return AFFINE_STD, 0.0, False
@@ -38,25 +41,30 @@ def _rule(module: nn.Module, name: str, shape) -> tuple:
     return fan_in ** -0.5, 0.0, False
 
 
-def make(modules: dict, seed: int, device, dtype=torch.bfloat16) -> dict:
+def plan(modules: dict, norms: tuple) -> list:
+    """[(group, name, shape, (std, offset, float32?))] of every parameter
+    of the skeleton `modules` ({group: nn.Module}), in draw order."""
+    return [(group, name, tuple(p.shape), _rule(module, name, tuple(p.shape),
+                                                 norms))
+            for group, module in modules.items()
+            for name, p in module.named_parameters()]
+
+
+def make(modules: dict, seed: int, device, dtype=torch.bfloat16, *,
+         norms: tuple) -> dict:
     """{group: {name: tensor}} for the skeleton `modules` ({group:
-    nn.Module}, any device, meta included): draws in `dtype`, the norms'
-    scales and shifts in float32 as the program keeps its norms."""
-    plan, total = [], 0
-    for group, module in modules.items():
-        for name, p in module.named_parameters():
-            plan.append((group, name, tuple(p.shape),
-                         _rule(module, name, tuple(p.shape))))
-            total += p.numel()
+    nn.Module}, any device, meta included): draws in `dtype`, the
+    parameters of `norms` (the family's `NORMS`) in float32 as the program
+    keeps its norms."""
+    steps = plan(modules, norms)
+    total = sum(math.prod(shape) for _, _, shape, _ in steps)
     gen_seed = int(stream(seed, _WEIGHTS).integers(0, 2 ** 62))
     g = torch.Generator(device=device).manual_seed(gen_seed)
     flat = torch.randn(total, generator=g, device=device, dtype=dtype)
     out: dict = {group: {} for group in modules}
     at = 0
-    for group, name, shape, (std, offset, f32) in plan:
-        n = 1
-        for s in shape:
-            n *= s
+    for group, name, shape, (std, offset, f32) in steps:
+        n = math.prod(shape)
         t = flat[at:at + n].view(shape)
         at += n
         if f32:

@@ -1,9 +1,11 @@
-"""The least time of the work of the UNet's `*.ff` modules over the device time of
-every kernel launched inside them, in %. The work: the GEGLU-MoE FF with its
-LayerNorm and residual, the second product over the selected experts
-only; least time is max(operations / 989e12, bytes / 3.35e12) per
-call from the call's shape (`harness/counts.py`). Kernels are attributed
-by the host launch inside the module's range, whatever implements it."""
+"""The least time of the work of the denoiser's `*.ff` modules over the device
+time of every kernel launched inside them, in %. The work of a call is the
+configuration's count from its input's shape (`ff_work` of
+`configs/<config>.py`; the SD family's: the GEGLU-MoE FF with its LayerNorm
+and residual, the second product over the selected experts only); least time
+is max(operations / 989e12, bytes / 3.35e12) per call (`harness/counts.py`).
+Kernels are attributed by the host launch inside the module's range,
+whatever implements it."""
 from bench_h100.harness import counts
 
 UNIT = "%"
@@ -17,10 +19,7 @@ def read(run):
     shapes, device_s = t["calls"].get(RANGE), t["range_device_s"].get(RANGE)
     if not shapes or not device_s:
         return None
-    cfg = run.config
-    least = 0.0
+    work, least = run.cell.family.ff_work, 0.0
     for shape in shapes:
-        b, s, c = shape
-        work = counts.ff(b * s, c, cfg["unet"]["ff_mult"], cfg["moe"])
-        least += counts.least_seconds(*work)
+        least += counts.least_seconds(*work(run.config, shape))
     return 100.0 * least / device_s

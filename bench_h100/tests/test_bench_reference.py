@@ -5,15 +5,15 @@ import torch
 
 import diffusion_models_moe_tpu_torch as port
 from bench_h100.harness import check, weights
-from bench_h100.harness.inputs import Inputs, noise
-from bench_h100.harness.sd_family import check_port_config, skeleton
+from bench_h100.harness.inputs import Inputs
+from bench_h100.harness.sd_family import NORMS, check_port_config, skeleton
 from bench_h100.reference.sd_ref import Reference
-from bench_h100.tests.tiny import TINY, TINY_XL, _tiny_xl
+from bench_h100.tests.tiny import TINY, TINY_XL, TinyFamily, _tiny_xl
 from diffusion_models_moe_tpu_torch.taps import layer_name
 
 def _compare(cfg, pipe, seed=11, steps=3):
-    inputs = Inputs(cfg, seed)
-    sds = weights.make(skeleton(cfg), seed, "cpu", torch.float32)
+    inputs = Inputs(cfg, seed, TinyFamily)
+    sds = weights.make(skeleton(cfg), seed, "cpu", torch.float32, norms=NORMS)
     pipe.load_state_dicts(sds)
     labels = inputs.labels()
     ivs = port.build_moe_interventions(
@@ -26,7 +26,7 @@ def _compare(cfg, pipe, seed=11, steps=3):
     ref = Reference(cfg)
     ref.load(sds)
     ref.set_routing(labels, 0.3)
-    want = ref.generate(cond, uncond, noise(cfg, seeds, "cpu"), steps, 7.5)
+    want = ref.generate(cond, uncond, inputs.noise(seeds, "cpu"), steps, 7.5)
     err = (served - want).norm() / want.norm()
     assert float(err) < 2e-5, float(err)
     assert float(want.std()) > 0.01
@@ -46,12 +46,12 @@ def test_reference_equals_the_port_sdxl():
 
 
 def test_the_floor_run_departs_from_float32_by_rounding_alone():
-    inputs = Inputs(TINY, 5)
+    inputs = Inputs(TINY, 5, TinyFamily)
     ref = Reference(TINY)
-    ref.load(weights.make(skeleton(TINY), 5, "cpu"))
+    ref.load(weights.make(skeleton(TINY), 5, "cpu", norms=NORMS))
     ref.set_routing(inputs.labels(), 0.3)
     cond, uncond = inputs.ids([0, 1])
-    z = noise(TINY, [inputs.request_seed(0), inputs.request_seed(1)], "cpu")
+    z = inputs.noise([inputs.request_seed(0), inputs.request_seed(1)], "cpu")
     exact = ref.generate(cond, uncond, z, 2, 7.5)
     floor = ref.generate(cond, uncond, z, 2, 7.5, bf16=True)
     assert floor.dtype == torch.float32

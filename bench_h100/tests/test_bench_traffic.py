@@ -6,7 +6,7 @@ import numpy as np
 from bench_h100.harness import loader
 from bench_h100.harness.inputs import Inputs, stream
 from bench_h100.harness.outcome import Outcome, Request
-from bench_h100.tests.tiny import TINY
+from bench_h100.tests.tiny import TINY, TinyFamily
 
 POISSON = loader.load_module(loader.BENCH / "traffic" / "open_poisson.py")
 CLOSED = loader.load_module(loader.BENCH / "traffic" / "closed_batch.py")
@@ -27,7 +27,8 @@ def test_schedule_is_a_function_of_the_seed_alone():
 
 
 def test_request_inputs_are_a_function_of_the_seed_alone():
-    x, y = Inputs(TINY, 2 ** 33 + 1), Inputs(TINY, 2 ** 33 + 1)
+    x, y = (Inputs(TINY, 2 ** 33 + 1, TinyFamily),
+            Inputs(TINY, 2 ** 33 + 1, TinyFamily))
     assert [x.request_seed(i) for i in range(300)] == [
         y.request_seed(i) for i in range(300)]
     assert x.request_seed(-1) != x.request_seed(0)

@@ -3,9 +3,9 @@ a configuration dict, with the harness's own loaders and generators."""
 from __future__ import annotations
 
 import copy
+import types
 
-from bench_h100.harness import loader
-from bench_h100.harness.sd_family import preset_build
+from bench_h100.harness import loader, sd_family
 
 TINY = {
     "name": "tiny", "pipeline": "sd", "dtype": "float32",
@@ -71,18 +71,16 @@ TINY_XL = dict(
     scheduler=dict(TINY["scheduler"], name="euler"))
 
 
-class TinyFamily:
-    """configs/<name>.py for the tiny geometry: the port's `tiny_config`."""
-    from bench_h100.harness.sd_family import (generate_flops, reference,
-                                              skeleton)
-    generate_flops = staticmethod(generate_flops)
-    reference = staticmethod(reference)
-    skeleton = staticmethod(skeleton)
-    build = staticmethod(preset_build("tiny_config"))
+def _family(preset):
+    """configs/<name>.py for a tiny geometry: the SD family's names, the
+    program built from `preset`."""
+    return types.SimpleNamespace(
+        **{n: getattr(sd_family, n) for n in loader.FAMILY if n != "build"},
+        build=sd_family.preset_build(preset))
 
 
-class TinyXLFamily(TinyFamily):
-    build = staticmethod(preset_build(_tiny_xl))
+TinyFamily = _family("tiny_config")     # the port's `tiny_config`
+TinyXLFamily = _family(_tiny_xl)
 
 
 def tiny_cell(traffic: str = "gen-b8", mix: dict | None = None,
